@@ -1,0 +1,238 @@
+"""SDF trunk value + spatial gradient, and its hand VJP, as CUDA kernels.
+
+Counterpart of ``robir_tpu/render/pallas/fused_value_grad.py``:
+
+- K3 (``csrc/fused_value_grad.cu:vg_fwd_kernel``) replaces the Pallas
+  ``_fwd_kernel`` launched by ``_fused_vg_forward``: trunk forward saving
+  ``s_i = sigma'(z_i)``, then the reverse chain that yields
+  ``de = d y[:, 0] / d x``.
+- K4 (``vg_bwd_rows_kernel`` + ``vg_reduce_kernel``) replaces the Pallas
+  ``_bwd_kernel`` launched by ``_fused_vg_backward``: recompute, the
+  ascending sweep through the reverse chain, the descending backward with
+  ``sigma''`` injections, then a reduction of ``dW``/``db`` over rows.
+
+Both are bound by fp32 multiply-adds on the CUDA cores (about 4 and 12 x
+524,544 per row of the full-width trunk). Per-layer row state that the TPU
+kept in VMEM goes to a global scratch buffer allocated here (its size in
+floats is ``scratch_floats``, which asks the kernel library, the one place
+that lays the buffer out); ``dW``/``db`` are summed across blocks with fp32
+atomics, so their sums run in an order that changes from run to run.
+
+``_forward_phases`` and ``_backward_phases`` are the plain PyTorch
+versions, the same sweeps as the Pallas kernels: the CPU tests run them,
+and ``chip_smoke.py`` holds the kernels to them on the card. The
+``torch.autograd.Function`` launches the kernels for CUDA tensors and runs
+the plain versions only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import Kernel, int_array, library, ptr
+from .fused_mlp import (_SQ2, MLPPlan, _act, check_cuda_inputs, pack_weights,
+                        stream_handle)
+
+_SOURCE = "fused_value_grad.cu"
+
+
+def _sigma_p(plan: MLPPlan, z):
+    """sigma'(z) for the plan activation."""
+    if plan.activation == "softplus100":
+        return torch.sigmoid(100.0 * z)
+    if plan.activation == "relu":
+        return (z > 0).to(z.dtype)
+    return torch.ones_like(z)
+
+
+def _sigma_pp(plan: MLPPlan, s):
+    """sigma''(z) expressed through s = sigma'(z)."""
+    if plan.activation == "softplus100":
+        return 100.0 * s * (1.0 - s)
+    return torch.zeros_like(s)
+
+
+def _forward_phases(plan: MLPPlan, x, weights, biases):
+    """Plain version of K3's math: returns (y, de, cs, ss, us, qs)."""
+    n = plan.n_layers
+    # phase 1: forward, saving layer inputs c_i and s_i = sigma'(z_i)
+    cs, ss = [], []
+    h = x
+    y = None
+    for i in range(n):
+        c = torch.cat([h, x], dim=-1) * _SQ2 if i in plan.skip_in else h
+        cs.append(c)
+        z = c @ weights[i] + biases[i]
+        if i < n - 1:
+            ss.append(_sigma_p(plan, z))
+            h = _act(plan, z)
+        else:
+            y = z
+    # phase 2: reverse chain for de = d y_0 / d x from the one-hot seed e0
+    e0 = torch.zeros((x.shape[0], plan.layer_out_dim(n - 1)), dtype=x.dtype,
+                     device=x.device)
+    e0[:, 0] = 1.0
+    us = [None] * n
+    qs = [None] * n
+    us[n - 1] = e0
+    de = torch.zeros_like(x)
+    u = e0
+    for i in range(n - 1, -1, -1):
+        p = u @ weights[i].t()
+        if i in plan.skip_in:
+            d = plan.dims[i]
+            de = de + p[:, d:] * _SQ2
+            q = p[:, :d] * _SQ2
+        else:
+            q = p
+        qs[i] = q
+        if i > 0:
+            u = ss[i - 1] * q
+            us[i - 1] = u
+        else:
+            de = de + q
+    return y, de, cs, ss, us, qs
+
+
+def _backward_phases(plan: MLPPlan, x, weights, biases, dy, dde):
+    """Plain version of K4's math: the hand VJP of (y, de) -> (dx, dWs, dbs)."""
+    n = plan.n_layers
+    _, _, cs, ss, us, qs = _forward_phases(plan, x, weights, biases)
+
+    # ascending sweep: VJP of the reverse (grad) chain
+    sbars = [None] * (n - 1)
+    ubar = None
+    dws = [None] * n
+    for i in range(n):
+        if i == 0:
+            qbar = dde
+        else:
+            qbar = ss[i - 1] * ubar
+            sbars[i - 1] = qs[i] * ubar
+        if i in plan.skip_in:
+            pbar = torch.cat([qbar * _SQ2, dde * _SQ2], dim=-1)
+        else:
+            pbar = qbar
+        dws[i] = pbar.t() @ us[i]
+        ubar = pbar @ weights[i]
+
+    # descending sweep: standard backward with sigma'' injections
+    zbar = dy
+    dx = torch.zeros_like(x)
+    dbs = [None] * n
+    for i in range(n - 1, -1, -1):
+        dws[i] = dws[i] + cs[i].t() @ zbar
+        dbs[i] = zbar.sum(0)
+        cbar = zbar @ weights[i].t()
+        if i in plan.skip_in:
+            d = plan.dims[i]
+            dx = dx + cbar[:, d:] * _SQ2
+            abar = cbar[:, :d] * _SQ2
+        else:
+            abar = cbar
+        if i > 0:
+            zbar = ss[i - 1] * abar + _sigma_pp(plan, ss[i - 1]) * sbars[i - 1]
+        else:
+            dx = dx + abar
+    return dx, dws, dbs
+
+
+FORWARD = Kernel(_SOURCE, "fused_vg_forward",
+                 [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int),
+                                          ctypes.c_longlong, ctypes.c_void_p])
+BACKWARD = Kernel(_SOURCE, "fused_vg_backward",
+                  [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_int),
+                                            ctypes.c_longlong, ctypes.c_void_p])
+
+
+def scratch_floats(plan: MLPPlan, n_rows: int, backward: bool) -> int:
+    """Floats of global scratch K3 (backward=False) or K4 needs for n_rows."""
+    fn = library(_SOURCE).fused_vg_scratch_floats
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_longlong, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    n = fn(int_array(plan.meta()), n_rows, int(backward))
+    if n < 0:
+        raise ValueError(f"plan outside the kernels' limits: {plan}")
+    return n
+
+
+def vg_forward_cuda(plan: MLPPlan, x, weights, biases):
+    """Launch K3: x [N, d0] -> (y [N, out_dim], de [N, d0])."""
+    check_cuda_inputs(plan, x, weights, biases)
+    x = x.contiguous()
+    W, Wt, b = pack_weights(weights, biases, transposed=True)
+    n = x.shape[0]
+    y = torch.empty((n, plan.out_dim), device=x.device, dtype=torch.float32)
+    de = torch.empty_like(x)
+    scratch = torch.empty(scratch_floats(plan, n, False), device=x.device,
+                          dtype=torch.float32)
+    FORWARD(ptr(x), ptr(W), ptr(Wt), ptr(b), ptr(y), ptr(de), ptr(scratch),
+            int_array(plan.meta()), n, stream_handle(x))
+    return y, de
+
+
+def vg_backward_cuda(plan: MLPPlan, x, weights, biases, dy, dde):
+    """Launch K4: cotangents (dy, dde) -> (dx, dWs, dbs)."""
+    check_cuda_inputs(plan, x, weights, biases)
+    x, dy, dde = x.contiguous(), dy.contiguous(), dde.contiguous()
+    if dy.shape != (x.shape[0], plan.out_dim) or dde.shape != x.shape:
+        raise ValueError(f"cotangents {tuple(dy.shape)}, {tuple(dde.shape)} "
+                         f"do not match x {tuple(x.shape)}")
+    W, Wt, b = pack_weights(weights, biases, transposed=True)
+    n = x.shape[0]
+    dx = torch.empty_like(x)
+    dW = torch.zeros_like(W)
+    db = torch.zeros_like(b)
+    scratch = torch.empty(scratch_floats(plan, n, True), device=x.device,
+                          dtype=torch.float32)
+    BACKWARD(ptr(x), ptr(dy), ptr(dde), ptr(W), ptr(Wt), ptr(b), ptr(dx),
+             ptr(dW), ptr(db), ptr(scratch), int_array(plan.meta()), n,
+             stream_handle(x))
+    dws, dbs, wo, bo = [], [], 0, 0
+    for w, bb in zip(weights, biases):
+        dws.append(dW[wo:wo + w.numel()].view(w.shape))
+        dbs.append(db[bo:bo + bb.numel()])
+        wo += w.numel()
+        bo += bb.numel()
+    return dx, dws, dbs
+
+
+class _FusedValueGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plan, x, *wb):
+        n = plan.n_layers
+        ws, bs = wb[:n], wb[n:]
+        ctx.plan = plan
+        ctx.save_for_backward(x, *wb)
+        if x.is_cuda:
+            return vg_forward_cuda(plan, x, ws, bs)
+        y, de, *_ = _forward_phases(plan, x, ws, bs)
+        return y, de
+
+    @staticmethod
+    def backward(ctx, dy, dde):
+        plan = ctx.plan
+        x, *wb = ctx.saved_tensors
+        n = plan.n_layers
+        ws, bs = wb[:n], wb[n:]
+        if dy is None:
+            dy = x.new_zeros((x.shape[0], plan.out_dim))
+        if dde is None:
+            dde = torch.zeros_like(x)
+        if x.is_cuda:
+            dx, dws, dbs = vg_backward_cuda(plan, x, ws, bs, dy, dde)
+        else:
+            dx, dws, dbs = _backward_phases(plan, x, ws, bs, dy, dde)
+        return (None, dx, *dws, *dbs)
+
+
+def fused_value_grad(plan: MLPPlan, x, weights, biases):
+    """x [N, dims[0]] -> (y [N, out_dim], de = d y[:,0] / d x [N, dims[0]]).
+
+    Differentiable once, through the hand VJP (K4 on CUDA); the train step
+    needs exactly first derivatives of (y, de)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_value_grad runs on cuda or cpu, not {x.device}")
+    return _FusedValueGrad.apply(plan, x, *weights, *biases)
