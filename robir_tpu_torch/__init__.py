@@ -2,9 +2,11 @@
 
 A second package beside the JAX one (``robir_tpu``), which stays the
 reference it is tested against. It imports ``torch`` and nothing of JAX or
-of ``robir_tpu``. The SDF trunk of the stage-1 NeuS train step runs through
-hand-written CUDA kernels for Hopper (``csrc/``, built with ``nvcc`` at
-first use); their plain PyTorch versions serve CPU tensors only.
+of ``robir_tpu``. It runs the stage-1 NeuS train step and the stage-2 CESR
+train step; their dense trunks (the SDF trunk, the CESR normal net) run
+through hand-written CUDA kernels for Hopper (``csrc/``, built with
+``nvcc`` at first use), whose plain PyTorch versions serve CPU tensors
+only.
 """
 
 import torch

@@ -1,11 +1,14 @@
-"""JSON config loading for the port's stage-1 sections (counterpart of
-``robir_tpu/core/config.py``, which imports the JAX modules).
+"""JSON config loading (counterpart of ``robir_tpu/core/config.py``, which
+imports the JAX modules).
 
 Reads the same ``configs/*.json`` files: JSON with ``//`` line comments.
 ``_build`` fills a frozen dataclass from a dict, keeping defaults for
-missing keys and rejecting unknown ones. Covered sections: ``model``,
-``render``, ``train`` and ``dataset``; other sections (``mesh``, stage 2)
-are not read.
+missing keys and rejecting unknown ones. Covered sections: stage 1's
+``model``, ``render``, ``train`` and ``dataset``; stage 2's ``model``
+(``neus``, ``envmap_material_network``, ``indirect_illum_network``,
+``visibility_network``, ``tonemap``, ``grid``, ``coord_scale`` and the
+tracer keys) and the ``cesr`` stage section. Other sections (``mesh``,
+``norm``, ``vis``, ``pbr``) are not read.
 """
 
 from __future__ import annotations
@@ -15,11 +18,18 @@ import json
 import re
 
 from ..data.blender import BlenderConfig
+from ..fields.envmap_material import EnvmapMaterialConfig
 from ..fields.neus_model import NeuSConfig, VarianceConfig
 from ..fields.radiance import RenderingConfig
 from ..fields.sdf import SDFConfig
+from ..fields.visibility import IndirIllumConfig, VisNetConfig
+from ..render.color import ToneMapConfig
 from ..render.neus import NeusRenderConfig
+from ..render.stage2 import GridConfig, Stage2Config
+from ..stages.losses import InvLossConfig
 from ..stages.neus_stage import NeusTrainConfig
+from ..stages.stage2_runner import StageOptConfig
+from ..tracing.sphere import SphereTracerConfig
 
 
 def load_config(path: str) -> dict:
@@ -70,3 +80,42 @@ def build_stage1_configs(cfg: dict):
             build_neus_render_config(cfg.get("render", {})),
             _build(NeusTrainConfig, cfg.get("train")),
             _build(BlenderConfig, cfg.get("dataset")))
+
+
+_STAGE2_KEYS = {"neus", "envmap_material_network", "indirect_illum_network",
+                "visibility_network", "tonemap", "grid", "coord_scale", "bgr",
+                "vis_compute_dtype", "use_neus", "tracer",
+                "sphere_tracer"}
+
+
+def build_stage2_config(d: dict, **overrides) -> Stage2Config:
+    """Stage2Config of a stage-2 ``model`` section; ``overrides`` (e.g.
+    ``tracer="sphere"``) replace top-level keys."""
+    d = {**d, **overrides}
+    unknown = set(d) - _STAGE2_KEYS
+    if unknown:
+        raise KeyError(f"unknown stage-2 model keys: {sorted(unknown)}")
+    return Stage2Config(
+        neus=build_neus_config(d.get("neus", {})),
+        envmap=_build(EnvmapMaterialConfig, d.get("envmap_material_network")),
+        indirect=_build(IndirIllumConfig, d.get("indirect_illum_network")),
+        visnet=_build(VisNetConfig, d.get("visibility_network")),
+        tonemap=_build(ToneMapConfig, d.get("tonemap")),
+        grid=_build(GridConfig, d.get("grid")),
+        coord_scale=d.get("coord_scale", 2.0),
+        bgr=d.get("bgr", False),
+        vis_compute_dtype=d.get("vis_compute_dtype"),
+        use_neus=d.get("use_neus", True),
+        tracer=d.get("tracer", "grid"),
+        sphere_tracer=_build(SphereTracerConfig, d.get("sphere_tracer")))
+
+
+def build_stage_config(dc_type, d: dict | None, **overrides):
+    """A stage config (e.g. ``CESRStageConfig``) from its section, with the
+    nested ``opt`` and ``loss`` sections built from plain dicts."""
+    d = {**(d or {}), **overrides}
+    if isinstance(d.get("opt"), dict):
+        d["opt"] = _build(StageOptConfig, d["opt"])
+    if isinstance(d.get("loss"), dict):
+        d["loss"] = _build(InvLossConfig, d["loss"])
+    return _build(dc_type, d)

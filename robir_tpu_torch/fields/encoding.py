@@ -2,8 +2,8 @@
 
 Feature layout is [x, sin(f0 x), cos(f0 x), sin(f1 x), ...] with
 per-frequency 3-vectors interleaved sin-then-cos and log-spaced frequencies
-2^0..2^(L-1), the JAX package's order. The integrated (mip-NeRF) encoding
-comes with stage 2.
+2^0..2^(L-1), the JAX package's order. ``integrated_pos_enc`` is the
+mip-NeRF encoding of a diagonal Gaussian (the stage-2 normal head's input).
 """
 
 from __future__ import annotations
@@ -61,3 +61,29 @@ def positional_encoding_vjp(x: torch.Tensor, g: torch.Tensor,
         off += 2 * d
         out = out + (gs * torch.cos(xf) - gc * torch.sin(xf)) * ff
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class IPEConfig:
+    min_deg: int = 0
+    max_deg: int = 6
+    input_dims: int = 3
+
+    @property
+    def out_dim(self) -> int:
+        return 2 * (self.max_deg - self.min_deg) * self.input_dims
+
+
+def integrated_pos_enc(mean: torch.Tensor, var_diag: torch.Tensor,
+                       cfg: IPEConfig) -> torch.Tensor:
+    """IPE of a Gaussian with diagonal covariance: E[sin(f x)] under
+    x ~ N(mu, sigma^2) = sin(f mu) exp(-f^2 sigma^2 / 2), the same
+    attenuation for cos. Layout [sin(all scales), cos(all scales)], scales
+    outer and coordinates inner."""
+    scales = torch.tensor(2.0 ** np.arange(cfg.min_deg, cfg.max_deg),
+                          dtype=mean.dtype, device=mean.device)
+    shape = mean.shape[:-1] + (len(scales) * cfg.input_dims,)
+    y = (mean[..., None, :] * scales[:, None]).reshape(shape)
+    y_var = (var_diag[..., None, :] * scales[:, None] ** 2).reshape(shape)
+    atten = torch.exp(-0.5 * y_var)
+    return torch.cat([atten * torch.sin(y), atten * torch.cos(y)], dim=-1)

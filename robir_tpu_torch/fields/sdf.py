@@ -6,8 +6,9 @@ sqrt(2)), SAL geometric initialization (sphere of radius ``bias``),
 softplus(beta=100) activations, output = [sdf / scale, geometry feature].
 
 In the port the trunk always goes through the two fused ops of
-``render/cuda``: ``fused_mlp`` (K1) for the value and ``fused_value_grad``
-(K3, with its hand VJP K4) for value + spatial gradient. They launch the
+``render/cuda``: ``fused_mlp`` (K1, with its recompute backward K2) for
+the value and ``fused_value_grad`` (K3, with its hand VJP K4) for value +
+spatial gradient. They launch the
 CUDA kernels for CUDA tensors and run their plain versions for CPU tensors.
 So ``fused_kernel``, ``fused_block_rows``, ``grad_mode`` and
 ``storage_dtype`` stay accepted keys (configs load unchanged) but select
@@ -22,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..render.cuda.fused_mlp import (fold_weight_norm, fused_mlp,
+from ..render.cuda.fused_mlp import (fold_weight_norm, fused_mlp, pack_weights,
                                      plan_from_sdf_config)
 from ..render.cuda.fused_value_grad import fused_value_grad
 from .encoding import (PEConfig, positional_encoding,
@@ -139,9 +140,9 @@ def _encode(cfg: SDFConfig, x: torch.Tensor) -> torch.Tensor:
 
 def sdf_apply(params: Params, cfg: SDFConfig, x: torch.Tensor,
               out_cols: int | None = None) -> torch.Tensor:
-    """[N, 3] -> [N, d_out] = [sdf, features] through K1. All 257 columns
-    are computed and then sliced to ``out_cols``, as the JAX fused path
-    does. On CUDA this is forward only (K1 has no backward yet)."""
+    """[N, 3] -> [N, d_out] = [sdf, features] through K1 (and K2 in the
+    backward, when the weights or x need a gradient). All columns are
+    computed and then sliced to ``out_cols``, as the JAX fused path does."""
     if x.dim() != 2:
         raise ValueError(f"sdf_apply takes [N, {cfg.d_in}] points, got {tuple(x.shape)}")
     plan = plan_from_sdf_config(cfg)
@@ -149,6 +150,24 @@ def sdf_apply(params: Params, cfg: SDFConfig, x: torch.Tensor,
     h = fused_mlp(plan, _encode(cfg, x), ws, bs)
     out = torch.cat([h[..., :1] / cfg.scale, h[..., 1:]], dim=-1)
     return out[..., :out_cols] if out_cols is not None else out
+
+
+def frozen_sdf(params: Params, cfg: SDFConfig, out_cols: int | None = None):
+    """``x -> sdf_apply(params, cfg, x, out_cols)`` without a graph, for
+    many queries of weights that stay fixed between them (the sphere
+    tracer's 51 per trace): the weight-norm fold, and on the card the
+    kernel's weight packing, are done once here rather than per query."""
+    plan = plan_from_sdf_config(cfg)
+    with torch.no_grad():
+        ws, bs = fold_weight_norm(params, plan.n_layers)
+        packed = pack_weights(ws, bs) if ws[0].is_cuda else None
+
+    @torch.no_grad()
+    def query(x: torch.Tensor) -> torch.Tensor:
+        h = fused_mlp(plan, _encode(cfg, x), ws, bs, packed)[..., :out_cols]
+        return torch.cat([h[..., :1] / cfg.scale, h[..., 1:]], dim=-1)
+
+    return query
 
 
 def sdf_full_and_gradient(params: Params, cfg: SDFConfig, x: torch.Tensor):

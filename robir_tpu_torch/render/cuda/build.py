@@ -102,7 +102,9 @@ class Kernel:
     """One C entry point of a kernel library, with its count of launches.
 
     Calling it launches the kernel(s) behind the entry point on the given
-    stream, raises if CUDA reports an error, and adds one to ``launches``.
+    stream, raises if CUDA reports an error, and adds one to ``launches``
+    and to ``by_shape[shape]``, where the caller names the launch's shape
+    (for the trunk kernels: the widest layer of the build and the rows).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -110,8 +112,13 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.by_shape: dict[tuple, int] = {}
 
-    def __call__(self, *args) -> None:
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_shape = {}
+
+    def __call__(self, *args, shape: tuple) -> None:
         lib = library(self.source)
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
@@ -124,3 +131,4 @@ class Kernel:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} "
                                f"({msg(err).decode()})")
         self.launches += 1
+        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1

@@ -32,19 +32,11 @@ import ctypes
 import torch
 
 from .build import Kernel, int_array, library, ptr
-from .fused_mlp import (_SQ2, MLPPlan, _act, check_cuda_inputs, pack_weights,
-                        stream_handle)
+from .fused_mlp import (_SQ2, MAX_WIDTH, MLPPlan, _act, _sigma_p,
+                        check_cuda_inputs, pack_weights, stream_handle,
+                        unpack_grads)
 
 _SOURCE = "fused_value_grad.cu"
-
-
-def _sigma_p(plan: MLPPlan, z):
-    """sigma'(z) for the plan activation."""
-    if plan.activation == "softplus100":
-        return torch.sigmoid(100.0 * z)
-    if plan.activation == "relu":
-        return (z > 0).to(z.dtype)
-    return torch.ones_like(z)
 
 
 def _sigma_pp(plan: MLPPlan, s):
@@ -169,7 +161,7 @@ def vg_forward_cuda(plan: MLPPlan, x, weights, biases):
     scratch = torch.empty(scratch_floats(plan, n, False), device=x.device,
                           dtype=torch.float32)
     FORWARD(ptr(x), ptr(W), ptr(Wt), ptr(b), ptr(y), ptr(de), ptr(scratch),
-            int_array(plan.meta()), n, stream_handle(x))
+            int_array(plan.meta()), n, stream_handle(x), shape=(MAX_WIDTH, n))
     return y, de
 
 
@@ -189,14 +181,8 @@ def vg_backward_cuda(plan: MLPPlan, x, weights, biases, dy, dde):
                           dtype=torch.float32)
     BACKWARD(ptr(x), ptr(dy), ptr(dde), ptr(W), ptr(Wt), ptr(b), ptr(dx),
              ptr(dW), ptr(db), ptr(scratch), int_array(plan.meta()), n,
-             stream_handle(x))
-    dws, dbs, wo, bo = [], [], 0, 0
-    for w, bb in zip(weights, biases):
-        dws.append(dW[wo:wo + w.numel()].view(w.shape))
-        dbs.append(db[bo:bo + bb.numel()])
-        wo += w.numel()
-        bo += bb.numel()
-    return dx, dws, dbs
+             stream_handle(x), shape=(MAX_WIDTH, n))
+    return dx, *unpack_grads(dW, db, weights, biases)
 
 
 class _FusedValueGrad(torch.autograd.Function):

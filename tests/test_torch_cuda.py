@@ -7,8 +7,8 @@ This file imports no JAX, so that it also runs on a machine that has none:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: |kernel - plain| within 1e-4 of each output's largest entry.
-Both are fp32 (TF32 off); the kernels sum in another order, and K4 sums
-dW/db across blocks with atomics.
+Both are fp32 (TF32 off); the kernels sum in another order, and K2 and K4
+sum dW/db across blocks with atomics.
 """
 
 import numpy as np
@@ -41,9 +41,15 @@ def _close(got, want):
     assert float((got - want).abs().max()) <= TOL * max(scale, 1e-3)
 
 
-@pytest.mark.parametrize("n_rows", [1000, 4099])
-def test_k1_matches_plain(dev, n_rows):
-    plan = tfm.plan_from_sdf_config(SDFConfig())
+# the CESR normal net: 8 x 512 with the skip at layer 4 (449 + 63), PE input
+NORMAL_NET = SDFConfig(d_in=63, d_out=3, d_hidden=512, n_layers=8, skip_in=(4,),
+                       multires=0)
+
+
+@pytest.mark.parametrize("sdf_cfg,n_rows", [(SDFConfig(), 1000), (SDFConfig(), 4099),
+                                            (NORMAL_NET, 1027)])
+def test_k1_matches_plain(dev, sdf_cfg, n_rows):
+    plan = tfm.plan_from_sdf_config(sdf_cfg)
     x, ws, bs = trunk_case(plan, 1, n_rows)
     x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
     before = tfm.FORWARD.launches
@@ -53,12 +59,37 @@ def test_k1_matches_plain(dev, n_rows):
     _close(got, tfm._forward_rows(plan, x, ws, bs))
 
 
-def test_k1_refuses_gradients(dev):
-    plan = tfm.MLPPlan(dims=(8, 16, 8, 16), out_dim=5, skip_in=(2,))
-    x, ws, bs = trunk_case(plan, 2, 8)
+@pytest.mark.parametrize("sdf_cfg,n_rows,need_dx", [
+    (NORMAL_NET, 1024, False), (NORMAL_NET, 1027, True), (SDFConfig(), 4099, True)])
+def test_k2_matches_plain(dev, sdf_cfg, n_rows, need_dx):
+    plan = tfm.plan_from_sdf_config(sdf_cfg)
+    x, ws, bs = trunk_case(plan, 6, n_rows)
+    dy = to_t(np.random.default_rng(7).standard_normal((n_rows, plan.out_dim)), dev)
+    x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
+    dx, dws, dbs = tfm.mlp_backward_cuda(plan, x, ws, bs, dy, need_dx)
+    dxr, dwsr, dbsr = tfm._backward_rows(plan, x, ws, bs, dy, need_dx)
+    assert (dx is None) == (not need_dx)
+    pairs = [*zip(dws, dwsr), *zip(dbs, dbsr)] + ([(dx, dxr)] if need_dx else [])
+    for got, want in pairs:
+        _close(got, want)
+
+
+def test_fused_mlp_under_grad_runs_k1_and_k2(dev):
+    """With weights that need gradients, fused_mlp on CUDA runs K1 forward
+    and K2 backward (no dx: x needs none) and matches autograd through the
+    plain version."""
+    plan = tfm.plan_from_sdf_config(NORMAL_NET)
+    x, ws, bs = trunk_case(plan, 2, 300)
+    x = to_t(x, dev)
     ws = [to_t(w, dev).requires_grad_() for w in ws]
-    with pytest.raises(RuntimeError, match="forward only"):
-        tfm.fused_mlp(plan, to_t(x, dev), ws, [to_t(b, dev) for b in bs])
+    bs = [to_t(b, dev).requires_grad_() for b in bs]
+    dy = to_t(np.random.default_rng(3).standard_normal((300, plan.out_dim)), dev)
+    before = (tfm.FORWARD.launches, tfm.BACKWARD.launches)
+    grads = torch.autograd.grad(tfm.fused_mlp(plan, x, ws, bs), [*ws, *bs], dy)
+    assert (tfm.FORWARD.launches, tfm.BACKWARD.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(tfm._forward_rows(plan, x, ws, bs), [*ws, *bs], dy)
+    for got, w in zip(grads, want):
+        _close(got, w)
 
 
 @pytest.mark.parametrize("n_rows", [1000, 4099])
@@ -95,3 +126,50 @@ def test_trainer_steps_launch_each_kernel(dev):
         trainer.close()
     assert np.isfinite(metrics["loss"])
     assert [k.launches - b for k, b in zip(kernels, before)] == [12, 3, 3]
+
+
+def test_cesr_runner_steps_launch_each_kernel(dev):
+    """Small widths through CESRRunner on the card: finite losses, and per
+    step 52 K1 (51 sphere-tracer queries, the normal net), 1 K2 (the normal
+    net's backward) and 1 K3 (the geometry normals)."""
+    import dataclasses
+
+    from robir_tpu_torch.data.syn_dataset import shadow_scene
+    from robir_tpu_torch.fields.envmap_material import EnvmapMaterialConfig
+    from robir_tpu_torch.fields.visibility import IndirIllumConfig, VisNetConfig
+    from robir_tpu_torch.render.stage2 import Stage2Config
+    from robir_tpu_torch.stages.cesr import CESRRunner, CESRStageConfig
+    from robir_tpu_torch.stages.stage2_runner import init_stage2_params
+
+    @dataclasses.dataclass(frozen=True)
+    class SmallCESR(CESRStageConfig):
+        @property
+        def normal_cfg(self):
+            return SDFConfig(d_in=63, d_out=3, d_hidden=96, n_layers=3, skip_in=(2,),
+                             multires=0)
+
+        @property
+        def shadow_cfg(self):
+            return SDFConfig(d_in=63 + self.num_lights, d_out=2, d_hidden=96, n_layers=3,
+                             skip_in=(2,), multires=0)
+
+    cfg = Stage2Config(
+        neus=NeuSConfig(sdf=SDFConfig(d_out=33, d_hidden=32, n_layers=3, skip_in=(2,),
+                                      multires=3),
+                        color=RenderingConfig(d_feature=32, d_hidden=32, n_layers=2)),
+        envmap=EnvmapMaterialConfig(multires=3, num_lgt_sgs=8, encoder_dims=(48, 48),
+                                    decoder_dims=(24,), latent_dim=8),
+        indirect=IndirIllumConfig(multires=3, dims=(32, 32), num_lgt_sgs=6),
+        visnet=VisNetConfig(points_multires=3, dirs_multires=3, dims=(32, 32),
+                            storage_dtype="bfloat16"),
+        tracer="sphere")
+    runner = CESRRunner(cfg, init_stage2_params(torch.Generator().manual_seed(0), cfg),
+                        shadow_scene(n_train=3, h=40, w=40),
+                        SmallCESR(num_pixels=64, warmup_iters=1, normal_switch_iter=1,
+                                  dropout_iter=2), device="cuda")
+    kernels = (tfm.FORWARD, tfm.BACKWARD, tfv.FORWARD, tfv.BACKWARD)
+    before = [k.launches for k in kernels]
+    for _ in range(3):
+        metrics = runner.run(1)
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert [k.launches - b for k, b in zip(kernels, before)] == [156, 3, 3, 0]

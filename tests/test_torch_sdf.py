@@ -73,6 +73,43 @@ def test_sdf_apply_matches_jax(sdf_case, fused, out_cols):
     assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("out_cols", [None, 1])
+def test_frozen_sdf_matches_jax(sdf_case, out_cols):
+    """The tracer's query (weights folded once, no graph) against JAX
+    ``sdf_apply``, over two queries of the same fold."""
+    jcfg, tcfg, params, tparams, x = sdf_case
+    query = tsdf.frozen_sdf(tparams, tcfg, out_cols=out_cols)
+    for xx in (x, x[:5] * 0.5):
+        want = jsdf.sdf_apply(params, jcfg, jnp.asarray(xx), out_cols=out_cols)
+        got = query(to_t(xx))
+        assert got.shape == want.shape and not got.requires_grad
+        assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_sdf_apply_gradient_matches_jax(sdf_case, fused):
+    """Parameter and input gradients of a loss on ``sdf_apply`` (K1 forward,
+    the plain K2 backward) against the JAX package's plain and fused
+    (custom VJP) paths."""
+    jcfg, tcfg, params, tparams, x = sdf_case
+    jcfg = dataclasses.replace(jcfg, fused_kernel=fused)
+    w = np.random.default_rng(7).standard_normal((x.shape[0], jcfg.d_out)).astype(np.float32)
+
+    def jloss(p, xx):
+        return jnp.sum(jsdf.sdf_apply(p, jcfg, xx) * w)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    tx = to_t(x).requires_grad_()
+    tparams.zero_grad(set_to_none=True)
+    torch.sum(tsdf.sdf_apply(tparams, tcfg, tx) * to_t(w)).backward()
+    assert_close(tx.grad, jgx, rtol=5e-4, atol=1e-5, what="dx")
+    for name, lin in tparams.items():
+        for k, p in lin.items():
+            assert_close(p.grad, jgp[name][k], rtol=5e-4, atol=1e-5,
+                         what=f"{name}.{k}")
+    tparams.zero_grad(set_to_none=True)
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_sdf_full_and_gradient_matches_jax(sdf_case, fused):
     """Value, spatial gradient, and the second-order parameter gradient of
