@@ -4,11 +4,14 @@
     python3 chip_smoke.py [--steps 20] [--cesr-steps 20] [--seed 0] [--profile STEPS]
 
 1. Builds the port's CUDA kernels from ``robir_tpu_torch/csrc`` with nvcc
-   for sm_90a (into ``robir_tpu_torch/build/``).
+   for sm_90a (into ``robir_tpu_torch/build/``), prints each kernel's
+   registers, static shared memory and spill bytes from the ptxas report,
+   and fails if a K3 or K4 kernel spills.
 2. Holds each kernel to its plain PyTorch version on the same inputs, at the
    shapes of the main paths and at ragged row counts, in fp32 with TF32
    off, and times both with CUDA events: K1, K3 and K4 at the SDF trunk's
-   plan and stage 1's rows; K1 at the CESR tracer's rows (1,024 per query,
+   plan and stage 1's rows (K3 and K4 also on each side of their switch
+   from 16- to 64-row tiles); K1 at the CESR tracer's rows (1,024 per query,
    102,400 in the dense search) and K3 at the CESR step's (1,024); K1 and
    K2 at the CESR normal net's plan (8 x 512, 1,024 rows, and 1,027), K2
    also at the SDF trunk's (8,192 rows).
@@ -49,6 +52,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -105,6 +109,8 @@ CESR_GRAD_TOL = 1e-4
 CESR_FP32_FACTOR = 8.0
 # the planted fault: K2 blind to one tile of this many rows
 FAULT_ROWS = 16
+# K3 and K4 take 64-row tiles from this many rows per SM (fused_value_grad.cu)
+VG_TALL_ROWS_PER_SM = 128
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
@@ -191,14 +197,18 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
             kernel="K1", path="neus_stage1", shape=None)
 
         x, ws, bs = trunk_inputs(plan, pe, rows_k3, gen)
-        xr = x[:4099]
-        y, de = fv.vg_forward_cuda(plan, x, ws, bs)
-        yp, dep, *_ = fv._forward_phases(plan, x, ws, bs)
-        y_r, de_r = fv.vg_forward_cuda(plan, xr, ws, bs)
-        yp_r, dep_r, *_ = fv._forward_phases(plan, xr, ws, bs)
-        err = held_to_plain("K3", [("y", y, yp), ("de", de, dep),
-                                   ("y ragged", y_r, yp_r), ("de ragged", de_r, dep_r)])
-        del y, de, yp, dep, y_r, de_r, yp_r, dep_r
+        # the main path's rows, a ragged count, and each side of the switch
+        # from 16- to 64-row tiles (fused_value_grad.cu: vg_row_tile)
+        switch = VG_TALL_ROWS_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
+        k34_rows = ((rows_k3, ""), (4099, " ragged"), (switch - 1, f" at {switch - 1}"),
+                    (switch + 1, f" at {switch + 1}"))
+        pairs = []
+        for n, tag in k34_rows:
+            y, de = fv.vg_forward_cuda(plan, x[:n], ws, bs)
+            yp, dep, *_ = fv._forward_phases(plan, x[:n], ws, bs)
+            pairs += [("y" + tag, y, yp), ("de" + tag, de, dep)]
+        err = held_to_plain("K3", pairs)
+        del pairs, y, de, yp, dep
         ms = cuda_ms(lambda: fv.vg_forward_cuda(plan, x, ws, bs), 5)
         plain = cuda_ms(lambda: fv._forward_phases(plan, x, ws, bs), 5)
         bound = bound_ms(4.0 * nw * rows_k3, 4.0 * (rows_k3 * (2 * d0 + dout) + nw + nb))
@@ -218,7 +228,7 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
         dy = 1e-3 * torch.randn(rows_k3, dout, generator=gen, device="cuda")
         dde = 1e-3 * torch.randn(rows_k3, d0, generator=gen, device="cuda")
         pairs = []
-        for tag, n in (("", rows_k3), (" ragged", 4099)):
+        for n, tag in k34_rows:
             got = fv.vg_backward_cuda(plan, x[:n], ws, bs, dy[:n], dde[:n])
             want = fv._backward_phases(plan, x[:n], ws, bs, dy[:n], dde[:n])
             pairs.append(("dx" + tag, got[0], want[0]))
@@ -578,6 +588,48 @@ def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int) -> None:
         raise RuntimeError("the CESR gradient bounds passed the planted K2 fault")
 
 
+# kernels and device functions named in the ptxas report; those of K3 and
+# K4 (the first four, rt_mm_body being their product, compiled out of line)
+# must not spill
+PTXAS_NAMES = ("vg_fwd_kernel", "vg_bwd_rows_kernel", "wgrad_kernel", "rt_mm_body",
+               "fused_mlp_fwd_kernel", "mlp_bwd_rows_kernel")
+
+
+def ptxas_report() -> None:
+    """Registers, static shared memory and spill bytes of each kernel (and
+    of rt_mm_body) from the build's ptxas log (``-Xptxas -v``); raises if
+    one of K3's or K4's spills."""
+    for src in build.SOURCES:
+        name, seen = None, {}
+        for line in build.library_path(src).with_suffix(".log").read_text().splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                base = next((k for k in PTXAS_NAMES if k in m.group(1)), None)
+                # the template arguments, mangled as I L<type><value>E ... E
+                targs = base and re.search(base + r"I((?:L\w\d+E)+)E", m.group(1))
+                name = base and (f"{base}<{','.join(re.findall(r'L\w(\d+)E', targs.group(1)))}>"
+                                 if targs else base)
+                if name:
+                    seen.setdefault(name, {"registers": "-", "smem": 0, "spill": (0, 0)})
+                continue
+            if not name:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                seen[name]["spill"] = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                seen[name]["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                seen[name]["smem"] = int(smem.group(1)) if smem else 0
+        for name, info in seen.items():
+            print(f"  {src}: {name}: {info['registers']} registers, {info['smem']} bytes static "
+                  f"shared memory, spill stores/loads {info['spill'][0]}/{info['spill'][1]} "
+                  f"bytes", flush=True)
+            if any(info["spill"]) and name.split("<")[0] in PTXAS_NAMES[:4]:
+                raise RuntimeError(f"{src}: {name} spills {info['spill']} bytes (stores, loads)")
+
+
 def counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
@@ -753,10 +805,7 @@ def main() -> None:
 
     print(f"build: {build.build_all():.2f} s, nvcc {' '.join(build.NVCC_FLAGS)} "
           f"for {', '.join(build.SOURCES)}", flush=True)
-    for src in build.SOURCES:
-        for line in build.library_path(src).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                print(f"  {src}: {line.strip()}", flush=True)
+    ptxas_report()
 
     model_cfg, render_cfg, train_cfg, dataset_cfg = build_stage1_configs(
         load_config(str(CONFIG)))

@@ -24,19 +24,22 @@
 //     (fused_mlp_bwd_scratch_floats gives its size), and overwrites the
 //     latter with g_i on the way down.
 //   * Blocks run in parallel, in no order, so dW and db are not summed
-//     across a sequential grid. A second kernel reduces them per layer:
-//     each block owns a 128x128 tile of dW_i and a slice of the rows,
-//     stages 16-row slices of c_i and g_i in shared memory, keeps an 8x8
-//     register tile per thread, and adds its partial into dW/db (zeroed
-//     by the wrapper) with fp32 atomics. A scratch row is read once per
-//     128 columns of the other operand, against once per 32 in K4's
-//     reduction. The sum order changes from run to run.
+//     across a sequential grid. A second kernel, shared with K4
+//     (wgrad.cuh), reduces them per layer: each block owns a 128x128 tile
+//     of dW_i and a slice of the rows, stages 16-row slices of c_i and g_i
+//     in shared memory with cp.async, two deep, keeps an 8x8 register tile
+//     per thread, and adds its partial into dW/db (zeroed by the wrapper)
+//     with fp32 atomics. A scratch row is read once per 128 columns of the
+//     other operand. The sum order changes from run to run.
 //   * Rows past the ragged edge are loaded as zeros and never stored, so
 //     they add nothing.
 // The widest layer is a template parameter: TRUNK_MAXW (264) for the SDF
 // trunk, TRUNK_MAXW_WIDE (520) for the 512-wide nets, whose two 16 x 520
 // fp32 tiles (66.5 KB) need dynamic shared memory above the 48 KB default.
-#include "trunk.cuh"
+// Both keep tile_mm, whose scalar shared loads (one per multiply-add) set
+// their pace, rather than K3/K4's register-tiled rt_mm: a 64-row pair of
+// 520-wide tiles (266 KB) does not fit in a block's 227 KB.
+#include "wgrad.cuh"
 
 #define SQRT_HALF 0.70710678118654752f
 
@@ -173,92 +176,11 @@ __global__ void __launch_bounds__(TRUNK_THREADS)
   if (dx != nullptr) tile_store_rows(acc, TRUNK_MAXD0, p.d0, row0, N, dx);
 }
 
-#define RED_T 128  // dW tile: RED_T rows (k) x RED_T columns (j)
-#define RED_CH 16  // rows of c and g staged per step
-#define RED_MIN_ROWS 128
-
-// K2, reduction part for one layer: dW[k][j] += sum_r C[r][k] G[r][j] and
-// db[j] += sum_r G[r][j] over this block's slice of rows. C is [N, K], G
-// [N, J]. 16 x 16 threads; thread (tx, ty) owns k in {ty*4 + m, 64 + ty*4 + m}
-// and j in {tx*4 + n, 64 + tx*4 + n}.
-__global__ void __launch_bounds__(256)
-    mlp_wgrad_kernel(const float* __restrict__ C, const float* __restrict__ G, long long N,
-                     int K, int J, long long rows_per_block, float* __restrict__ dW,
-                     float* __restrict__ db) {
-  __shared__ __align__(16) float sc[RED_CH][RED_T];
-  __shared__ __align__(16) float sg[RED_CH][RED_T];
-  const int k0 = blockIdx.x * RED_T, j0 = blockIdx.y * RED_T;
-  const long long r0 = (long long)blockIdx.z * rows_per_block;
-  const long long r1 = min(N, r0 + rows_per_block);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bool do_db = blockIdx.x == 0 && ty == 0;
-  float acc[8][8];
-  float accb[8];
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    accb[m] = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
-  }
-  for (long long rb = r0; rb < r1; rb += RED_CH) {
-    for (int idx = threadIdx.x; idx < RED_CH * RED_T; idx += blockDim.x) {
-      int rr = idx / RED_T, cc = idx - rr * RED_T;
-      long long r = rb + rr;
-      bool ok = r < r1;
-      sc[rr][cc] = (ok && k0 + cc < K) ? C[r * K + k0 + cc] : 0.f;
-      sg[rr][cc] = (ok && j0 + cc < J) ? G[r * J + j0 + cc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < RED_CH; ++rr) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sc[rr][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&sc[rr][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sg[rr][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sg[rr][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(a[m], bv[n], acc[m][n]);
-      }
-      if (do_db) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) accb[n] += bv[n];
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int k = k0 + (m < 4 ? ty * 4 + m : 64 + ty * 4 + (m - 4));
-    if (k >= K) continue;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int j = j0 + (n < 4 ? tx * 4 + n : 64 + tx * 4 + (n - 4));
-      if (j < J) atomicAdd(&dW[(size_t)k * J + j], acc[m][n]);
-    }
-  }
-  if (do_db) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int j = j0 + (n < 4 ? tx * 4 + n : 64 + tx * 4 + (n - 4));
-      if (j < J) atomicAdd(&db[j], accb[n]);
-    }
-  }
-}
-
 // The narrowest instantiation that holds the plan, or 0 if none does.
 static int plan_width(const int* meta, TrunkPlan* p) {
   if (!trunk_plan_from_meta(meta, p, TRUNK_MAXW)) return TRUNK_MAXW;
   if (!trunk_plan_from_meta(meta, p, TRUNK_MAXW_WIDE)) return TRUNK_MAXW_WIDE;
   return 0;
-}
-
-// Dynamic shared memory of a kernel instance, after raising its limit.
-template <typename Kern>
-static cudaError_t allow_smem(Kern kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <int MAXW>
@@ -327,25 +249,11 @@ extern "C" int fused_mlp_backward(const float* x, const float* dy, const float* 
                 : launch_bwd_rows<TRUNK_MAXW_WIDE>(p, sc, x, dy, W, Wt, b, dx, scratch, N, st);
   if (err) return err;
 
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
+  const int sms = trunk_sm_count();
+  if (!sms) return (int)cudaErrorInvalidDevice;
   for (int i = 0; i < p.n; ++i) {
-    const int K = p.din[i], J = p.dout[i];
-    const long long tiles = (long long)((K + RED_T - 1) / RED_T) * ((J + RED_T - 1) / RED_T);
-    // about one block per SM, slices of at least RED_MIN_ROWS rows
-    long long splits = (sms + tiles - 1) / tiles;
-    const long long max_splits = (N + RED_MIN_ROWS - 1) / RED_MIN_ROWS;
-    if (splits > max_splits) splits = max_splits;
-    if (splits < 1) splits = 1;
-    long long rows = (N + splits - 1) / splits;
-    rows = (rows + RED_CH - 1) / RED_CH * RED_CH;
-    splits = (N + rows - 1) / rows;
-    dim3 grid((K + RED_T - 1) / RED_T, (J + RED_T - 1) / RED_T, (unsigned)splits);
-    mlp_wgrad_kernel<<<grid, 256, 0, st>>>(scratch + sc.c[i], scratch + sc.g[i], N, K, J, rows,
-                                           dW + p.woff[i], db + p.boff[i]);
-    e = cudaGetLastError();
+    cudaError_t e = wgrad_launch(scratch + sc.c[i], scratch + sc.g[i], nullptr, nullptr, N,
+                                 p.din[i], p.dout[i], sms, dW + p.woff[i], db + p.boff[i], st);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

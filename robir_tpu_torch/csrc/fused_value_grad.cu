@@ -20,18 +20,33 @@
 //     the wrapper allocates (fused_vg_scratch_floats gives its size): s_i only
 //     in the forward, c_i, s_i, u_i, q_i, pbar_i and zbar_i in the backward.
 //   * Blocks run in parallel, in no order, so dW and db are not accumulated
-//     across a sequential grid. The backward's row-tile kernel writes the
-//     operands of dW_i = c_i^T zbar_i + pbar_i^T u_i to scratch, and a second
-//     kernel reduces them over rows in 32x32 output tiles, each block summing
-//     a slice of the rows and adding its partial with fp32 atomicAdd into dW
-//     and db, which the wrapper zeroes. The order of those sums changes from
-//     run to run.
+//     across a sequential grid. The backward's rows kernel writes the
+//     operands of dW_i = c_i^T zbar_i + pbar_i^T u_i to scratch, and the
+//     reduction K2 also uses (wgrad.cuh) sums both pairs per layer in one
+//     launch: 128 x 128 tiles of dW, 8 x 8 register tiles, fp32 atomicAdd
+//     into dW and db, which the wrapper zeroes. The order of those sums
+//     changes from run to run.
 //   * Rows past the ragged edge are loaded as zeros and never stored, so they
 //     add nothing to dW or db.
 // Bound on the H100: operations, about 4 * 524,544 (forward) and 12 * 524,544
 // (backward) fp32 multiply-adds per row of the full-width trunk, on the CUDA
-// cores in fp32.
-#include "trunk.cuh"
+// cores in fp32. What holds the kernels below that: the trunk products,
+// which tile_mm fed with one scalar shared load per multiply-add; then the
+// elementwise sweeps between products, which with one or two blocks per SM
+// wait on their scratch reads; then, in K4, the reduction. So:
+//   * The products run in rt_mm (trunk.cuh): R-row tiles, an R/8 x 8
+//     register tile per thread, float4 shared loads (16 per 256
+//     multiply-adds at R = 64), and the weights staged in a ring of three
+//     cp.async k-slabs.
+//   * R is 64 once N gives about two tiles per SM (213.5 KB of dynamic
+//     shared memory, one 256-thread block per SM), else 16 (90.5 KB), so
+//     that the CESR step's 1,024-row launches keep 64 blocks.
+//   * The elementwise sweeps give each thread whole columns, with no index
+//     division, issue VG_BATCH scratch loads per thread before using any,
+//     and ask L2 for the rows of their next sweep before each product.
+//   * The reduction is the one K2 uses (wgrad.cuh), both operand pairs of
+//     a layer in one launch.
+#include "wgrad.cuh"
 
 #define SQRT_HALF 0.70710678118654752f
 
@@ -67,44 +82,127 @@ static __device__ __forceinline__ float* other_buf(float* p, float* a, float* b)
   return p == a ? b : a;
 }
 
-static __device__ __forceinline__ void store_tile(float* scratch, long long off, const float* src,
-                                                  int width, long long row0, long long N) {
-  if (off >= 0) tile_store_rows(src, TRUNK_MAXW, width, row0, N, scratch + off);
+// R = 64 from about two row tiles per SM, else R = 16 (more blocks for few rows).
+#define VG_TALL_TILES_PER_SM 2
+// The elementwise sweeps give each thread whole columns of the tile (thread
+// j: columns j, j + 256, ...) and walk the rows in batches of VG_BATCH,
+// issuing a batch's global loads before using any of them: no index
+// division, coalesced rows, and VG_BATCH loads in flight per thread.
+#define VG_BATCH 8
+
+template <int R>
+struct VGTile {
+  float* bufA;   // [R][TRUNK_MAXW] activations, then reverse-chain and backward rows
+  float* bufB;   // [R][TRUNK_MAXW]
+  float* x0;     // [R][TRUNK_MAXD0] the tile's input rows
+  float* acc;    // [R][TRUNK_MAXD0] de (forward) or dx (backward)
+  float* slabs;  // [RT_SLAB_STAGES][RT_SLAB_K][RT_SLAB_LD] weight slabs of rt_mm
+  static constexpr size_t floats =
+      2 * R * TRUNK_MAXW + 2 * R * TRUNK_MAXD0 + RT_SLAB_STAGES * RT_SLAB_K * RT_SLAB_LD;
+};
+
+// Carve the dynamic shared memory and zero it, so that a product's reads
+// past a buffer's written width (up to the next multiple of 4) see zeros.
+template <int R>
+static __device__ __forceinline__ VGTile<R> vg_tile(float* smem) {
+  VGTile<R> t;
+  t.bufA = smem;
+  t.bufB = t.bufA + R * TRUNK_MAXW;
+  t.x0 = t.bufB + R * TRUNK_MAXW;
+  t.acc = t.x0 + R * TRUNK_MAXD0;
+  t.slabs = t.acc + R * TRUNK_MAXD0;
+  float4* s4 = reinterpret_cast<float4*>(smem);
+  for (int idx = threadIdx.x; idx < (int)(VGTile<R>::floats / 4); idx += blockDim.x)
+    s4[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  return t;
 }
 
-// Phases 1 and 2 for one row tile: forward (y into y_out if given), then the
-// reverse chain (de into acc, TRUNK_ROWS x TRUNK_MAXD0). Leaves in scratch
-// whatever sc asks for.
+// Rows row0 .. row0 + R - 1 of a global [N, width] array into a shared
+// [R][ld] tile, zeros past N.
+template <int R>
+static __device__ __forceinline__ void vg_load_rows(const float* __restrict__ src, int width,
+                                                    long long row0, long long N, float* dst,
+                                                    int ld) {
+  const int rows = (int)min((long long)R, N - row0);
+  for (int j = threadIdx.x; j < width; j += TRUNK_THREADS) {
+    const float* g = src + row0 * width + j;
+    for (int rb = 0; rb < R; rb += VG_BATCH) {
+      float v[VG_BATCH];
+#pragma unroll
+      for (int u = 0; u < VG_BATCH; ++u) v[u] = rb + u < rows ? g[(long long)(rb + u) * width] : 0.f;
+#pragma unroll
+      for (int u = 0; u < VG_BATCH; ++u) dst[(rb + u) * ld + j] = v[u];
+    }
+  }
+}
+
+// The tile's rows below N of a shared [R][ld] tile to a global [N, width]
+// array at dst (nothing if off < 0).
+template <int R>
+static __device__ __forceinline__ void vg_store_rows(const float* src, int ld, int width,
+                                                     long long row0, long long N, float* dst,
+                                                     long long off = 0) {
+  if (off < 0) return;
+  const int rows = (int)min((long long)R, N - row0);
+  for (int j = threadIdx.x; j < width; j += TRUNK_THREADS) {
+    float* g = dst + off + row0 * width + j;
+#pragma unroll 8
+    for (int r = 0; r < rows; ++r) g[(long long)r * width] = src[r * ld + j];
+  }
+}
+
+// Ask L2 for the tile's rows of a global [N, width] array (at off; nothing
+// if off < 0), so that the sweep after the next product finds them there:
+// one 128-byte line per thread and step.
+template <int R>
+static __device__ __forceinline__ void vg_prefetch_rows(const float* base, long long off,
+                                                        int width, long long row0, long long N) {
+  if (off < 0) return;
+  const char* a = reinterpret_cast<const char*>(base + off + row0 * width);
+  const long long bytes = 4LL * min((long long)R, N - row0) * width;
+  for (long long o = 128LL * threadIdx.x; o < bytes; o += 128LL * TRUNK_THREADS)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(a + o));
+}
+
+// Phases 1 and 2 for one row tile of R rows: forward (y into y_out if
+// given), then the reverse chain (de into t.acc). Leaves in scratch
+// whatever sc asks for. The backward passes its cotangents dy, dde, which
+// are prefetched for its own sweeps.
+template <int R>
 static __device__ void vg_forward_phases(const TrunkPlan& p, const float* x, const float* W,
                                          const float* Wt, const float* b, long long N,
                                          long long row0, const VGScratch& sc, float* scratch,
-                                         float* bufA, float* bufB, float* x0, float* acc,
-                                         float* y_out) {
-  tile_load_rows(x, p.d0, row0, N, x0, TRUNK_MAXD0);
-  tile_load_rows(x, p.d0, row0, N, bufA, TRUNK_MAXW);
-  for (int idx = threadIdx.x; idx < TRUNK_ROWS * TRUNK_MAXD0; idx += blockDim.x) acc[idx] = 0.f;
+                                         const VGTile<R>& t, float* y_out,
+                                         const float* dy = nullptr, const float* dde = nullptr) {
+  float *bufA = t.bufA, *bufB = t.bufB;
+  const int rows = (int)min((long long)R, N - row0);
+  vg_load_rows<R>(x, p.d0, row0, N, t.x0, TRUNK_MAXD0);
+  vg_load_rows<R>(x, p.d0, row0, N, bufA, TRUNK_MAXW);
   __syncthreads();
 
   // phase 1: forward, saving c_i and s_i
   float* h = bufA;
   for (int i = 0; i < p.n; ++i) {
-    float* c = tile_layer_input(p, i, h, x0, other_buf(h, bufA, bufB));
-    store_tile(scratch, sc.c[i], c, p.din[i], row0, N);
+    float* c = tile_layer_input<TRUNK_MAXW, R>(p, i, h, t.x0, other_buf(h, bufA, bufB));
+    vg_store_rows<R>(c, TRUNK_MAXW, p.din[i], row0, N, scratch, sc.c[i]);
     float* z = other_buf(c, bufA, bufB);
-    tile_mm(c, p.din[i], W + p.woff[i], p.dout[i], b + p.boff[i], z);
+    rt_mm<R>(c, p.din[i], W + p.woff[i], p.dout[i], b + p.boff[i], z, t.slabs);
     __syncthreads();
     if (i < p.n - 1) {
       const int w = p.dout[i];
-      for (int idx = threadIdx.x; idx < TRUNK_ROWS * w; idx += blockDim.x) {
-        int r = idx / w, j = idx - r * w;
-        long long row = row0 + r;
-        float zz = z[r * TRUNK_MAXW + j];
-        if (row < N) scratch[sc.s[i] + row * w + j] = trunk_act_d1(zz);
-        z[r * TRUNK_MAXW + j] = trunk_act(zz);
+      for (int j = threadIdx.x; j < w; j += TRUNK_THREADS) {
+        float* s = scratch + sc.s[i] + row0 * w + j;
+#pragma unroll 8
+        for (int r = 0; r < R; ++r) {
+          const float zz = z[r * TRUNK_MAXW + j];
+          if (r < rows) s[(long long)r * w] = trunk_act_d1(zz);
+          z[r * TRUNK_MAXW + j] = trunk_act(zz);
+        }
       }
       __syncthreads();
     } else if (y_out) {
-      tile_store_rows(z, TRUNK_MAXW, p.dout[i], row0, N, y_out);
+      vg_store_rows<R>(z, TRUNK_MAXW, p.dout[i], row0, N, y_out);
     }
     h = z;
   }
@@ -114,33 +212,45 @@ static __device__ void vg_forward_phases(const TrunkPlan& p, const float* x, con
   float* u = bufA;
   {
     const int w = p.dout[p.n - 1];
-    for (int idx = threadIdx.x; idx < TRUNK_ROWS * w; idx += blockDim.x) {
-      int r = idx / w, j = idx - r * w;
-      u[r * TRUNK_MAXW + j] = j == 0 ? 1.f : 0.f;
-    }
+    for (int j = threadIdx.x; j < w; j += TRUNK_THREADS)
+      for (int r = 0; r < R; ++r) u[r * TRUNK_MAXW + j] = j == 0 ? 1.f : 0.f;
     __syncthreads();
   }
   for (int i = p.n - 1; i >= 0; --i) {
-    store_tile(scratch, sc.u[i], u, p.dout[i], row0, N);
+    vg_store_rows<R>(u, TRUNK_MAXW, p.dout[i], row0, N, scratch, sc.u[i]);
+    if (i > 0) vg_prefetch_rows<R>(scratch, sc.s[i - 1], p.dh[i], row0, N);
     float* pq = other_buf(u, bufA, bufB);
-    tile_mm(u, p.dout[i], Wt + p.woff[i], p.din[i], nullptr, pq);  // p_i = u_i W_i^T
+    if (i == 0 && dde != nullptr) {  // the backward's first reads
+      vg_prefetch_rows<R>(dde, 0, p.d0, row0, N);
+      vg_prefetch_rows<R>(dy, 0, p.dout[p.n - 1], row0, N);
+    }
+    rt_mm<R>(u, p.dout[i], Wt + p.woff[i], p.din[i], nullptr, pq, t.slabs);  // p_i = u_i W_i^T
     __syncthreads();
     const int w = p.din[i], dh = p.dh[i];
-    for (int idx = threadIdx.x; idx < TRUNK_ROWS * w; idx += blockDim.x) {
-      int r = idx / w, k = idx - r * w;
-      long long row = row0 + r;
-      float v = pq[r * TRUNK_MAXW + k];
+    for (int k = threadIdx.x; k < w; k += TRUNK_THREADS) {
       if (k >= dh) {  // skip part: de += p_i[d:] / sqrt2
-        acc[r * TRUNK_MAXD0 + (k - dh)] += v * SQRT_HALF;
+        for (int r = 0; r < R; ++r) t.acc[r * TRUNK_MAXD0 + (k - dh)] += pq[r * TRUNK_MAXW + k] * SQRT_HALF;
         continue;
       }
-      float q = p.skip[i] ? v * SQRT_HALF : v;
-      if (sc.q[i] >= 0 && row < N) scratch[sc.q[i] + row * dh + k] = q;
-      if (i > 0) {  // u_{i-1} = s_{i-1} * q_i
-        float s = row < N ? scratch[sc.s[i - 1] + row * dh + k] : 0.f;
-        pq[r * TRUNK_MAXW + k] = s * q;
-      } else {
-        acc[r * TRUNK_MAXD0 + k] += q;
+      const float* s = i > 0 ? scratch + sc.s[i - 1] + row0 * dh + k : nullptr;  // s_{i-1}
+      float* qs = sc.q[i] >= 0 ? scratch + sc.q[i] + row0 * dh + k : nullptr;
+      for (int rb = 0; rb < R; rb += VG_BATCH) {
+        float sv[VG_BATCH];
+#pragma unroll
+        for (int v = 0; v < VG_BATCH; ++v)
+          sv[v] = s != nullptr && rb + v < rows ? s[(long long)(rb + v) * dh] : 0.f;
+#pragma unroll
+        for (int v = 0; v < VG_BATCH; ++v) {
+          const int r = rb + v;
+          const float pv = pq[r * TRUNK_MAXW + k];
+          const float q = p.skip[i] ? pv * SQRT_HALF : pv;
+          if (qs != nullptr && r < rows) qs[(long long)r * dh] = q;
+          if (i > 0) {  // u_{i-1} = s_{i-1} * q_i
+            pq[r * TRUNK_MAXW + k] = sv[v] * q;
+          } else {
+            t.acc[r * TRUNK_MAXD0 + k] += q;
+          }
+        }
       }
     }
     __syncthreads();
@@ -148,35 +258,35 @@ static __device__ void vg_forward_phases(const TrunkPlan& p, const float* x, con
   }
 }
 
-__global__ void __launch_bounds__(TRUNK_THREADS)
+template <int R>
+__global__ void __launch_bounds__(TRUNK_THREADS, R == 64 ? 1 : 2)
     vg_fwd_kernel(TrunkPlan p, VGScratch sc, const float* __restrict__ x,
                   const float* __restrict__ W, const float* __restrict__ Wt,
                   const float* __restrict__ b, float* __restrict__ y, float* __restrict__ de,
                   float* scratch, long long N) {
-  __shared__ float bufA[TRUNK_ROWS * TRUNK_MAXW];
-  __shared__ float bufB[TRUNK_ROWS * TRUNK_MAXW];
-  __shared__ float x0[TRUNK_ROWS * TRUNK_MAXD0];
-  __shared__ float acc[TRUNK_ROWS * TRUNK_MAXD0];
-  const long long row0 = (long long)blockIdx.x * TRUNK_ROWS;
-  vg_forward_phases(p, x, W, Wt, b, N, row0, sc, scratch, bufA, bufB, x0, acc, y);
-  tile_store_rows(acc, TRUNK_MAXD0, p.d0, row0, N, de);
+  extern __shared__ __align__(16) float smem[];
+  const VGTile<R> t = vg_tile<R>(smem);
+  const long long row0 = (long long)blockIdx.x * R;
+  vg_forward_phases<R>(p, x, W, Wt, b, N, row0, sc, scratch, t, y);
+  vg_store_rows<R>(t.acc, TRUNK_MAXD0, p.d0, row0, N, de);
 }
 
 // Row-tile part of the backward: recompute (phases 1-2), then the ascending
 // and descending sweeps. Writes dx and leaves c_i, zbar_i, pbar_i, u_i in
 // scratch for the dW/db reduction.
-__global__ void __launch_bounds__(TRUNK_THREADS)
+template <int R>
+__global__ void __launch_bounds__(TRUNK_THREADS, R == 64 ? 1 : 2)
     vg_bwd_rows_kernel(TrunkPlan p, VGScratch sc, const float* __restrict__ x,
                        const float* __restrict__ dy, const float* __restrict__ dde,
                        const float* __restrict__ W, const float* __restrict__ Wt,
                        const float* __restrict__ b, float* __restrict__ dx, float* scratch,
                        long long N) {
-  __shared__ float bufA[TRUNK_ROWS * TRUNK_MAXW];
-  __shared__ float bufB[TRUNK_ROWS * TRUNK_MAXW];
-  __shared__ float x0[TRUNK_ROWS * TRUNK_MAXD0];
-  __shared__ float acc[TRUNK_ROWS * TRUNK_MAXD0];
-  const long long row0 = (long long)blockIdx.x * TRUNK_ROWS;
-  vg_forward_phases(p, x, W, Wt, b, N, row0, sc, scratch, bufA, bufB, x0, acc, nullptr);
+  extern __shared__ __align__(16) float smem[];
+  const VGTile<R> t = vg_tile<R>(smem);
+  float *bufA = t.bufA, *bufB = t.bufB;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, N - row0);
+  vg_forward_phases<R>(p, x, W, Wt, b, N, row0, sc, scratch, t, nullptr, dy, dde);
 
   // phase 3, ascending: qbar_0 = dde; qbar_i = s_{i-1} * ubar_{i-1};
   // sbar_{i-1} = q_i * ubar_{i-1}; pbar_i = qbar_i (skip: [qbar, dde] / sqrt2);
@@ -185,34 +295,49 @@ __global__ void __launch_bounds__(TRUNK_THREADS)
   for (int i = 0; i < p.n; ++i) {
     float* pb = other_buf(ubar, bufA, bufB);
     const int w = p.din[i], dh = p.dh[i];
-    for (int idx = threadIdx.x; idx < TRUNK_ROWS * w; idx += blockDim.x) {
-      int r = idx / w, k = idx - r * w;
-      long long row = row0 + r;
-      bool ok = row < N;
-      float v;
-      if (k >= dh) {
-        v = (ok ? dde[row * p.d0 + (k - dh)] : 0.f) * SQRT_HALF;
-      } else {
-        float qbar;
-        if (i == 0) {
-          qbar = ok ? dde[row * p.d0 + k] : 0.f;
-        } else {
-          float ub = ubar[r * TRUNK_MAXW + k];
-          float s = ok ? scratch[sc.s[i - 1] + row * dh + k] : 0.f;
-          qbar = s * ub;
-          if (ok) {
-            float* qslot = scratch + sc.q[i] + row * dh + k;
-            *qslot = trunk_act_d2(s) * (*qslot * ub);
-          }
+    for (int k = threadIdx.x; k < w; k += TRUNK_THREADS) {
+      const bool from_dde = k >= dh || i == 0;  // pbar is dde (/ sqrt2) in this column
+      const float* d = dde + row0 * p.d0 + (k >= dh ? k - dh : k);
+      const float* s = i > 0 ? scratch + sc.s[i - 1] + row0 * dh + k : nullptr;
+      float* qs = i > 0 ? scratch + sc.q[i] + row0 * dh + k : nullptr;
+      for (int rb = 0; rb < R; rb += VG_BATCH) {
+        float dv[VG_BATCH], sv[VG_BATCH], qv[VG_BATCH];  // dde, s_{i-1}, q_i
+#pragma unroll
+        for (int v = 0; v < VG_BATCH; ++v) {
+          const int r = rb + v;
+          const bool chain = !from_dde && r < rows;
+          dv[v] = from_dde && r < rows ? d[(long long)r * p.d0] : 0.f;
+          sv[v] = chain ? s[(long long)r * dh] : 0.f;
+          qv[v] = chain ? qs[(long long)r * dh] : 0.f;
         }
-        v = p.skip[i] ? qbar * SQRT_HALF : qbar;
+#pragma unroll
+        for (int v = 0; v < VG_BATCH; ++v) {
+          const int r = rb + v;
+          float val;
+          if (k >= dh) {
+            val = dv[v] * SQRT_HALF;
+          } else {
+            float qbar;
+            if (i == 0) {
+              qbar = dv[v];
+            } else {
+              const float ub = ubar[r * TRUNK_MAXW + k];
+              qbar = sv[v] * ub;
+              if (r < rows) qs[(long long)r * dh] = trunk_act_d2(sv[v]) * (qv[v] * ub);
+            }
+            val = p.skip[i] ? qbar * SQRT_HALF : qbar;
+          }
+          pb[r * TRUNK_MAXW + k] = val;
+        }
       }
-      pb[r * TRUNK_MAXW + k] = v;
     }
     __syncthreads();
-    store_tile(scratch, sc.pb[i], pb, w, row0, N);
+    vg_store_rows<R>(pb, TRUNK_MAXW, w, row0, N, scratch, sc.pb[i]);
     if (i < p.n - 1) {
-      tile_mm(pb, w, W + p.woff[i], p.dout[i], nullptr, ubar);
+      vg_prefetch_rows<R>(scratch, sc.s[i], p.dh[i + 1], row0, N);
+      vg_prefetch_rows<R>(scratch, sc.q[i + 1], p.dh[i + 1], row0, N);
+      if (p.skip[i + 1]) vg_prefetch_rows<R>(dde, 0, p.d0, row0, N);
+      rt_mm<R>(pb, w, W + p.woff[i], p.dout[i], nullptr, ubar, t.slabs);
       __syncthreads();
     }
   }
@@ -220,89 +345,87 @@ __global__ void __launch_bounds__(TRUNK_THREADS)
 
   // phase 4, descending: zbar_{L-1} = dy; cbar = zbar_i W_i^T;
   // zbar_{i-1} = s_{i-1} * abar + sigma''(z_{i-1}) * sbar_{i-1}
-  for (int idx = threadIdx.x; idx < TRUNK_ROWS * TRUNK_MAXD0; idx += blockDim.x) acc[idx] = 0.f;
+  for (int idx = threadIdx.x; idx < R * TRUNK_MAXD0; idx += blockDim.x) t.acc[idx] = 0.f;
   float* zbar = bufA;
-  tile_load_rows(dy, p.dout[p.n - 1], row0, N, zbar, TRUNK_MAXW);
+  vg_load_rows<R>(dy, p.dout[p.n - 1], row0, N, zbar, TRUNK_MAXW);
   __syncthreads();
   for (int i = p.n - 1; i >= 0; --i) {
-    store_tile(scratch, sc.zb[i], zbar, p.dout[i], row0, N);
+    vg_store_rows<R>(zbar, TRUNK_MAXW, p.dout[i], row0, N, scratch, sc.zb[i]);
+    if (i > 0) {
+      vg_prefetch_rows<R>(scratch, sc.s[i - 1], p.dh[i], row0, N);
+      vg_prefetch_rows<R>(scratch, sc.q[i], p.dh[i], row0, N);
+    }
     float* cb = other_buf(zbar, bufA, bufB);
-    tile_mm(zbar, p.dout[i], Wt + p.woff[i], p.din[i], nullptr, cb);
+    rt_mm<R>(zbar, p.dout[i], Wt + p.woff[i], p.din[i], nullptr, cb, t.slabs);
     __syncthreads();
     const int w = p.din[i], dh = p.dh[i];
-    for (int idx = threadIdx.x; idx < TRUNK_ROWS * w; idx += blockDim.x) {
-      int r = idx / w, k = idx - r * w;
-      long long row = row0 + r;
-      float v = cb[r * TRUNK_MAXW + k];
+    for (int k = threadIdx.x; k < w; k += TRUNK_THREADS) {
       if (k >= dh) {
-        acc[r * TRUNK_MAXD0 + (k - dh)] += v * SQRT_HALF;
+        for (int r = 0; r < R; ++r) t.acc[r * TRUNK_MAXD0 + (k - dh)] += cb[r * TRUNK_MAXW + k] * SQRT_HALF;
         continue;
       }
-      float a = p.skip[i] ? v * SQRT_HALF : v;
-      if (i > 0) {
-        bool ok = row < N;
-        float s = ok ? scratch[sc.s[i - 1] + row * dh + k] : 0.f;
-        float t = ok ? scratch[sc.q[i] + row * dh + k] : 0.f;
-        cb[r * TRUNK_MAXW + k] = s * a + t;
-      } else {
-        acc[r * TRUNK_MAXD0 + k] += a;
+      if (i == 0) {
+        for (int r = 0; r < R; ++r) t.acc[r * TRUNK_MAXD0 + k] += cb[r * TRUNK_MAXW + k];
+        continue;
+      }
+      const float* s = scratch + sc.s[i - 1] + row0 * dh + k;  // s_{i-1}
+      const float* qs = scratch + sc.q[i] + row0 * dh + k;     // sigma''(z_{i-1}) * sbar_{i-1}
+      for (int rb = 0; rb < R; rb += VG_BATCH) {
+        float sv[VG_BATCH], tv[VG_BATCH];
+#pragma unroll
+        for (int v = 0; v < VG_BATCH; ++v) {
+          const bool ok = rb + v < rows;
+          sv[v] = ok ? s[(long long)(rb + v) * dh] : 0.f;
+          tv[v] = ok ? qs[(long long)(rb + v) * dh] : 0.f;
+        }
+#pragma unroll
+        for (int v = 0; v < VG_BATCH; ++v) {
+          const int r = rb + v;
+          const float cv = cb[r * TRUNK_MAXW + k];
+          const float a = p.skip[i] ? cv * SQRT_HALF : cv;
+          cb[r * TRUNK_MAXW + k] = sv[v] * a + tv[v];
+        }
       }
     }
     __syncthreads();
     zbar = cb;
   }
-  tile_store_rows(acc, TRUNK_MAXD0, p.d0, row0, N, dx);
+  vg_store_rows<R>(t.acc, TRUNK_MAXD0, p.d0, row0, N, dx);
 }
 
-#define RED_TILE 32
-#define RED_CHUNK 32
-#define RED_ROWS_PER_BLOCK 1024
+// The row tile for N rows: 64 once that gives about VG_TALL_TILES_PER_SM
+// tiles per SM, else 16; 0 on error.
+static int vg_row_tile(long long N) {
+  const int sms = trunk_sm_count();
+  if (!sms) return 0;
+  return N >= (long long)VG_TALL_TILES_PER_SM * sms * 64 ? 64 : 16;
+}
 
-// dW[k][j] += sum_r A1[r][k] B1[r][j] + A2[r][k] B2[r][j]; db[j] += sum_r B1[r][j],
-// over this block's slice of rows. A* are [N, K], B* are [N, J].
-__global__ void __launch_bounds__(256)
-    vg_reduce_kernel(const float* __restrict__ A1, const float* __restrict__ B1,
-                     const float* __restrict__ A2, const float* __restrict__ B2, long long N,
-                     int K, int J, float* __restrict__ dW, float* __restrict__ db) {
-  __shared__ float sa[RED_CHUNK][RED_TILE + 1];
-  __shared__ float sb[RED_CHUNK][RED_TILE + 1];
-  const int k0 = blockIdx.x * RED_TILE, j0 = blockIdx.y * RED_TILE;
-  const long long r0 = (long long)blockIdx.z * RED_ROWS_PER_BLOCK;
-  const long long r1 = min(N, r0 + RED_ROWS_PER_BLOCK);
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;  // 8 warps; warp ty owns k0+ty+8m
-  float accw[4] = {0.f, 0.f, 0.f, 0.f};
-  float accb = 0.f;
-  const bool do_db = blockIdx.x == 0 && ty == 0;
-  for (int pass = 0; pass < 2; ++pass) {
-    const float* A = pass ? A2 : A1;
-    const float* B = pass ? B2 : B1;
-    for (long long rb = r0; rb < r1; rb += RED_CHUNK) {
-      for (int idx = threadIdx.x; idx < RED_CHUNK * RED_TILE; idx += blockDim.x) {
-        int rr = idx / RED_TILE, cc = idx % RED_TILE;
-        long long r = rb + rr;
-        sa[rr][cc] = (r < r1 && k0 + cc < K) ? A[r * K + k0 + cc] : 0.f;
-        sb[rr][cc] = (r < r1 && j0 + cc < J) ? B[r * J + j0 + cc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int rr = 0; rr < RED_CHUNK; ++rr) {
-        float bv = sb[rr][tx];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) accw[m] = fmaf(sa[rr][ty + 8 * m], bv, accw[m]);
-        if (pass == 0 && do_db) accb += bv;
-      }
-      __syncthreads();
-    }
-  }
-  const int j = j0 + tx;
-  if (j < J) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      int k = k0 + ty + 8 * m;
-      if (k < K) atomicAdd(&dW[(size_t)k * J + j], accw[m]);
-    }
-    if (do_db) atomicAdd(&db[j], accb);
-  }
+template <int R>
+static int launch_vg_forward(const TrunkPlan& p, const VGScratch& sc, const float* x,
+                             const float* W, const float* Wt, const float* b, float* y,
+                             float* de, float* scratch, long long N, cudaStream_t st) {
+  const size_t smem = sizeof(float) * VGTile<R>::floats;
+  cudaError_t err = allow_smem(vg_fwd_kernel<R>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (N + R - 1) / R;
+  vg_fwd_kernel<R><<<(unsigned)blocks, TRUNK_THREADS, smem, st>>>(p, sc, x, W, Wt, b, y, de,
+                                                                  scratch, N);
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+static int launch_vg_bwd_rows(const TrunkPlan& p, const VGScratch& sc, const float* x,
+                              const float* dy, const float* dde, const float* W,
+                              const float* Wt, const float* b, float* dx, float* scratch,
+                              long long N, cudaStream_t st) {
+  const size_t smem = sizeof(float) * VGTile<R>::floats;
+  cudaError_t err = allow_smem(vg_bwd_rows_kernel<R>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (N + R - 1) / R;
+  vg_bwd_rows_kernel<R><<<(unsigned)blocks, TRUNK_THREADS, smem, st>>>(p, sc, x, dy, dde, W,
+                                                                       Wt, b, dx, scratch, N);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* trunk_error_string(int err) {
@@ -327,10 +450,12 @@ extern "C" int fused_vg_forward(const float* x, const float* W, const float* Wt,
   if (N <= 0) return 0;
   VGScratch sc;
   vg_scratch_layout(p, N, 0, &sc);
-  const long long blocks = (N + TRUNK_ROWS - 1) / TRUNK_ROWS;
-  vg_fwd_kernel<<<(unsigned)blocks, TRUNK_THREADS, 0, (cudaStream_t)stream>>>(p, sc, x, W, Wt, b,
-                                                                             y, de, scratch, N);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (vg_row_tile(N)) {
+    case 64: return launch_vg_forward<64>(p, sc, x, W, Wt, b, y, de, scratch, N, st);
+    case 16: return launch_vg_forward<16>(p, sc, x, W, Wt, b, y, de, scratch, N, st);
+    default: return (int)cudaErrorInvalidDevice;
+  }
 }
 
 // (dy [N, dout_last], dde [N, d0]) -> dx [N, d0], and dW, db added into the
@@ -345,20 +470,18 @@ extern "C" int fused_vg_backward(const float* x, const float* dy, const float* d
   VGScratch sc;
   vg_scratch_layout(p, N, 1, &sc);
   cudaStream_t st = (cudaStream_t)stream;
-  const long long blocks = (N + TRUNK_ROWS - 1) / TRUNK_ROWS;
-  vg_bwd_rows_kernel<<<(unsigned)blocks, TRUNK_THREADS, 0, st>>>(p, sc, x, dy, dde, W, Wt, b, dx,
-                                                                 scratch, N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const unsigned splits = (unsigned)((N + RED_ROWS_PER_BLOCK - 1) / RED_ROWS_PER_BLOCK);
+  const int sms = trunk_sm_count();
+  const int tile = vg_row_tile(N);
+  int err = tile == 64 ? launch_vg_bwd_rows<64>(p, sc, x, dy, dde, W, Wt, b, dx, scratch, N, st)
+            : tile == 16 ? launch_vg_bwd_rows<16>(p, sc, x, dy, dde, W, Wt, b, dx, scratch, N, st)
+                         : (int)cudaErrorInvalidDevice;
+  if (err) return err;
+  // dW_i = c_i^T zbar_i + pbar_i^T u_i, db_i = sum zbar_i: both pairs in one launch
   for (int i = 0; i < p.n; ++i) {
-    const int K = p.din[i], J = p.dout[i];
-    dim3 grid((K + RED_TILE - 1) / RED_TILE, (J + RED_TILE - 1) / RED_TILE, splits);
-    vg_reduce_kernel<<<grid, 256, 0, st>>>(scratch + sc.c[i], scratch + sc.zb[i],
-                                           scratch + sc.pb[i], scratch + sc.u[i], N, K, J,
-                                           dW + p.woff[i], db + p.boff[i]);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    cudaError_t e = wgrad_launch(scratch + sc.c[i], scratch + sc.zb[i], scratch + sc.pb[i],
+                                 scratch + sc.u[i], N, p.din[i], p.dout[i], sms,
+                                 dW + p.woff[i], db + p.boff[i], st);
+    if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }

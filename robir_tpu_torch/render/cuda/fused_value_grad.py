@@ -6,7 +6,7 @@ Counterpart of ``robir_tpu/render/pallas/fused_value_grad.py``:
   ``_fwd_kernel`` launched by ``_fused_vg_forward``: trunk forward saving
   ``s_i = sigma'(z_i)``, then the reverse chain that yields
   ``de = d y[:, 0] / d x``.
-- K4 (``vg_bwd_rows_kernel`` + ``vg_reduce_kernel``) replaces the Pallas
+- K4 (``vg_bwd_rows_kernel`` + ``wgrad_kernel``) replaces the Pallas
   ``_bwd_kernel`` launched by ``_fused_vg_backward``: recompute, the
   ascending sweep through the reverse chain, the descending backward with
   ``sigma''`` injections, then a reduction of ``dW``/``db`` over rows.
@@ -15,8 +15,14 @@ Both are bound by fp32 multiply-adds on the CUDA cores (about 4 and 12 x
 524,544 per row of the full-width trunk). Per-layer row state that the TPU
 kept in VMEM goes to a global scratch buffer allocated here (its size in
 floats is ``scratch_floats``, which asks the kernel library, the one place
-that lays the buffer out); ``dW``/``db`` are summed across blocks with fp32
-atomics, so their sums run in an order that changes from run to run.
+that lays the buffer out). The trunk products run as register tiles (8 x
+8 per thread in 64-row tiles, which the kernel library picks once the rows
+fill about two tiles per SM; 2 x 8 in 16-row tiles below that), fed by
+float4 shared loads from weight k-slabs that ``cp.async`` stages ahead of
+the arithmetic. ``dW``/``db`` are summed over rows by the reduction K2
+also uses (128 x 128 tiles, both operand pairs of a layer in one launch),
+across blocks with fp32 atomics, so their sums run in an order that
+changes from run to run.
 
 ``_forward_phases`` and ``_backward_phases`` are the plain PyTorch
 versions, the same sweeps as the Pallas kernels: the CPU tests run them,

@@ -92,7 +92,9 @@ def test_fused_mlp_under_grad_runs_k1_and_k2(dev):
         _close(got, w)
 
 
-@pytest.mark.parametrize("n_rows", [1000, 4099])
+# Row counts about the kernels' row tiles (16 rows, and 64 from 16,896 rows
+# on a 132-SM card) and their ragged edges.
+@pytest.mark.parametrize("n_rows", [1, 63, 65, 1000, 1024, 4099, 16895, 16897, 65533])
 def test_k3_k4_match_plain(dev, n_rows):
     plan = tfm.plan_from_sdf_config(SDFConfig())
     x, ws, bs = trunk_case(plan, 4, n_rows)
