@@ -6,15 +6,20 @@
 1. Builds the port's CUDA kernels from ``robir_tpu_torch/csrc`` with nvcc
    for sm_90a (into ``robir_tpu_torch/build/``), prints each kernel's
    registers, static shared memory and spill bytes from the ptxas report,
-   and fails if a K3 or K4 kernel spills.
+   and fails if any kernel spills.
 2. Holds each kernel to its plain PyTorch version on the same inputs, at the
    shapes of the main paths and at ragged row counts, in fp32 with TF32
-   off, and times both with CUDA events: K1, K3 and K4 at the SDF trunk's
+   off, and times both with CUDA events (K1 as its caller pays for it: the
+   tracer packs its frozen weights once for all its queries, the other
+   callers at every launch): K1, K3 and K4 at the SDF trunk's
    plan and stage 1's rows (K3 and K4 also on each side of their switch
    from 16- to 64-row tiles); K1 at the CESR tracer's rows (1,024 per query,
    102,400 in the dense search) and K3 at the CESR step's (1,024); K1 and
-   K2 at the CESR normal net's plan (8 x 512, 1,024 rows, and 1,027), K2
-   also at the SDF trunk's (8,192 rows).
+   K2 at the CESR normal net's plan (8 x 512, 1,024 rows), K2 also at the
+   SDF trunk's (8,192 rows); K1 and K2 at both plans at 1,024 and 1,027
+   rows and on each side of their switch from clusters of blocks per
+   16-row tile to one block (16 rows per SM), with each launch's geometry
+   and the clusters the card holds at once.
 3. Checks one full-width stage-1 train step's loss and gradients on the
    card (the kernels) against the same step on the CPU (the plain
    versions), from the same weights and rays (64) on the same samples.
@@ -111,6 +116,9 @@ CESR_FP32_FACTOR = 8.0
 FAULT_ROWS = 16
 # K3 and K4 take 64-row tiles from this many rows per SM (fused_value_grad.cu)
 VG_TALL_ROWS_PER_SM = 128
+# K1 and K2 take one block per 16-row tile from this many rows per SM, and
+# a cluster of blocks per tile below (render/cuda/fused_mlp.py:launch_geometry)
+MLP_ONE_BLOCK_ROWS_PER_SM = 16
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
@@ -129,6 +137,40 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def k1_ms(plan, x, ws, bs, reps: int, packed_once: bool = False) -> float:
+    """K1's time as its caller pays for it: the tracer packs its frozen
+    trunk's weights once for all its queries (``packed_once``), the other
+    callers at every launch."""
+    packed = fm.pack_weights(ws, bs) if packed_once else None
+    return cuda_ms(lambda: fm.fused_mlp_cuda(plan, x, ws, bs, packed), reps)
+
+
+def load_configs():
+    """(model, render, train, dataset) configs of configs/neus_blender.json,
+    then (Stage2Config, CESRStageConfig) at configs/hotdog.json widths."""
+    model_cfg, render_cfg, train_cfg, dataset_cfg = build_stage1_configs(
+        load_config(str(CONFIG)))
+    return (model_cfg, render_cfg, train_cfg, dataset_cfg, *cesr_configs(model_cfg))
+
+
+def path_rows(render_cfg, train_cfg, cesr_cfg, stage_cfg) -> dict:
+    """The rows of the main paths' kernel launches that the checks time."""
+    batch = train_cfg.batch_size
+    return {"stage1": batch * render_cfg.n_samples,  # K1's coarse samples
+            "round": batch * render_cfg.n_importance // render_cfg.up_sample_steps,
+            "vg": batch * (render_cfg.n_samples + render_cfg.n_importance),  # K3, K4
+            "query": stage_cfg.num_pixels,  # a tracer query, the normal net, K2
+            "dense": stage_cfg.num_pixels * cesr_cfg.sphere_tracer.n_steps,
+            "k2_sdf": 8192}  # K2 at the SDF trunk (off the paths)
+
+
+def switch_rows(sms: int) -> tuple[int, ...]:
+    """K1/K2's check rows: the CESR step's 1,024, a ragged count near it,
+    and each side of their switch from clusters to one block per tile."""
+    switch = MLP_ONE_BLOCK_ROWS_PER_SM * sms
+    return 1024, 1027, switch - 1, switch + 1
 
 
 def held_to_plain(name: str, pairs) -> float:
@@ -162,6 +204,31 @@ def bound_ms(flops: float, n_bytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def k2_bound(plan, rows: int, need_dx: bool) -> tuple[float, str]:
+    """K2's bound: the recompute up to the last layer's input, dW, and the
+    backward products down to layer 1 (layer 0 too for dx)."""
+    nw = plan.n_weights()
+    nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
+    w0 = plan.layer_in_dim(0) * plan.layer_out_dim(0)
+    wl = plan.layer_in_dim(plan.n_layers - 1) * plan.out_dim
+    flops = rows * (2.0 * (nw - wl) + 2.0 * nw + 2.0 * (nw - (0 if need_dx else w0)))
+    return bound_ms(flops, 4.0 * (rows * ((2 if need_dx else 1) * plan.dims[0] + plan.out_dim)
+                                  + 2 * (nw + nb)))
+
+
+def geometry_line(kernel: str, net: str, plan, rows: int) -> dict:
+    """Print the launch geometry K1 or K2 takes at ``rows``; its cluster
+    size and blocks, for the kernels line."""
+    geo = fm.launch_geometry(plan, rows, torch.cuda.get_device_properties(0).multi_processor_count)
+    form = "rt_mm" if geo.cluster > 1 or kernel == "K2" else "tile_mm (one block per tile)"
+    windows = "; ".join(f"rank {r}: {geo.rank_windows(geo.out[0], r)} ... "
+                        f"{geo.rank_windows(geo.out[-1], r)}" for r in range(geo.cluster))
+    print(f"{kernel} {net} at {rows} rows: {geo.tiles} tiles x cluster {geo.cluster} = "
+          f"{geo.ctas} blocks, {form}; output windows, first ... last layer: {windows}",
+          flush=True)
+    return {"cluster": geo.cluster, "ctas": geo.ctas}
+
+
 def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
                   gen) -> dict:
     """Each kernel against its plain version at the main path's largest
@@ -180,11 +247,11 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
             ("y", fm.fused_mlp_cuda(plan, x, ws, bs), fm._forward_rows(plan, x, ws, bs)),
             ("y ragged", fm.fused_mlp_cuda(plan, xr, ws, bs),
              fm._forward_rows(plan, xr, ws, bs))])
-        ms = cuda_ms(lambda: fm.fused_mlp_cuda(plan, x, ws, bs), 10)
+        ms = k1_ms(plan, x, ws, bs, 10)
         plain = cuda_ms(lambda: fm._forward_rows(plan, x, ws, bs), 10)
         xs = x[:rows_k1_round]
         print(f"K1 at {rows_k1_round} rows (an up-sample round): "
-              f"{cuda_ms(lambda: fm.fused_mlp_cuda(plan, xs, ws, bs), 10):.3f} ms "
+              f"{k1_ms(plan, xs, ws, bs, 10):.3f} ms "
               f"(plain {cuda_ms(lambda: fm._forward_rows(plan, xs, ws, bs), 10):.3f} ms)",
               flush=True)
         bound = bound_ms(2.0 * nw * rows_k1, 4.0 * (rows_k1 * (d0 + dout) + nw + nb))
@@ -194,7 +261,8 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
             replaces="robir_tpu/render/pallas/fused_mlp.py:111",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
             bound_by=bound[1], library_ms=None, rows=rows_k1,
-            kernel="K1", path="neus_stage1", shape=None)
+            kernel="K1", path="neus_stage1", shape=None,
+            **geometry_line("K1", "sdf", plan, rows_k1))
 
         x, ws, bs = trunk_inputs(plan, pe, rows_k3, gen)
         # the main path's rows, a ragged count, and each side of the switch
@@ -277,7 +345,7 @@ def check_tracer_kernels(model_cfg, rows: int, rows_dense: int, gen) -> dict:
             err = held_to_plain(f"K1 at {n} rows", [
                 ("y", fm.fused_mlp_cuda(plan, xs, ws, bs), fm._forward_rows(plan, xs, ws, bs))])
             reps = 20 if n < 8192 else 10
-            ms = cuda_ms(lambda: fm.fused_mlp_cuda(plan, xs, ws, bs), reps)
+            ms = k1_ms(plan, xs, ws, bs, reps, packed_once=True)
             plain = cuda_ms(lambda: fm._forward_rows(plan, xs, ws, bs), reps)
             bound = bound_ms(2.0 * nw * n, 4.0 * (n * (d0 + dout) + nw + nb))
             entries[key] = dict(
@@ -285,7 +353,8 @@ def check_tracer_kernels(model_cfg, rows: int, rows_dense: int, gen) -> dict:
                 route="cuda", source="robir_tpu_torch/csrc/fused_mlp.cu",
                 replaces="robir_tpu/render/pallas/fused_mlp.py:111",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-                library_ms=None, rows=n, kernel="K1", path="cesr", shape=(fm.MAX_WIDTH, n))
+                library_ms=None, rows=n, kernel="K1", path="cesr", shape=(fm.MAX_WIDTH, n),
+                **geometry_line("K1", "sdf", plan, n))
         xs = x[:rows]
         y, de = fv.vg_forward_cuda(plan, xs, ws, bs)
         yp, dep, *_ = fv._forward_phases(plan, xs, ws, bs)
@@ -299,6 +368,68 @@ def check_tracer_kernels(model_cfg, rows: int, rows_dense: int, gen) -> dict:
             replaces="robir_tpu/render/pallas/fused_value_grad.py:131",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
             library_ms=None, rows=rows, kernel="K3", path="cesr", shape=(fm.MAX_WIDTH, rows))
+    report(entries)
+    return entries
+
+
+def check_switch_kernels(sdf_cfg, normal_cfg, gen) -> dict:
+    """K1 and K2 (with dx) at both plans at 1,024 and 1,027 rows and on each
+    side of their cluster switch, each against its plain version and timed;
+    prints each launch's geometry and the clusters the card holds at once.
+    The main paths' own shapes have their entries above; these have none
+    (path None, no launches on a main path)."""
+    rows_checked = switch_rows(torch.cuda.get_device_properties(0).multi_processor_count)
+    entries = {}
+    nets = {"sdf": (fm.plan_from_sdf_config(sdf_cfg), sdf_cfg.pe),
+            "normal_net": (fm.plan_from_sdf_config(normal_cfg), SHADOW_PE)}
+    for net, (plan, pe) in nets.items():
+        print(f"{net} (width {fm.build_width(plan)} build): clusters of {fm.CLUSTER} blocks "
+              f"held at once (cudaOccupancyMaxActiveClusters), K1 / K2 rows kernel: "
+              f"{fm.max_active_clusters(plan, False)} / {fm.max_active_clusters(plan, True)}",
+              flush=True)
+        x, ws, bs = trunk_inputs(plan, pe, max(rows_checked), gen)
+        dy = 1e-3 * torch.randn(max(rows_checked), plan.out_dim, generator=gen, device="cuda")
+        nw = plan.n_weights()
+        nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
+        width = fm.build_width(plan)
+        for rows in rows_checked:
+            xs, dys = x[:rows], dy[:rows]
+            for kernel in ("K1", "K2"):
+                geo = geometry_line(kernel, net, plan, rows)
+                if geo["cluster"] != (fm.CLUSTER if rows < rows_checked[-1] else 1):
+                    raise RuntimeError(f"{kernel} {net} at {rows} rows: cluster {geo['cluster']} "
+                                       f"on the wrong side of the switch")
+                if rows == 1024 and (net == "normal_net" or kernel == "K1"):
+                    continue  # a main-path shape, in its own entry
+                with torch.no_grad():
+                    if kernel == "K1":
+                        err = held_to_plain(f"K1 {net} at {rows} rows", [
+                            ("y", fm.fused_mlp_cuda(plan, xs, ws, bs),
+                             fm._forward_rows(plan, xs, ws, bs))])
+                        ms = k1_ms(plan, xs, ws, bs, 10)
+                        plain = cuda_ms(lambda: fm._forward_rows(plan, xs, ws, bs), 10)
+                        bound = bound_ms(2.0 * nw * rows,
+                                         4.0 * (rows * (plan.dims[0] + plan.out_dim) + nw + nb))
+                        what = "K1 fused_mlp trunk forward"
+                    else:
+                        got = fm.mlp_backward_cuda(plan, xs, ws, bs, dys, True)
+                        want = fm._backward_rows(plan, xs, ws, bs, dys, True)
+                        err = held_to_plain(f"K2 {net} at {rows} rows", [
+                            ("dx", got[0], want[0]), *[(f"dW{i}", a, b) for i, (a, b) in
+                                                      enumerate(zip(got[1], want[1]))],
+                            *[(f"db{i}", a, b) for i, (a, b) in enumerate(zip(got[2], want[2]))]])
+                        ms = cuda_ms(lambda: fm.mlp_backward_cuda(plan, xs, ws, bs, dys, True), 10)
+                        plain = cuda_ms(lambda: fm._backward_rows(plan, xs, ws, bs, dys, True), 10)
+                        bound = k2_bound(plan, rows, True)
+                        what = "K2 fused_mlp recompute backward (dx, dW, db)"
+                entries[f"{kernel} {net} {rows}"] = dict(
+                    name=f"{what}, {net} plan (width {width} build), a check shape off the "
+                         f"main paths", route="cuda", source="robir_tpu_torch/csrc/fused_mlp.cu",
+                    replaces="robir_tpu/render/pallas/fused_mlp.py:"
+                             + ("111" if kernel == "K1" else "157"),
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
+                    bound_by=bound[1], library_ms=None, rows=rows, kernel=kernel, path=None,
+                    shape=(width, rows), **geo)
     report(entries)
     return entries
 
@@ -381,7 +512,7 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
         err = held_to_plain("K1 normal_net", [
             ("y", fm.fused_mlp_cuda(nplan, xm, ws, bs), fm._forward_rows(nplan, xm, ws, bs)),
             ("y ragged", fm.fused_mlp_cuda(nplan, x, ws, bs), fm._forward_rows(nplan, x, ws, bs))])
-        ms = cuda_ms(lambda: fm.fused_mlp_cuda(nplan, xm, ws, bs), 20)
+        ms = k1_ms(nplan, xm, ws, bs, 20)
         plain = cuda_ms(lambda: fm._forward_rows(nplan, xm, ws, bs), 20)
         bound = bound_ms(2.0 * nw * rows, 4.0 * (rows * (d0 + dout) + nw + nb))
         entries["K1w"] = dict(
@@ -390,7 +521,7 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
             replaces="robir_tpu/render/pallas/fused_mlp.py:111",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
             library_ms=None, rows=rows, kernel="K1", path="cesr",
-            shape=(fm.MAX_WIDTH_WIDE, rows))
+            shape=(fm.MAX_WIDTH_WIDE, rows), **geometry_line("K1", "normal_net", nplan, rows))
 
         pairs = []
         for plan, n, need_dx, tag in ((nplan, rows, False, "normal_net"),
@@ -412,10 +543,7 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
         dy = 1e-3 * torch.randn(rows, dout, generator=gen, device="cuda")
         ms = cuda_ms(lambda: fm.mlp_backward_cuda(nplan, xm, ws, bs, dy, False), 20)
         plain = cuda_ms(lambda: fm._backward_rows(nplan, xm, ws, bs, dy, False), 20)
-        w0 = nplan.layer_in_dim(0) * nplan.layer_out_dim(0)
-        # recompute 2 nw, wgrad 2 nw, dgrad 2 (nw - w0): no dx on the path
-        flops = rows * (6.0 * nw - 2.0 * w0)
-        bound = bound_ms(flops, 4.0 * (rows * (d0 + dout) + 2 * (nw + nb)))
+        bound = k2_bound(nplan, rows, False)  # no dx on the path
         n_bytes = 4 * fm.bwd_scratch_floats(nplan, rows)
         print(f"K2 global scratch at {rows} rows: {n_bytes} bytes ({n_bytes // rows} per row)",
               flush=True)
@@ -424,7 +552,8 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
             source="robir_tpu_torch/csrc/fused_mlp.cu",
             replaces="robir_tpu/render/pallas/fused_mlp.py:157",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=None, rows=rows, kernel="K2", path="cesr", shape=None)
+            library_ms=None, rows=rows, kernel="K2", path="cesr", shape=None,
+            **geometry_line("K2", "normal_net", nplan, rows))
     report(entries)
     return entries
 
@@ -588,17 +717,16 @@ def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int) -> None:
         raise RuntimeError("the CESR gradient bounds passed the planted K2 fault")
 
 
-# kernels and device functions named in the ptxas report; those of K3 and
-# K4 (the first four, rt_mm_body being their product, compiled out of line)
-# must not spill
+# kernels and device functions named in the ptxas report (rt_mm_body, the
+# product of all four, is compiled out of line); none may spill
 PTXAS_NAMES = ("vg_fwd_kernel", "vg_bwd_rows_kernel", "wgrad_kernel", "rt_mm_body",
-               "fused_mlp_fwd_kernel", "mlp_bwd_rows_kernel")
+               "fused_mlp_fwd_tile_kernel", "fused_mlp_fwd_kernel", "mlp_bwd_rows_kernel")
 
 
 def ptxas_report() -> None:
     """Registers, static shared memory and spill bytes of each kernel (and
     of rt_mm_body) from the build's ptxas log (``-Xptxas -v``); raises if
-    one of K3's or K4's spills."""
+    one spills."""
     for src in build.SOURCES:
         name, seen = None, {}
         for line in build.library_path(src).with_suffix(".log").read_text().splitlines():
@@ -626,7 +754,7 @@ def ptxas_report() -> None:
             print(f"  {src}: {name}: {info['registers']} registers, {info['smem']} bytes static "
                   f"shared memory, spill stores/loads {info['spill'][0]}/{info['spill'][1]} "
                   f"bytes", flush=True)
-            if any(info["spill"]) and name.split("<")[0] in PTXAS_NAMES[:4]:
+            if any(info["spill"]):
                 raise RuntimeError(f"{src}: {name} spills {info['spill']} bytes (stores, loads)")
 
 
@@ -807,20 +935,14 @@ def main() -> None:
           f"for {', '.join(build.SOURCES)}", flush=True)
     ptxas_report()
 
-    model_cfg, render_cfg, train_cfg, dataset_cfg = build_stage1_configs(
-        load_config(str(CONFIG)))
-    cesr_cfg, stage_cfg = cesr_configs(model_cfg)
-    rows_k1 = train_cfg.batch_size * render_cfg.n_samples
-    rows_k3 = train_cfg.batch_size * (render_cfg.n_samples + render_cfg.n_importance)
+    model_cfg, render_cfg, train_cfg, dataset_cfg, cesr_cfg, stage_cfg = load_configs()
+    rows = path_rows(render_cfg, train_cfg, cesr_cfg, stage_cfg)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows_k1_round = (train_cfg.batch_size * render_cfg.n_importance
-                     // render_cfg.up_sample_steps)
-    entries = check_kernels(model_cfg, rows_k1, rows_k1_round, rows_k3, gen)
-    entries.update(check_tracer_kernels(
-        model_cfg, stage_cfg.num_pixels,
-        stage_cfg.num_pixels * cesr_cfg.sphere_tracer.n_steps, gen))
+    entries = check_kernels(model_cfg, rows["stage1"], rows["round"], rows["vg"], gen)
+    entries.update(check_tracer_kernels(model_cfg, rows["query"], rows["dense"], gen))
     entries.update(check_wide_kernels(stage_cfg.normal_cfg, model_cfg.sdf,
-                                      stage_cfg.num_pixels, 8192, gen))
+                                      rows["query"], rows["k2_sdf"], gen))
+    entries.update(check_switch_kernels(model_cfg.sdf, stage_cfg.normal_cfg, gen))
 
     train_scene = make_sphere_scene("train", h=64, w=64, seed=args.seed, cfg=dataset_cfg)
     test_scene = make_sphere_scene("test", h=64, w=64, seed=args.seed, cfg=dataset_cfg)
@@ -835,9 +957,13 @@ def main() -> None:
                       args.profile)
 
     # each entry counts its kernel's launches on its path, at its shape (or
-    # at every shape: stage 1's entries, timed at the path's largest rows)
+    # at every shape: stage 1's entries, timed at the path's largest rows);
+    # the check shapes off the main paths count none
     paths = {"neus_stage1": stage1, "cesr": cesr}
     for name, e in entries.items():
+        if e["path"] is None:
+            e["launches"] = 0
+            continue
         e["launches"] = sum(n for shape, n in paths[e["path"]][e["kernel"]].items()
                             if e["shape"] is None or shape == e["shape"])
         if e["launches"] == 0:
@@ -851,8 +977,8 @@ def main() -> None:
                                    f"{listed} in the kernels line")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "rows", "path")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries.values()]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "rows", "path", "cluster", "ctas")
+    print(json.dumps({"kernels": [{k: e.get(k) for k in keys} for e in entries.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

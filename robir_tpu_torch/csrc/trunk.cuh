@@ -8,13 +8,15 @@
 // buffer of row-major [in, out] blocks, and their transposes as a second
 // flat buffer of [out, in] blocks at the same offsets.
 //
-// One thread block owns a tile of rows (TRUNK_ROWS in K1 and K2; 16 or 64
-// in K3 and K4). The tile's activations live in shared memory; each layer's
-// weights come from global memory (all 2.1 MB of the full-width SDF trunk,
-// 8.4 MB of a 512-wide one, stay in the 50 MB L2). Arithmetic is fp32 on
-// the CUDA cores. K1 and K2 multiply with tile_mm, one L2 weight load
-// feeding TRUNK_ROWS fused multiply-adds; K3 and K4 with rt_mm (below),
-// register tiles fed from weight slabs staged in shared memory.
+// A thread block owns a tile of rows (TRUNK_ROWS in K1 and K2; 16 or 64 in
+// K3 and K4), or, in K1 and K2 below one tile per SM, a cluster of blocks
+// shares a tile and splits each layer's columns. The tile's activations
+// live in shared memory; each layer's weights come from global memory (all
+// 2.1 MB of the full-width SDF trunk, 8.4 MB of a 512-wide one, stay in the
+// 50 MB L2). Arithmetic is fp32 on the CUDA cores, through rt_mm (below):
+// register tiles fed from weight slabs staged in shared memory, over the
+// whole layer or over a window of its columns. K1 from one tile per SM on
+// multiplies with tile_mm: a column per thread, weights read through L1.
 //
 // The widest layer is a compile-time parameter (LD, the row stride of the
 // tile buffers) of the helpers below: TRUNK_MAXW (264) serves the SDF
@@ -160,28 +162,35 @@ static int trunk_sm_count() {
 }
 
 // ---------------------------------------------------------------------------
-// The register-tiled row-tile product of K3 and K4 (rt_mm). K1 and K2 keep
-// tile_mm: their 520-wide builds leave no room for a tall row tile.
+// The register-tiled row-tile product of all four kernels (rt_mm).
 //
 // tile_mm gives each weight load TRUNK_ROWS multiply-adds and feeds every
 // multiply-add with a scalar shared load. rt_mm instead
-//   * keeps an R/8 x 8 register tile of the R x 256 output per thread, so
-//     a float4 of activations (4 k of one row, one address across the warp)
-//     and two float4 of weights (8 columns of one k) feed 4 x R/8 x 8 and
-//     R/8 x 8 multiply-adds: at R = 64, 16 shared loads per 256;
+//   * keeps a TM x 8 (or TM x 4) register tile of the R x 256 output per
+//     thread, so a float4 of activations (4 k of one row, one address
+//     across the warp) and 8 (or 4) weights of one k feed TM x 8 (or 4)
+//     multiply-adds: at R = 64, TM = 8, 16 shared loads per 256;
 //   * stages the weights in shared memory in k-slabs of RT_SLAB_K rows, in
 //     a ring of three filled by cp.async (16-byte copies where a layer's
-//     rows are 16-byte aligned, else 4-byte), so that the next two slabs'
-//     copies run under this slab's multiply-adds, with one barrier a slab.
-//     Reading the weights straight through L1 instead was faster for the
-//     product alone but slower inside K4.
-// Columns past 256 (the SDF trunk's 257th output, at most 8) are summed by
-// short k-slices per thread from the same slabs and reduced by shuffles.
-// Where a layer has at most 128 outputs, the upper half of each register
-// tile is skipped. That choice is a template parameter and full slabs take
-// an unrolled path, so that no branch splits the multiply-add loop, and the
-// body is compiled out of line (one copy per R and choice, shared by the
-// kernel's call sites): each measured faster than the alternative.
+//     rows are 16-byte aligned, else 4-byte copies spread over all
+//     threads), so that the next two slabs' copies run under this slab's
+//     multiply-adds, with one barrier a slab. Reading the
+//     weights straight through L1 instead was faster for the product alone
+//     but slower inside K4.
+// Columns past the register tile (at most RT_EXTRA: the SDF trunk's 257th
+// output, or the 129th of a 129-column window) are summed by short k-slices
+// per thread from the same slabs and reduced by shuffles. Where a product
+// has at most 128 + RT_EXTRA columns, the upper half of each register tile
+// is skipped. That choice is a template parameter and full slabs take an
+// unrolled path, so that no branch splits the multiply-add loop, and the
+// body is compiled out of line (one copy per R, choice, LD and TM, shared
+// by the kernel's call sites): each measured faster than the
+// alternative.
+//
+// A product may cover a window of a wider layer's columns (K1 and K2 split
+// a layer's columns across the blocks of a cluster, and a 512-wide layer
+// into two windows of 256): M, bias and out then point at the window's
+// first column, ldm is M's row stride and ncols the window's width.
 #define RT_SLAB_K 16            // k rows per weight slab
 #define RT_SLAB_STAGES 3        // slabs in flight or in use
 #define RT_SLAB_LD TRUNK_MAXW   // a slab's row stride, in floats
@@ -211,92 +220,104 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// Stage rows k0 .. k0 + RT_SLAB_K - 1 of M ([nk, ncols], row-major, global)
-// into slab ([RT_SLAB_K][RT_SLAB_LD], shared) as one cp.async group. Rows
-// past nk are zero-filled (src-size 0), so they add nothing to the sums.
-__device__ __forceinline__ void rt_load_slab(const float* __restrict__ M, int nk, int ncols,
-                                             bool vec, int k0, float* slab) {
+// Stage rows k0 .. k0 + RT_SLAB_K - 1 of M ([nk, ncols] with row stride
+// ldm, global) into slab ([RT_SLAB_K][RT_SLAB_LD], shared) as one cp.async
+// group. Rows past nk are zero-filled (src-size 0), so they add nothing to
+// the sums. vec: 16-byte copies (ldm, ncols and M's address 16-byte aligned).
+__device__ __forceinline__ void rt_load_slab(const float* __restrict__ M, int nk, int ldm,
+                                             int ncols, bool vec, int k0, float* slab) {
   if (vec) {
     const int q = ncols >> 2;
     for (int idx = threadIdx.x; idx < RT_SLAB_K * q; idx += TRUNK_THREADS) {
       const int kk = idx / q, c = (idx - kk * q) << 2;
       const bool ok = k0 + kk < nk;
-      cp_async16(slab + kk * RT_SLAB_LD + c, ok ? M + (size_t)(k0 + kk) * ncols + c : M,
+      cp_async16(slab + kk * RT_SLAB_LD + c, ok ? M + (size_t)(k0 + kk) * ldm + c : M,
                  ok ? 16 : 0);
     }
-  } else {
-    for (int kk = 0; kk < RT_SLAB_K; ++kk) {
+  } else {  // every thread takes its share of the slab, whatever ncols is
+    for (int idx = threadIdx.x; idx < RT_SLAB_K * ncols; idx += TRUNK_THREADS) {
+      const int kk = idx / ncols, c = idx - kk * ncols;
       const bool ok = k0 + kk < nk;
-      const float* row = M + (size_t)(k0 + kk) * ncols;
-      for (int c = threadIdx.x; c < ncols; c += TRUNK_THREADS)
-        cp_async4(slab + kk * RT_SLAB_LD + c, ok ? row + c : M, ok ? 4 : 0);
+      cp_async4(slab + kk * RT_SLAB_LD + c, ok ? M + (size_t)(k0 + kk) * ldm + c : M,
+                ok ? 4 : 0);
     }
   }
   cp_async_commit();
 }
 
 // acc += in[rows r0 .. r0 + TM - 1][k0 + 4q .. k0 + 4q + 3] x the slab's rows
-// 4q .. 4q + 3 at this lane's columns (only the lower half without HI).
-template <int TM, bool HI>
+// 4q .. 4q + 3 at this thread's TN columns (TN = 8 / CG, halved without HI):
+// V-float vectors (V = min(TN, 4)) at col0 + h * 128, h < TN / V.
+template <int TM, bool HI, int LD, int CG>
 __device__ __forceinline__ void rt_quad(const float* in, int r0, int k0, int q, const float* w,
-                                        int lane, float (&acc)[TM][8]) {
+                                        int col0, float (&acc)[TM][8 / CG]) {
+  constexpr int TN = (HI ? 8 : 4) / CG, V = TN < 4 ? TN : 4;
   float4 a[TM];
 #pragma unroll
   for (int m = 0; m < TM; ++m)
-    a[m] = *reinterpret_cast<const float4*>(in + (r0 + m) * TRUNK_MAXW + k0 + 4 * q);
+    a[m] = *reinterpret_cast<const float4*>(in + (r0 + m) * LD + k0 + 4 * q);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const float* wr = w + (4 * q + kk) * RT_SLAB_LD;
-    const float4 w0 = *reinterpret_cast<const float4*>(wr + 4 * lane);
-    if (HI) {
-      const float4 w1 = *reinterpret_cast<const float4*>(wr + 128 + 4 * lane);
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const float* wr = w + (4 * q + kk) * RT_SLAB_LD + col0;
+    float wv[TN];
 #pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        const float av = kk == 0 ? a[m].x : kk == 1 ? a[m].y : kk == 2 ? a[m].z : a[m].w;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(av, wv[n], acc[m][n]);
+    for (int h = 0; h < TN / V; ++h) {
+      if constexpr (V == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(wr + h * 128);
+        wv[4 * h] = t.x, wv[4 * h + 1] = t.y, wv[4 * h + 2] = t.z, wv[4 * h + 3] = t.w;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(wr + h * 128);
+        wv[2 * h] = t.x, wv[2 * h + 1] = t.y;
       }
-    } else {  // no column of the upper half exists
-      const float wv[4] = {w0.x, w0.y, w0.z, w0.w};
+    }
 #pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        const float av = kk == 0 ? a[m].x : kk == 1 ? a[m].y : kk == 2 ? a[m].z : a[m].w;
+    for (int m = 0; m < TM; ++m) {
+      const float av = kk == 0 ? a[m].x : kk == 1 ? a[m].y : kk == 2 ? a[m].z : a[m].w;
 #pragma unroll
-        for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(av, wv[n], acc[m][n]);
-      }
+      for (int n = 0; n < TN; ++n) acc[m][n] = fmaf(av, wv[n], acc[m][n]);
     }
   }
 }
 
-// The body of rt_mm (below) for one half-tile choice.
-template <int R, bool HI>
+// The body of rt_mm (below) for one half-tile choice, row stride, ring and
+// register tile. The 8 warps form R / TM row groups of TM rows times CG
+// column groups: with TM = R / 8 (K3, K4) each warp spans all 256 columns,
+// lane l holding 4l .. 4l+3 and 128+4l .. 128+4l+3; with TM = 4 at R = 16
+// (K1, K2) two groups of warps split them, lane l of group g holding
+// g*128 + 4l .. +3 (g*64 + 2l, +1 without HI), so each weight read from
+// shared memory feeds TM multiply-adds instead of 2.
+template <int R, bool HI, int LD, int TM>
 __device__ __noinline__ void rt_mm_body(const float* in, int nk, const float* __restrict__ M,
-                                        int ncols, const float* __restrict__ bias, float* out,
-                                        float* slabs) {
+                                        int ldm, int ncols, const float* __restrict__ bias,
+                                        float* out, float* slabs) {
   static_assert(TRUNK_THREADS == 256 && (R == 16 || R == 64), "rt_mm: 256 threads, R 16 or 64");
   static_assert(RT_SLAB_STAGES == 3, "rt_mm: a ring of three slabs, two copies ahead");
-  constexpr int TM = R / 8;                     // rows per thread
+  constexpr int RG = R / TM, CG = 8 / RG;       // row groups x column groups of warps
+  static_assert(RG * CG == 8 && (CG == 1 || CG == 2), "rt_mm: 8 warps, 1 or 2 column groups");
+  constexpr int TN = (HI ? 8 : 4) / CG;         // columns per thread
+  constexpr int V = TN < 4 ? TN : 4;            // their vector width
   constexpr int TPR = TRUNK_THREADS / R;        // threads per row for the extra columns
   constexpr int KPT = RT_SLAB_K / TPR;          // their k per thread and slab
   constexpr int SLAB = RT_SLAB_K * RT_SLAB_LD;  // floats per slab
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * TM;
+  constexpr int XB = HI ? RT_COLS : RT_COLS / 2;  // first extra column
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp % RG) * TM, col0 = (warp / RG) * 32 * V + V * lane;
   const int er = threadIdx.x / TPR, ek = (threadIdx.x % TPR) * KPT;
-  const int n_extra = ncols - RT_COLS;
-  const bool vec = (ncols & 3) == 0 && (reinterpret_cast<uintptr_t>(M) & 15) == 0;
-  float acc[TM][8];
+  const int n_extra = ncols - XB;
+  const bool vec = ((ldm | ncols) & 3) == 0 && (reinterpret_cast<uintptr_t>(M) & 15) == 0;
+  float acc[TM][8 / CG];
   float eacc[RT_EXTRA];
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
+    for (int n = 0; n < 8 / CG; ++n) acc[m][n] = 0.f;
   }
 #pragma unroll
   for (int e = 0; e < RT_EXTRA; ++e) eacc[e] = 0.f;
 
   const int nslab = (nk + RT_SLAB_K - 1) / RT_SLAB_K;
-  rt_load_slab(M, nk, ncols, vec, 0, slabs);
-  if (nslab > 1) rt_load_slab(M, nk, ncols, vec, RT_SLAB_K, slabs + SLAB);
+  rt_load_slab(M, nk, ldm, ncols, vec, 0, slabs);
+  if (nslab > 1) rt_load_slab(M, nk, ldm, ncols, vec, RT_SLAB_K, slabs + SLAB);
   for (int s = 0; s < nslab; ++s) {
     if (s + 1 < nslab) {
       cp_async_wait<1>();  // slab s has landed; s + 1 may still be in flight
@@ -307,25 +328,25 @@ __device__ __noinline__ void rt_mm_body(const float* in, int nk, const float* __
     // whose buffer the copy of slab s + 2 now refills
     __syncthreads();
     if (s + 2 < nslab)
-      rt_load_slab(M, nk, ncols, vec, (s + 2) * RT_SLAB_K,
+      rt_load_slab(M, nk, ldm, ncols, vec, (s + 2) * RT_SLAB_K,
                    slabs + ((s + 2) % RT_SLAB_STAGES) * SLAB);
     const float* w = slabs + (s % RT_SLAB_STAGES) * SLAB;
     const int k0 = s * RT_SLAB_K;
     const int nq = min(RT_SLAB_K / 4, (nk - k0 + 3) >> 2);  // k quads holding a k < nk
     if (nq == RT_SLAB_K / 4) {  // a full slab: unrolled, so loads run ahead of the FMAs
 #pragma unroll
-      for (int q = 0; q < RT_SLAB_K / 4; ++q) rt_quad<TM, HI>(in, r0, k0, q, w, lane, acc);
+      for (int q = 0; q < RT_SLAB_K / 4; ++q) rt_quad<TM, HI, LD, CG>(in, r0, k0, q, w, col0, acc);
     } else {
 #pragma unroll 1
-      for (int q = 0; q < nq; ++q) rt_quad<TM, HI>(in, r0, k0, q, w, lane, acc);
+      for (int q = 0; q < nq; ++q) rt_quad<TM, HI, LD, CG>(in, r0, k0, q, w, col0, acc);
     }
     if (n_extra > 0) {
 #pragma unroll
       for (int u = 0; u < KPT; ++u) {
         const int k = k0 + ek + u;
         if (k < nk) {
-          const float av = in[er * TRUNK_MAXW + k];
-          const float* wr = w + (ek + u) * RT_SLAB_LD + RT_COLS;
+          const float av = in[er * LD + k];
+          const float* wr = w + (ek + u) * RT_SLAB_LD + XB;
 #pragma unroll
           for (int e = 0; e < RT_EXTRA; ++e)
             if (e < n_extra) eacc[e] = fmaf(av, wr[e], eacc[e]);
@@ -334,27 +355,30 @@ __device__ __noinline__ void rt_mm_body(const float* in, int nk, const float* __
     }
   }
 
-  float bv[8];
+  float bv[TN];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int j = (n < 4 ? 0 : 128) + 4 * lane + (n & 3);
+  for (int n = 0; n < TN; ++n) {
+    const int j = (n / V) * 128 + col0 + n % V;
     bv[n] = bias != nullptr && j < ncols ? bias[j] : 0.f;
   }
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
-    float* o = out + (r0 + m) * TRUNK_MAXW;
+    float* o = out + (r0 + m) * LD;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = h * 128 + 4 * lane;
-      const float* v = &acc[m][4 * h];
-      const float* b4 = &bv[4 * h];
-      if (j + 3 < ncols) {
-        *reinterpret_cast<float4*>(o + j) =
-            make_float4(v[0] + b4[0], v[1] + b4[1], v[2] + b4[2], v[3] + b4[3]);
+    for (int h = 0; h < TN / V; ++h) {
+      const int j = h * 128 + col0;
+      const float* v = &acc[m][V * h];
+      const float* bh = &bv[V * h];
+      if (j + V - 1 < ncols) {
+        if constexpr (V == 4)
+          *reinterpret_cast<float4*>(o + j) =
+              make_float4(v[0] + bh[0], v[1] + bh[1], v[2] + bh[2], v[3] + bh[3]);
+        else
+          *reinterpret_cast<float2*>(o + j) = make_float2(v[0] + bh[0], v[1] + bh[1]);
       } else {
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-          if (j + n < ncols) o[j + n] = v[n] + b4[n];
+        for (int n = 0; n < V; ++n)
+          if (j + n < ncols) o[j + n] = v[n] + bh[n];
       }
     }
   }
@@ -365,26 +389,34 @@ __device__ __noinline__ void rt_mm_body(const float* in, int nk, const float* __
 #pragma unroll
       for (int off = TPR / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
       if (e < n_extra && threadIdx.x % TPR == 0)
-        out[er * TRUNK_MAXW + RT_COLS + e] = v + (bias != nullptr ? bias[RT_COLS + e] : 0.f);
+        out[er * LD + XB + e] = v + (bias != nullptr ? bias[XB + e] : 0.f);
     }
   }
 }
 
-// out[r][j] = sum_k in[r][k] * M[k * ncols + j] (+ bias[j]) for a tile of R
-// rows (16 or 64). `in` and `out` are distinct shared [R][TRUNK_MAXW]
-// buffers whose entries past the written widths hold zeros or earlier
-// finite values (the kernels zero their shared memory at start); M is
-// row-major [nk, ncols] in global memory; `slabs` is RT_SLAB_STAGES x
-// RT_SLAB_K x RT_SLAB_LD shared floats. Warp w owns rows w*R/8 ..
-// w*R/8 + R/8 - 1; lane l owns columns 4l .. 4l+3 and 128+4l .. 128+4l+3.
-// Every thread of the block calls; the caller synchronises before (in
-// written) and after (out read, and before the next call refills slabs).
+// out[r][j] = sum_k in[r][k] * M[k * ldm + j] (+ bias[j]), j < ncols, for a
+// tile of R rows (16 or 64), ncols at most TRUNK_MAXW. `in` and `out` are
+// distinct shared [R][LD] buffers whose entries past the written widths
+// hold zeros or earlier finite values (the kernels zero their shared memory
+// at start); M is row-major with row stride ldm in global memory; `slabs`
+// is RT_SLAB_STAGES x RT_SLAB_K x RT_SLAB_LD shared floats; TM rows per
+// thread (see rt_mm_body). Every thread of the block calls; the caller
+// synchronises before (in written) and after (out read, and before the
+// next call refills slabs).
+template <int R, int LD = TRUNK_MAXW, int TM = R / 8>
+__device__ __forceinline__ void rt_mm_window(const float* in, int nk, const float* __restrict__ M,
+                                             int ldm, int ncols, const float* __restrict__ bias,
+                                             float* out, float* slabs) {
+  if (ncols > RT_COLS / 2 + RT_EXTRA)  // a column of the upper half is live
+    rt_mm_body<R, true, LD, TM>(in, nk, M, ldm, ncols, bias, out, slabs);
+  else
+    rt_mm_body<R, false, LD, TM>(in, nk, M, ldm, ncols, bias, out, slabs);
+}
+
+// rt_mm_window over all ncols columns of M ([nk, ncols]).
 template <int R>
 __device__ __forceinline__ void rt_mm(const float* in, int nk, const float* __restrict__ M,
                                       int ncols, const float* __restrict__ bias, float* out,
                                       float* slabs) {
-  if (ncols > 128)  // a column in 128 .. 255: the upper half of the register tile is live
-    rt_mm_body<R, true>(in, nk, M, ncols, bias, out, slabs);
-  else
-    rt_mm_body<R, false>(in, nk, M, ncols, bias, out, slabs);
+  rt_mm_window<R>(in, nk, M, ncols, ncols, bias, out, slabs);
 }

@@ -5,18 +5,20 @@ Counterpart of ``robir_tpu/render/pallas/fused_mlp.py``. The kernels live in
 ``csrc/fused_mlp.cu``:
 
 - K1 (``fused_mlp_fwd_kernel``) replaces the Pallas ``_fwd_kernel`` launched
-  by ``_fused_forward``: one block per 16-row tile keeps the tile's
-  activations in shared memory through all layers and streams each layer's
-  weights from L2.
-- K2 (``mlp_bwd_rows_kernel`` + ``mlp_wgrad_kernel``) replaces the Pallas
-  ``_bwd_kernel`` launched by ``_fused_backward``: recompute the tile's
-  forward (layer inputs and sigma' to a global scratch buffer allocated
-  here), backpropagate to dx, then reduce dW_i = c_i^T g_i and db_i over
-  rows in 128x128 tiles added with fp32 atomics.
+  by ``_fused_forward``: a 16-row tile keeps its activations in shared
+  memory through all layers and stages each layer's weights from L2.
+- K2 (``mlp_bwd_rows_kernel`` + ``wgrad_kernel`` in ``csrc/wgrad.cuh``)
+  replaces the Pallas ``_bwd_kernel`` launched by ``_fused_backward``:
+  recompute the tile's forward (layer inputs and sigma' to a global scratch
+  buffer allocated here), backpropagate to dx, then reduce dW_i = c_i^T g_i
+  and db_i over rows in 128x128 tiles added with fp32 atomics.
 
 Both are bound by fp32 multiply-adds on the CUDA cores: 2 (K1) and 6 (K2)
 FLOPs per weight per row. The kernels take layers up to 264 wide (the SDF
-trunk) or 520 (the 512-wide CESR nets).
+trunk) or 520 (the 512-wide CESR nets). ``launch_geometry`` decides how a
+launch spreads over the card: below one 16-row tile per SM a cluster of
+``CLUSTER`` blocks shares each tile and splits every layer's columns into
+windows; the plan's meta carries the windows to the kernels.
 
 ``fused_mlp`` is a ``torch.autograd.Function`` whenever an input needs a
 gradient: K1 forward, K2 backward, dx only where x needs it. Without
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -50,6 +53,14 @@ MAX_LAYERS = 16
 MAX_WIDTH = 264
 MAX_WIDTH_WIDE = 520
 MAX_IN = 64
+# K1 and K2's launch geometry (csrc/fused_mlp.cu): rows per tile, blocks
+# per tile below one tile per SM, columns of the register tiles (a wider
+# window is split into windows of RT_COLS), windows per layer and direction
+# over all ranks
+TILE_ROWS = 16
+CLUSTER = 2
+RT_COLS = 256
+MAX_WINDOWS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +202,89 @@ def _backward_rows(plan: MLPPlan, x, weights, biases, dy, need_dx: bool = True):
     return dx, dws, dbs
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchGeometry:
+    """How K1 or K2 spreads one launch over the card.
+
+    ``cluster`` blocks share each 16-row tile; ``out[i]`` and ``inp[i]``
+    list layer i's column windows over its outputs (the W product: K1, K2's
+    recompute) and its inputs (the W^T product: K2's backward), rank-major:
+    rank r owns the r-th run of ``len(windows) // cluster`` of them. Each
+    window is one call of the register-tiled rt_mm. At one block per tile
+    K1 runs its tile_mm kernel instead, whose small shared memory lets
+    several blocks share an SM, and ignores the windows.
+    """
+
+    cluster: int
+    tiles: int
+    out: tuple[tuple[tuple[int, int], ...], ...]
+    inp: tuple[tuple[tuple[int, int], ...], ...]
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.cluster
+
+    def rank_windows(self, windows, rank: int):
+        per = len(windows) // self.cluster
+        return windows[rank * per:(rank + 1) * per]
+
+    def meta(self) -> list[int]:
+        """The kernels' geometry, after the plan's meta: [cluster, then per
+        layer: the count and cuts of its output windows, then of its input
+        windows]."""
+        m = [self.cluster]
+        for out, inp in zip(self.out, self.inp):
+            for windows in (out, inp):
+                m += [len(windows), 0] + [e for _, e in windows]
+        return m
+
+
+def column_windows(width: int, cluster: int) -> tuple[tuple[int, int], ...]:
+    """[0, width) split into ``cluster`` rank ranges at 4-aligned cuts (as
+    even as that allows; the last rank takes the ragged end), each range
+    into windows of RT_COLS while more than MAX_WIDTH columns remain. (Only
+    one block per tile meets a range that wide, so every rank gets as many
+    windows as the others, as the kernels require.)"""
+    cuts = [4 * (r * width // (4 * cluster)) for r in range(cluster)] + [width]
+    windows = []
+    for a, e in zip(cuts, cuts[1:]):
+        while e - a > MAX_WIDTH:
+            windows.append((a, a + RT_COLS))
+            a += RT_COLS
+        windows.append((a, e))
+    return tuple(windows)
+
+
+def launch_geometry(plan: MLPPlan, n_rows: int, sms: int) -> LaunchGeometry:
+    """K1's and K2's geometry for ``n_rows`` on a card of ``sms`` SMs: while
+    the launch has fewer rows than one tile per SM, a cluster of CLUSTER
+    blocks per tile, multiplying with rt_mm; else one block per tile, where
+    K1 runs its tile_mm kernel and K2 rt_mm."""
+    tiles = -(-n_rows // TILE_ROWS)
+    c = CLUSTER if n_rows < TILE_ROWS * sms else 1
+    out = tuple(column_windows(plan.layer_out_dim(i), c) for i in range(plan.n_layers))
+    inp = tuple(column_windows(plan.layer_in_dim(i), c) for i in range(plan.n_layers))
+    if any(len(w) > MAX_WINDOWS for w in out + inp):
+        raise ValueError(f"plan too wide for the kernels' windows: {plan}")
+    return LaunchGeometry(cluster=c, tiles=tiles, out=out, inp=inp)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_meta(plan: MLPPlan, n_rows: int, sms: int) -> ctypes.Array:
+    """The kernels' meta (plan, then geometry), made once per shape: the
+    CESR tracer launches K1 51 times a step at two shapes."""
+    return int_array(plan.meta() + launch_geometry(plan, n_rows, sms).meta())
+
+
+def launch_meta(plan: MLPPlan, x: torch.Tensor) -> ctypes.Array:
+    return _launch_meta(plan, x.shape[0], sm_count(x.device))
+
+
 def check_cuda_inputs(plan: MLPPlan, x: torch.Tensor,
                       weights: Sequence[torch.Tensor],
                       biases: Sequence[torch.Tensor],
@@ -247,10 +341,10 @@ def fused_mlp_cuda(plan: MLPPlan, x, weights, biases, packed=None) -> torch.Tens
     check_cuda_inputs(plan, x, weights, biases, MAX_WIDTH_WIDE)
     x = x.contiguous()
     W, b = packed if packed is not None else pack_weights(weights, biases)
-    y = torch.empty((x.shape[0], plan.out_dim), device=x.device,
-                    dtype=torch.float32)
-    FORWARD(ptr(x), ptr(W), ptr(b), ptr(y), int_array(plan.meta()),
-            x.shape[0], stream_handle(x), shape=(build_width(plan), x.shape[0]))
+    n = x.shape[0]
+    y = torch.empty((n, plan.out_dim), device=x.device, dtype=torch.float32)
+    FORWARD(ptr(x), ptr(W), ptr(b), ptr(y), launch_meta(plan, x), n,
+            stream_handle(x), shape=(build_width(plan), n))
     return y
 
 
@@ -287,9 +381,24 @@ def mlp_backward_cuda(plan: MLPPlan, x, weights, biases, dy, need_dx: bool = Tru
                           dtype=torch.float32)
     BACKWARD(ptr(x), ptr(dy), ptr(W), ptr(Wt), ptr(b),
              ptr(dx) if need_dx else ctypes.c_void_p(None), ptr(dW), ptr(db),
-             ptr(scratch), int_array(plan.meta()), n, stream_handle(x),
+             ptr(scratch), launch_meta(plan, x), n, stream_handle(x),
              shape=(build_width(plan), n))
     return dx, *unpack_grads(dW, db, weights, biases)
+
+
+def max_active_clusters(plan: MLPPlan, backward: bool) -> int:
+    """Clusters of CLUSTER blocks of K1 (or K2's rows kernel) at the plan's
+    build width that the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = library("fused_mlp.cu")
+    fn = lib.fused_mlp_max_active_clusters
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(build_width(plan), int(backward), ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {err}")
+    return out.value
 
 
 def unpack_grads(dW, db, weights, biases):

@@ -11,6 +11,8 @@ Both are fp32 (TF32 off); the kernels sum in another order, and K2 and K4
 sum dW/db across blocks with atomics.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,10 +48,17 @@ NORMAL_NET = SDFConfig(d_in=63, d_out=3, d_hidden=512, n_layers=8, skip_in=(4,),
                        multires=0)
 
 
-@pytest.mark.parametrize("sdf_cfg,n_rows", [(SDFConfig(), 1000), (SDFConfig(), 4099),
-                                            (NORMAL_NET, 1027)])
-def test_k1_matches_plain(dev, sdf_cfg, n_rows):
-    plan = tfm.plan_from_sdf_config(sdf_cfg)
+# K1/K2 row counts: a tile's edges, the CESR step's 1,024 rows and a ragged
+# count near it, each side of the switch from clusters of blocks per 16-row
+# tile to one block (2,112 rows on a 132-SM card), and beyond
+K12_ROWS = [1, 15, 17, 1000, 1024, 1027, 2111, 2113, 4099]
+K12_PLANS = {"sdf": SDFConfig(), "normal_net": NORMAL_NET}
+
+
+@pytest.mark.parametrize("n_rows", K12_ROWS)
+@pytest.mark.parametrize("net", K12_PLANS)
+def test_k1_matches_plain(dev, net, n_rows):
+    plan = tfm.plan_from_sdf_config(K12_PLANS[net])
     x, ws, bs = trunk_case(plan, 1, n_rows)
     x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
     before = tfm.FORWARD.launches
@@ -59,10 +68,11 @@ def test_k1_matches_plain(dev, sdf_cfg, n_rows):
     _close(got, tfm._forward_rows(plan, x, ws, bs))
 
 
-@pytest.mark.parametrize("sdf_cfg,n_rows,need_dx", [
-    (NORMAL_NET, 1024, False), (NORMAL_NET, 1027, True), (SDFConfig(), 4099, True)])
-def test_k2_matches_plain(dev, sdf_cfg, n_rows, need_dx):
-    plan = tfm.plan_from_sdf_config(sdf_cfg)
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("n_rows", K12_ROWS)
+@pytest.mark.parametrize("net", K12_PLANS)
+def test_k2_matches_plain(dev, net, n_rows, need_dx):
+    plan = tfm.plan_from_sdf_config(K12_PLANS[net])
     x, ws, bs = trunk_case(plan, 6, n_rows)
     dy = to_t(np.random.default_rng(7).standard_normal((n_rows, plan.out_dim)), dev)
     x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
@@ -72,6 +82,26 @@ def test_k2_matches_plain(dev, sdf_cfg, n_rows, need_dx):
     pairs = [*zip(dws, dwsr), *zip(dbs, dbsr)] + ([(dx, dxr)] if need_dx else [])
     for got, want in pairs:
         _close(got, want)
+
+
+def test_k1_refuses_a_geometry_it_does_not_take(dev):
+    """A geometry the kernels refuse (windows past 264 columns), handed to
+    the entry point in the meta, raises; no other path runs in its place."""
+    from robir_tpu_torch.render.cuda.build import int_array, ptr
+
+    plan = tfm.plan_from_sdf_config(NORMAL_NET)
+    x, ws, bs = trunk_case(plan, 8, 64)
+    x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
+    geo = tfm.launch_geometry(plan, 64, tfm.sm_count(x.device))
+    wide = tuple(((0, plan.layer_out_dim(i)),) * geo.cluster for i in range(plan.n_layers))
+    meta = int_array(plan.meta() + dataclasses.replace(geo, out=wide).meta())
+    W, b = tfm.pack_weights(ws, bs)
+    y = torch.full((64, plan.out_dim), float("nan"), device=dev)
+    before = tfm.FORWARD.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfm.FORWARD(ptr(x), ptr(W), ptr(b), ptr(y), meta, 64, tfm.stream_handle(x),
+                    shape=(tfm.MAX_WIDTH_WIDE, 64))
+    assert tfm.FORWARD.launches == before and torch.isnan(y).all()
 
 
 def test_fused_mlp_under_grad_runs_k1_and_k2(dev):
@@ -134,8 +164,6 @@ def test_cesr_runner_steps_launch_each_kernel(dev):
     """Small widths through CESRRunner on the card: finite losses, and per
     step 52 K1 (51 sphere-tracer queries, the normal net), 1 K2 (the normal
     net's backward) and 1 K3 (the geometry normals)."""
-    import dataclasses
-
     from robir_tpu_torch.data.syn_dataset import shadow_scene
     from robir_tpu_torch.fields.envmap_material import EnvmapMaterialConfig
     from robir_tpu_torch.fields.visibility import IndirIllumConfig, VisNetConfig

@@ -180,3 +180,51 @@ def test_normal_net_plan():
     tfm.check_cuda_inputs(plan, *args, max_width=tfm.MAX_WIDTH_WIDE)
     with pytest.raises(ValueError, match="wider than 264"):
         tfm.check_cuda_inputs(plan, *args)
+
+
+GEOMETRY_PLANS = {
+    "sdf": tsdf.SDFConfig(),
+    "normal_net": tsdf.SDFConfig(d_in=63, d_out=3, d_hidden=512, n_layers=8, skip_in=(4,),
+                                 multires=0),
+    "small_ragged": tfm.MLPPlan(dims=(63, 96, 40, 72), out_dim=9, skip_in=(2,)),
+}
+
+
+@pytest.mark.parametrize("name", GEOMETRY_PLANS)
+def test_launch_geometry(name):
+    """K1/K2's launch geometry on a 132-SM card: each layer's windows over
+    its outputs and over its inputs partition the columns in order, start
+    4-aligned and are at most 264 wide; a 1,024-row launch spreads over at
+    least 128 blocks in clusters; from 2,112 rows (one 16-row tile per SM)
+    one block per tile; the kernels' meta lists the same cuts."""
+    cfg = GEOMETRY_PLANS[name]
+    plan = cfg if isinstance(cfg, tfm.MLPPlan) else tfm.plan_from_sdf_config(cfg)
+    for n_rows in (1, 17, 1024, 1027, 2111, 2112, 2113, 8192, 102400):
+        geo = tfm.launch_geometry(plan, n_rows, 132)
+        assert geo.cluster == (tfm.CLUSTER if n_rows < 2112 else 1)
+        assert geo.tiles == -(-n_rows // 16) and geo.ctas == geo.tiles * geo.cluster
+        meta = geo.meta()
+        assert meta[0] == geo.cluster
+        pos = 1
+        for i in range(plan.n_layers):
+            for windows, width in ((geo.out[i], plan.layer_out_dim(i)),
+                                   (geo.inp[i], plan.layer_in_dim(i))):
+                assert 1 <= len(windows) <= tfm.MAX_WINDOWS
+                assert len(windows) % geo.cluster == 0
+                assert windows[0][0] == 0 and windows[-1][1] == width
+                assert all(e == a for (_, e), (a, _) in zip(windows, windows[1:]))
+                assert all(a <= e <= a + 264 and (e == a or a % 4 == 0) for a, e in windows)
+                cuts = [0] + [e for _, e in windows]
+                assert meta[pos:pos + len(cuts) + 1] == [len(windows)] + cuts
+                pos += len(cuts) + 1
+        assert pos == len(meta)
+    geo = tfm.launch_geometry(plan, 1024, 132)
+    assert geo.cluster == 2 and geo.ctas >= 128
+    # the normal net's 512 columns split into 256 + 256 across the cluster
+    # (two windows of 256 in one block), the SDF trunk's 257 outputs into
+    # 128 + 129
+    if name == "normal_net":
+        assert geo.out[1] == ((0, 256), (256, 512))
+        assert tfm.launch_geometry(plan, 2112, 132).out[1] == ((0, 256), (256, 512))
+    if name == "sdf":
+        assert geo.out[-1] == ((0, 128), (128, 257))
