@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``robir_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--steps 20] [--cesr-steps 20] [--seed 0] [--profile STEPS]
+    python3 chip_smoke.py [--steps 20] [--cesr-steps 20] [--seed 0]
+                          [--profile STEPS]
 
 1. Builds the port's CUDA kernels from ``robir_tpu_torch/csrc`` with nvcc
    for sm_90a (into ``robir_tpu_torch/build/``), prints each kernel's
@@ -28,22 +29,38 @@
    scene for ``--steps`` steps, then the chunked eval render of a test view.
    The launch counts are set to 0 just before and must rise by exactly
    4 K1 + 1 K3 + 1 K4 per step and 4 K1 + 1 K3 per eval chunk.
-5. Checks one full-width dense CESR step (64 pixels) on the card against the
-   same step on the CPU in fp32 and fp64, from the same weights and batch,
-   one trace and every random draw shared: the loss, every trainable
-   gradient, and K2 on the step's own operands; then shows that the
-   gradient bounds reject a planted K2 fault.
-6. Drives the CESR path: ``CESRRunner`` at the widths of
-   ``configs/hotdog.json`` (1,024 pixels, 128 SG lights, shadow and normal
-   nets 8 x 512, the 256-wide visibility net, indirect 4 x 512;
-   ``tracer="sphere"``, dense) on the in-memory two-sphere shadow scene,
-   with the NeuS just trained as its frozen geometry, for ``--cesr-steps``
-   steps on a shortened schedule that passes through warmup, explore and
-   project and the normal switch. The counts are set to 0 just before and
-   must rise by exactly 52 K1 (51 sphere-tracer queries, 50 at 1,024 rows
-   and 1 at 102,400; the normal net), 1 K2 and 1 K3 per step, each at its
-   shape.
-7. With ``--profile STEPS``, profiles that many more steps of each path and
+5. Drives the CESR path of the sphere tracer, dense: ``CESRRunner`` at the
+   widths of ``configs/hotdog.json`` (1,024 pixels, 128 SG lights, shadow
+   and normal nets 8 x 512, the 256-wide visibility net, indirect 4 x 512;
+   ``tracer="sphere"``, compact_chunk 0) on the in-memory two-sphere shadow
+   scene, with the NeuS just trained as its frozen geometry, for
+   SPHERE_STEPS (8) steps. The counts are set to 0 just before and must
+   rise by exactly 52 K1 (51 sphere-tracer queries, 50 at 1,024 rows and 1
+   at 102,400; the normal net), 1 K2 and 1 K3 per step, each at its shape.
+6. Bakes the cached-SDF grid of ``configs/hotdog.json`` (320^3, bf16) from
+   that NeuS through ``CESRRunner.bake_grid`` (500 K1 launches of 65,536
+   rows, counted), prints its wall time, and holds K1 to its plain version
+   on one of the bake's chunks.
+7. Holds the grid-march kernel to its plain version on that grid: the
+   1,024 primary rays of a CESR batch and 4,096 secondary rays from their
+   surface points in random directions, at over_relax 0 and 1.6; the hit
+   masks must be identical and t within 1e-5 where both hit.
+8. Checks one full-width CESR step (64 pixels) in row mode on the grid
+   tracer (compact_chunk 16) on the card against the same step on the CPU
+   in fp32 and fp64, from the same weights, batch and grid, one trace and
+   every random draw shared: the loss, every trainable gradient, and K2 on
+   the step's own operands; then shows that the gradient bounds reject a
+   planted K2 fault.
+9. Drives the CESR path at the JAX package's defaults: the same runner,
+   ``tracer="grid"`` and compact_chunk 128, for ``--cesr-steps`` steps on a
+   shortened schedule that passes through warmup, explore and project, the
+   normal switch and the guard that picks dense or compacted steps. Each
+   step's line gives its mode, surface rows and fraction. The counts are set
+   to 0 just before and must rise by 1 grid march (1,024 rays) and 1 K1, 1
+   K2 and 1 K3 at the step's rows (its surface rows if compacted, else
+   1,024) per step; K1, K2 and K3 are then held to their plain versions at
+   the row counts the run logged.
+10. With ``--profile STEPS``, profiles that many more steps of each path and
    prints the device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, the build time, each check, the
@@ -78,12 +95,14 @@ from robir_tpu_torch.fields.neus_model import NeuS, init_neus
 from robir_tpu_torch.render.cuda import build
 from robir_tpu_torch.render.cuda import fused_mlp as fm
 from robir_tpu_torch.render.cuda import fused_value_grad as fv
+from robir_tpu_torch.render.cuda import grid_march as gm
 from robir_tpu_torch.render.neus import render_samples, sample_z_vals
 from robir_tpu_torch.render.stage2 import Stage2Model
 from robir_tpu_torch.stages.cesr import SHADOW_PE, CESRRunner, CESRStageConfig, cesr_loss
 from robir_tpu_torch.stages.neus_stage import (NeusTrainer, batch_to_rays,
                                                cos_anneal_ratio, neus_loss)
 from robir_tpu_torch.stages.stage2_runner import init_stage2_params
+from robir_tpu_torch.tracing import grid as tg
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "neus_blender.json"
@@ -120,8 +139,17 @@ VG_TALL_ROWS_PER_SM = 128
 # a cluster of blocks per tile below (render/cuda/fused_mlp.py:launch_geometry)
 MLP_ONE_BLOCK_ROWS_PER_SM = 16
 
+# the grid march against its plain version: the same hits; t where both hit
+MARCH_T_TOL = 1e-5
+# steps of the CESR run on the sphere tracer, dense (the defaults' run has
+# --cesr-steps)
+SPHERE_STEPS = 8
+# fp32 operations of one march lookup (the cell's coordinates and weights,
+# the eight-corner blend), for its bound; the bytes it reads bound it
+MARCH_LOOKUP_FLOPS = 40
+
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
-KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
+KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -349,11 +377,12 @@ def check_tracer_kernels(model_cfg, rows: int, rows_dense: int, gen) -> dict:
             plain = cuda_ms(lambda: fm._forward_rows(plan, xs, ws, bs), reps)
             bound = bound_ms(2.0 * nw * n, 4.0 * (n * (d0 + dout) + nw + nb))
             entries[key] = dict(
-                name=f"K1 fused_mlp trunk forward, SDF trunk plan (width 264 build), CESR: {what}",
+                name=f"K1 fused_mlp trunk forward, SDF trunk plan (width 264 build), CESR sphere "
+                     f"tracer: {what}",
                 route="cuda", source="robir_tpu_torch/csrc/fused_mlp.cu",
                 replaces="robir_tpu/render/pallas/fused_mlp.py:111",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-                library_ms=None, rows=n, kernel="K1", path="cesr", shape=(fm.MAX_WIDTH, n),
+                library_ms=None, rows=n, kernel="K1", path="cesr_sphere", shape=(fm.MAX_WIDTH, n),
                 **geometry_line("K1", "sdf", plan, n))
         xs = x[:rows]
         y, de = fv.vg_forward_cuda(plan, xs, ws, bs)
@@ -363,11 +392,13 @@ def check_tracer_kernels(model_cfg, rows: int, rows_dense: int, gen) -> dict:
         plain = cuda_ms(lambda: fv._forward_phases(plan, xs, ws, bs), 20)
         bound = bound_ms(4.0 * nw * rows, 4.0 * (rows * (2 * d0 + dout) + nw + nb))
         entries["K3c"] = dict(
-            name="K3 fused_value_grad forward (value + d sdf/dx), CESR: the geometry normals",
+            name="K3 fused_value_grad forward (value + d sdf/dx), CESR sphere tracer, dense: "
+                 "the geometry normals",
             route="cuda", source="robir_tpu_torch/csrc/fused_value_grad.cu",
             replaces="robir_tpu/render/pallas/fused_value_grad.py:131",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=None, rows=rows, kernel="K3", path="cesr", shape=(fm.MAX_WIDTH, rows))
+            library_ms=None, rows=rows, kernel="K3", path="cesr_sphere",
+            shape=(fm.MAX_WIDTH, rows))
     report(entries)
     return entries
 
@@ -516,11 +547,12 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
         plain = cuda_ms(lambda: fm._forward_rows(nplan, xm, ws, bs), 20)
         bound = bound_ms(2.0 * nw * rows, 4.0 * (rows * (d0 + dout) + nw + nb))
         entries["K1w"] = dict(
-            name="K1 fused_mlp trunk forward, CESR normal_net plan (width 520 build)",
+            name="K1 fused_mlp trunk forward, CESR normal_net plan (width 520 build), "
+                 "sphere tracer, dense",
             route="cuda", source="robir_tpu_torch/csrc/fused_mlp.cu",
             replaces="robir_tpu/render/pallas/fused_mlp.py:111",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=None, rows=rows, kernel="K1", path="cesr",
+            library_ms=None, rows=rows, kernel="K1", path="cesr_sphere",
             shape=(fm.MAX_WIDTH_WIDE, rows), **geometry_line("K1", "normal_net", nplan, rows))
 
         pairs = []
@@ -548,25 +580,25 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
         print(f"K2 global scratch at {rows} rows: {n_bytes} bytes ({n_bytes // rows} per row)",
               flush=True)
         entries["K2"] = dict(
-            name="K2 fused_mlp recompute backward (dx, dW, db)", route="cuda",
+            name="K2 fused_mlp recompute backward (dx, dW, db), CESR normal_net, sphere "
+                 "tracer, dense", route="cuda",
             source="robir_tpu_torch/csrc/fused_mlp.cu",
             replaces="robir_tpu/render/pallas/fused_mlp.py:157",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-            library_ms=None, rows=rows, kernel="K2", path="cesr", shape=None,
+            library_ms=None, rows=rows, kernel="K2", path="cesr_sphere", shape=None,
             **geometry_line("K2", "normal_net", nplan, rows))
     report(entries)
     return entries
 
 
 def cesr_configs(model_cfg):
-    """(Stage2Config, CESRStageConfig) at the widths of configs/hotdog.json,
-    with the stage-1 NeuS config (the geometry is the NeuS stage 1 trained),
-    the sphere tracer, the dense step, and a schedule cut so that 20 steps
-    pass through warmup, explore, project, the normal switch and a
+    """(Stage2Config, CESRStageConfig) of configs/hotdog.json as it stands
+    (the grid tracer, compact_chunk 128), with the stage-1 NeuS config (the
+    geometry is the NeuS stage 1 trained) and a schedule cut so that 20
+    steps pass through warmup, explore, project, the normal switch and a
     latent-dropout resample."""
     raw = load_config(str(STAGE2_CONFIG))
-    cfg = dataclasses.replace(build_stage2_config(raw["model"], tracer="sphere"),
-                              neus=model_cfg)
+    cfg = dataclasses.replace(build_stage2_config(raw["model"]), neus=model_cfg)
     stage = build_stage_config(CESRStageConfig, raw["cesr"], warmup_iters=5,
                                explore_iter=5, proj_iter=3, normal_switch_iter=10,
                                dropout_iter=7)
@@ -581,14 +613,16 @@ def cesr_params(cfg, neus: dict, seed: int) -> dict:
     return params
 
 
-def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int) -> None:
-    """One full-width dense CESR explore step with the new normal (the rgb,
-    KL, smoothness and supervision terms all on) on the card against the
-    same step on the CPU in fp32 and in fp64 (the visibility net without its
-    bf16 storage), from the same weights, the same 64 pixels, one trace (the
-    CPU's depths and hits, shaded on every side, as the stage-1 check shares
-    its samples) and every random draw shared (the CPU's, replayed): the
-    loss and each trainable gradient to the bounds above, and K2 at the
+def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int, grid=None) -> None:
+    """One full-width CESR explore step with the new normal (the rgb, KL,
+    smoothness and supervision terms all on), dense or in row mode as
+    ``stage.compact_chunk`` says, on ``cfg``'s tracer (the grid tracer
+    marches ``grid``, the same values on each side), on the card against
+    the same step on the CPU in fp32 and in fp64 (the visibility net without
+    its bf16 storage), from the same weights, the same 64 pixels, one trace
+    (the CPU's depths and hits, shaded on every side, as the stage-1 check
+    shares its samples) and every random draw shared (the CPU's, replayed):
+    the loss and each trainable gradient to the bounds above, and K2 at the
     step's own operands to its plain version.
 
     Then a planted fault: the card's step again with K2 blind to the first
@@ -611,11 +645,15 @@ def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int) -> None:
     for dev in ("cpu", "cuda"):
         with torch.no_grad():
             traces[dev] = [a.cpu() for a in Stage2Model(
-                runners[dev, torch.float32].params, cfg, dev).trace(
+                runners[dev, torch.float32].params, cfg, dev,
+                None if grid is None else grid.to(dev)).trace(
                 tb["points"].to(dev), tb["dirs"].to(dev))[:2]]
     (t_cpu, hit_cpu), (t_gpu, hit_gpu) = traces["cpu"], traces["cuda"]
     shaded = hit_cpu & tb["object_mask"]
-    print(f"CESR step check: the card's own trace vs the CPU's: {int((hit_cpu != hit_gpu).sum())} "
+    row_mode = stage.compact_chunk > 0  # callers pass 0 or a chunk below 64
+    print(f"CESR step check, tracer {cfg.tracer!r}, "
+          f"{f'row mode (compact_chunk {stage.compact_chunk})' if row_mode else 'dense'}: "
+          f"the card's own trace vs the CPU's: {int((hit_cpu != hit_gpu).sum())} "
           f"of 64 hit flags differ, depths of common hits at most "
           f"{float(torch.where(hit_cpu & hit_gpu, t_gpu - t_cpu, 0.0).abs().max()):.3e} apart; "
           f"every side shades the CPU's ({int(shaded.sum())} pixels on the surface, "
@@ -720,7 +758,8 @@ def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int) -> None:
 # kernels and device functions named in the ptxas report (rt_mm_body, the
 # product of all four, is compiled out of line); none may spill
 PTXAS_NAMES = ("vg_fwd_kernel", "vg_bwd_rows_kernel", "wgrad_kernel", "rt_mm_body",
-               "fused_mlp_fwd_tile_kernel", "fused_mlp_fwd_kernel", "mlp_bwd_rows_kernel")
+               "fused_mlp_fwd_tile_kernel", "fused_mlp_fwd_kernel", "mlp_bwd_rows_kernel",
+               "grid_march_kernel")
 
 
 def ptxas_report() -> None:
@@ -785,7 +824,10 @@ def profile_steps(run, n_steps: int, what: str = "train") -> None:
         run(n_steps)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    # kernels only: a record_function span on the device (Adam's
+    # "Optimizer.step#Adam.step") would count its kernels twice
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profile of {n_steps} {what} steps: device busy {busy_ms / n_steps:.3f} ms per "
@@ -803,9 +845,9 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
     ``profile``, profile that many more steps."""
     trainer = NeusTrainer(train_scene, model_cfg, render_cfg, train_cfg,
                           seed=seed, device="cuda")
-    per_step = {"K1": render_cfg.up_sample_steps, "K2": 0, "K3": 1, "K4": 1}
+    per_step = {"K1": render_cfg.up_sample_steps, "K2": 0, "K3": 1, "K4": 1, "march": 0}
     n_chunks = -(-test_scene.h * test_scene.w // train_cfg.eval_chunk)
-    per_chunk = {"K1": render_cfg.up_sample_steps, "K2": 0, "K3": 1, "K4": 0}
+    per_chunk = {"K1": render_cfg.up_sample_steps, "K2": 0, "K3": 1, "K4": 0, "march": 0}
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     try:
@@ -858,9 +900,11 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
     return run_shapes, neus
 
 
-def drive_cesr(cfg, stage, dataset, params, steps: int, seed: int, profile: int = 0) -> dict:
-    """``steps`` CESRRunner steps on the card; returns that run's launches by
-    shape. Then, if ``profile``, profile that many more steps."""
+def drive_cesr_sphere(cfg, stage, dataset, params, steps: int, seed: int,
+                      profile: int = 0) -> dict:
+    """``steps`` dense CESRRunner steps on the card with the sphere tracer;
+    returns that run's launches by shape. Then, if ``profile``, profile that
+    many more steps."""
     runner = CESRRunner(cfg, params, dataset, stage, seed=seed, device="cuda")
     rows, tracer = stage.num_pixels, cfg.sphere_tracer
     narrow, wide = fm.MAX_WIDTH, fm.MAX_WIDTH_WIDE
@@ -868,7 +912,7 @@ def drive_cesr(cfg, stage, dataset, params, steps: int, seed: int, profile: int 
     # normal net forward and backward; the geometry normals
     per_step = {"K1": {(narrow, rows): tracer.sdf_calls() - 1,
                        (narrow, rows * tracer.n_steps): 1, (wide, rows): 1},
-                "K2": {(wide, rows): 1}, "K3": {(narrow, rows): 1}, "K4": {}}
+                "K2": {(wide, rows): 1}, "K3": {(narrow, rows): 1}, "K4": {}, "march": {}}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
@@ -886,24 +930,286 @@ def drive_cesr(cfg, stage, dataset, params, steps: int, seed: int, profile: int 
         bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
         if bad:
             raise RuntimeError(f"CESR step {it}: non-finite {bad}")
-        print(f"CESR step {it:2d} ({phase}{', new normal' if it > stage.normal_switch_iter else ''}"
-              f"): {step_ms[-1]:8.3f} ms, " + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items()),
-              flush=True)
+        print(f"CESR sphere step {it:2d} ({phase}"
+              f"{', new normal' if it > stage.normal_switch_iter else ''}): {step_ms[-1]:8.3f} "
+              f"ms, " + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items()), flush=True)
     run = shapes()
     peak = torch.cuda.max_memory_allocated() / 2**30
     if profile:
-        profile_steps(runner.run, profile, "CESR")
+        profile_steps(runner.run, profile, "CESR sphere-tracer")
     want = {k: {shape: n * steps for shape, n in v.items()} for k, v in per_step.items()}
     if run != want:
         raise RuntimeError(f"CESR launches {run}, expected {want}")
     steady = step_ms[2:] or step_ms
-    print(f"CESR step: median {float(np.median(steady)):.3f} ms, mean {float(np.mean(steady)):.3f} ms "
-          f"over steps 3-{steps} (CUDA events around CESRRunner.run(1)); first step "
-          f"{step_ms[0]:.3f} ms; {stage.num_pixels} pixels, {cfg.envmap.num_lgt_sgs} SG lights",
-          flush=True)
-    print(f"CESR launches per step by (build width, rows): {per_step}; peak device memory "
-          f"{peak:.2f} GiB", flush=True)
+    print(f"CESR sphere step: median {float(np.median(steady)):.3f} ms, mean "
+          f"{float(np.mean(steady)):.3f} ms over steps 3-{steps} (CUDA events around "
+          f"CESRRunner.run(1)); first step {step_ms[0]:.3f} ms; {stage.num_pixels} pixels, "
+          f"{cfg.envmap.num_lgt_sgs} SG lights", flush=True)
+    print(f"CESR sphere launches per step by (build width, rows): {per_step}; peak device "
+          f"memory {peak:.2f} GiB", flush=True)
     return run
+
+def bake_grid(runner) -> dict:
+    """``runner.bake_grid()`` on the card with the counts set to 0 just
+    before: the grid of ``runner.cfg.grid`` from the frozen NeuS, which must
+    take K1 alone, one launch per BAKE_CHUNK nodes. Prints its wall time
+    (to a synchronize); returns its launches by shape."""
+    cfg = runner.cfg.grid
+    nodes, chunk = cfg.resolution ** 3, tg.BAKE_CHUNK
+    want = {k: {} for k in KERNELS}
+    want["K1"] = {(fm.MAX_WIDTH, chunk): nodes // chunk}
+    if nodes % chunk:
+        want["K1"][fm.MAX_WIDTH, nodes % chunk] = 1
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    runner.bake_grid()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    run = shapes()
+    if run != want:
+        raise RuntimeError(f"grid bake launches {run}, expected {want}")
+    g = runner.grid_values
+    if tuple(g.shape) != (cfg.resolution,) * 3 or g.dtype != cfg.store:
+        raise RuntimeError(f"baked grid {tuple(g.shape)} {g.dtype}")
+    vals = g.float()
+    if not bool(torch.isfinite(vals).all()) or not float(vals.min()) < 0 < float(vals.max()):
+        raise RuntimeError("the baked grid is not finite or holds no surface")
+    print(f"grid bake: {cfg.resolution}^3 = {nodes} nodes, {g.dtype}, {secs:.3f} s wall "
+          f"(CESRRunner.bake_grid to a synchronize), K1 launches by (build width, rows) "
+          f"{want['K1']}; sdf in [{float(vals.min()):.4f}, {float(vals.max()):.4f}], "
+          f"{float((vals < 0).float().mean()):.4f} of the nodes inside", flush=True)
+    return run
+
+
+def check_bake_kernel(runner) -> dict:
+    """K1 on one chunk of the bake (the nodes from the middle of the grid
+    on), with the frozen NeuS's weights, against its plain version, and
+    timed as the bake pays for it (weights packed once); returns its
+    entry."""
+    sdf_cfg, gcfg = runner.cfg.neus.sdf, runner.cfg.grid
+    plan = fm.plan_from_sdf_config(sdf_cfg)
+    rows = tg.BAKE_CHUNK
+    start = gcfg.resolution ** 3 // 2
+    with torch.no_grad():
+        pts = tg.node_points(gcfg, start, start + rows, "cuda") * runner.cfg.coord_scale
+        x = positional_encoding(pts * sdf_cfg.scale, sdf_cfg.pe)
+        ws, bs = fm.fold_weight_norm(runner.params["implicit_network"]["sdf_network"],
+                                     plan.n_layers)
+        err = held_to_plain(f"K1 at the bake's {rows} rows", [
+            ("y", fm.fused_mlp_cuda(plan, x, ws, bs), fm._forward_rows(plan, x, ws, bs))])
+        ms = k1_ms(plan, x, ws, bs, 10, packed_once=True)
+        plain = cuda_ms(lambda: fm._forward_rows(plan, x, ws, bs), 5)
+    nw = plan.n_weights()
+    nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
+    bound = bound_ms(2.0 * nw * rows, 4.0 * (rows * (plan.dims[0] + plan.out_dim) + nw + nb))
+    entries = {"K1 bake": dict(
+        name="K1 fused_mlp trunk forward, SDF trunk plan (width 264 build), the grid bake",
+        route="cuda", source="robir_tpu_torch/csrc/fused_mlp.cu",
+        replaces="robir_tpu/render/pallas/fused_mlp.py:111", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None, rows=rows,
+        kernel="K1", path="bake", shape=(fm.MAX_WIDTH, rows),
+        **geometry_line("K1", "sdf", plan, rows))}
+    report(entries)
+    return entries
+
+
+def check_march(gcfg, grid, dataset, n_primary: int, n_secondary: int, seed: int,
+                gen) -> dict:
+    """The grid-march kernel against its plain version on ``grid``: the
+    primary rays of a CESR batch of ``n_primary`` pixels, and
+    ``n_secondary`` secondary rays from their surface points (pushed off
+    the surface along the grid normal by max(0.005, 2 hit eps), as
+    trace_radiance does) in uniformly random directions; each at
+    over_relax 0 and 1.6. The hit masks must be identical and t within
+    MARCH_T_TOL where both hit. Timed; the bound counts the corner bytes of
+    the lookups the plain version says these rays need. Returns the
+    entries (the primary rays at the config's over_relax are the main
+    path's shape)."""
+    batch = dataset.sample_pixels(np.random.default_rng(seed), 0, n_primary)
+    o1 = torch.as_tensor(batch["points"], device="cuda")
+    d1 = torch.as_tensor(batch["dirs"], device="cuda")
+    with torch.no_grad():
+        _, hit, x, _ = tg.grid_cast_plain(grid, gcfg, o1, d1)
+        pts = x[hit]
+        if pts.shape[0] == 0:
+            raise RuntimeError("no primary ray hit the grid's surface")
+        normals = tg.grid_normal(grid, gcfg, pts)
+        sel = torch.randint(pts.shape[0], (n_secondary,), generator=gen, device="cuda")
+        offset = max(0.005, 2.0 * gcfg.hit_eps_cells * gcfg.cell)
+        o2 = pts[sel] + normals[sel] * offset
+        d2 = torch.randn(n_secondary, 3, generator=gen, device="cuda")
+        d2 = d2 / torch.linalg.norm(d2, dim=-1, keepdim=True)
+    R = gcfg.resolution
+    entries = {}
+    for over in (0.0, 1.6):
+        cfg = dataclasses.replace(gcfg, over_relax=over)
+        for rays, (o, d) in (("primary", (o1, d1)), ("secondary", (o2, d2))):
+            n = o.shape[0]
+            t_k, hit_k, x_k = tg.grid_cast(grid, cfg, o, d)
+            t_p, hit_p, x_p, lookups = tg.grid_cast_plain(grid, cfg, o, d)
+            differ = torch.nonzero(hit_k != hit_p).squeeze(1)
+            if differ.numel():
+                raise RuntimeError(f"grid march, {rays} rays, over_relax {over}: the hits of "
+                                   f"rays {differ[:20].tolist()} differ from the plain version's")
+            both = hit_k
+            err_t = float((t_k - t_p)[both].abs().max()) if bool(both.any()) else 0.0
+            err_x = float((x_k - x_p)[both].abs().max()) if bool(both.any()) else 0.0
+            if not err_t <= MARCH_T_TOL:
+                raise RuntimeError(f"grid march, {rays} rays, over_relax {over}: t {err_t:.3e} "
+                                   f"from the plain version's > {MARCH_T_TOL}")
+            ms = cuda_ms(lambda: tg.grid_cast(grid, cfg, o, d), 20)
+            plain = cuda_ms(lambda: tg.grid_cast_plain(grid, cfg, o, d), 3)
+            looks = int(lookups.sum())
+            bound = bound_ms(MARCH_LOOKUP_FLOPS * looks,
+                             8 * grid.element_size() * looks + n * (4 * 3 * 3 + 4 + 1))
+            main = rays == "primary" and over == gcfg.over_relax
+            print(f"grid march, {rays} rays ({n}), over_relax {over}: {int(hit_k.sum())} hits, "
+                  f"identical to the plain version's; t within {err_t:.3e}, x within "
+                  f"{err_x:.3e} where both hit; {looks} lookups ({looks / n:.1f} a ray, "
+                  f"{int(lookups.max())} at most); {ms:.4f} ms (plain {plain:.3f} ms, bound "
+                  f"{bound[0]:.5f} ms by {bound[1]})", flush=True)
+            entries[f"march {rays} {over}"] = dict(
+                name=f"grid march (march + refine, one thread a ray), {rays} rays, over_relax "
+                     f"{over}" + (", the CESR trace" if main else ", a check shape"),
+                route="cuda", source="robir_tpu_torch/csrc/grid_march.cu",
+                replaces="robir_tpu/tracing/grid.py:473 (grid_cast, XLA, no Pallas kernel)",
+                max_abs_err=err_t, ms=ms, plain_ms=plain, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None, rows=n, kernel="march",
+                path="cesr" if main else None, shape=(R, n) if main else None)
+    return entries
+
+
+def drive_cesr_grid(runner, steps: int, profile: int = 0):
+    """``steps`` steps of ``runner`` (the grid tracer, compaction) on the
+    card, with the counts set to 0 just before. Each step's line gives its
+    mode (``runner.step_config()``: compacted or dense), its surface rows
+    and fraction; the guard's reading and choice are printed where it
+    reads. Each step must launch the grid march once at the batch's rays
+    and K1, K2 and K3 once each at the rows it shades (its surface rows if
+    compacted, else the batch). Returns the launches by shape and the
+    shaded rows of each step. Then, if ``profile``, profiles that many more
+    steps."""
+    stage = runner.stage_cfg
+    n, R = stage.num_pixels, runner.cfg.grid.resolution
+    narrow, wide = fm.MAX_WIDTH, fm.MAX_WIDTH_WIDE
+    want = {k: {} for k in KERNELS}
+
+    def add(kernel, shape):
+        want[kernel][shape] = want[kernel].get(shape, 0) + 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, shaded = [], []
+    reset_counts()
+    for _ in range(steps):
+        it = runner.cur_iter
+        phase = stage.prefit_option(it)
+        compacted = runner.step_config().compact_chunk > 0  # below n: row mode
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = runner.run(1)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+        if bad:
+            raise RuntimeError(f"CESR step {it}: non-finite {bad}")
+        surface = round(metrics["surface_frac"] * n)
+        rows = max(surface, 1) if compacted else n
+        shaded.append(rows)
+        add("march", (R, n))
+        for kernel, width in (("K1", wide), ("K2", wide), ("K3", narrow)):
+            add(kernel, (width, rows))
+        print(f"CESR step {it:2d} ({phase}{', new normal' if it > stage.normal_switch_iter else ''}"
+              f", {'compacted' if compacted else 'dense'}): {surface} surface rows, fraction "
+              f"{metrics['surface_frac']:.4f}, {rows} rows shaded; {step_ms[-1]:8.3f} ms, "
+              + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items() if k != "surface_frac"),
+              flush=True)
+        if runner.cur_iter % stage.guard_every == 0:
+            dense = runner.step_config().compact_chunk == 0
+            print(f"  guard after step {runner.cur_iter}: surface fraction "
+                  f"{runner.surface_frac:.4f} {'>' if dense else '<='} "
+                  f"{stage.compact_max_surface_frac}: the next steps run "
+                  f"{'dense' if dense else 'compacted'}", flush=True)
+    run = shapes()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        profile_steps(runner.run, profile, "CESR")
+    if run != want:
+        raise RuntimeError(f"CESR launches {run}, expected {want}")
+    steady = step_ms[2:] or step_ms
+    print(f"CESR step (grid tracer, compact_chunk {stage.compact_chunk}): median "
+          f"{float(np.median(steady)):.3f} ms, mean {float(np.mean(steady)):.3f} ms over steps "
+          f"3-{steps} (CUDA events around CESRRunner.run(1)); first step {step_ms[0]:.3f} ms; "
+          f"{n} pixels, {runner.cfg.envmap.num_lgt_sgs} SG lights; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"CESR launches per step: the grid march 1 ({n} rays, grid {R}^3), K1 1 (width "
+          f"{wide}), K2 1 ({wide}), K3 1 ({narrow}), each at the step's shaded rows; over the "
+          f"{steps} steps by kernel and (width or grid resolution, rows): {want}", flush=True)
+    return run, shaded
+
+
+def check_grid_path_kernels(sdf_cfg, normal_cfg, shaded: list, gen) -> dict:
+    """K1 and K2 at the CESR normal net's plan (K2 without dx, as the step
+    needs none) and K3 at the SDF trunk's, against their plain versions at
+    every row count the CESR run shaded, timed at its median; returns their
+    entries (which count the run's launches at every row count)."""
+    nplan, splan = fm.plan_from_sdf_config(normal_cfg), fm.plan_from_sdf_config(sdf_cfg)
+    counts_run = sorted(set(shaded))
+    median = int(np.median(shaded))
+    nx, nws, nbs = trunk_inputs(nplan, SHADOW_PE, max(counts_run), gen)
+    sx, sws, sbs = trunk_inputs(splan, sdf_cfg.pe, max(counts_run), gen)
+    dy = 1e-3 * torch.randn(max(counts_run), nplan.out_dim, generator=gen, device="cuda")
+    errs = {"K1": [], "K2": [], "K3": []}
+    with torch.no_grad():
+        for r in counts_run:
+            errs["K1"].append((f"y at {r} rows", fm.fused_mlp_cuda(nplan, nx[:r], nws, nbs),
+                               fm._forward_rows(nplan, nx[:r], nws, nbs)))
+            got = fm.mlp_backward_cuda(nplan, nx[:r], nws, nbs, dy[:r], False)
+            want = fm._backward_rows(nplan, nx[:r], nws, nbs, dy[:r], False)
+            errs["K2"] += [(f"dW{i} at {r} rows", a, b) for i, (a, b) in
+                           enumerate(zip(got[1], want[1]))]
+            errs["K2"] += [(f"db{i} at {r} rows", a, b) for i, (a, b) in
+                           enumerate(zip(got[2], want[2]))]
+            y, de = fv.vg_forward_cuda(splan, sx[:r], sws, sbs)
+            yp, dep, *_ = fv._forward_phases(splan, sx[:r], sws, sbs)
+            errs["K3"] += [(f"y at {r} rows", y, yp), (f"de at {r} rows", de, dep)]
+        xm, sm, dym = nx[:median], sx[:median], dy[:median]
+        timed = {
+            "K1": (k1_ms(nplan, xm, nws, nbs, 20),
+                   cuda_ms(lambda: fm._forward_rows(nplan, xm, nws, nbs), 20),
+                   bound_ms(2.0 * nplan.n_weights() * median,
+                            4.0 * (median * (nplan.dims[0] + nplan.out_dim) + nplan.n_weights()))),
+            "K2": (cuda_ms(lambda: fm.mlp_backward_cuda(nplan, xm, nws, nbs, dym, False), 20),
+                   cuda_ms(lambda: fm._backward_rows(nplan, xm, nws, nbs, dym, False), 20),
+                   k2_bound(nplan, median, False)),
+            "K3": (cuda_ms(lambda: fv.vg_forward_cuda(splan, sm, sws, sbs), 20),
+                   cuda_ms(lambda: fv._forward_phases(splan, sm, sws, sbs), 20),
+                   bound_ms(4.0 * splan.n_weights() * median,
+                            4.0 * (median * (2 * splan.dims[0] + splan.out_dim)
+                                   + splan.n_weights())))}
+    what = {"K1": ("K1 fused_mlp trunk forward, CESR normal_net plan (width 520 build)",
+                   "fused_mlp.cu", "render/pallas/fused_mlp.py:111"),
+            "K2": ("K2 fused_mlp recompute backward (dW, db), CESR normal_net",
+                   "fused_mlp.cu", "render/pallas/fused_mlp.py:157"),
+            "K3": ("K3 fused_value_grad forward (value + d sdf/dx), CESR geometry normals",
+                   "fused_value_grad.cu", "render/pallas/fused_value_grad.py:131")}
+    entries = {}
+    for kernel, (name, src, tpu) in what.items():
+        ms, plain, bound = timed[kernel]
+        entries[f"{kernel} cesr rows"] = dict(
+            name=f"{name}, grid tracer at the shaded rows ({counts_run[0]}-{counts_run[-1]}; "
+                 f"timed at the median)",
+            route="cuda", source=f"robir_tpu_torch/csrc/{src}", replaces=f"robir_tpu/{tpu}",
+            max_abs_err=held_to_plain(f"{kernel} at the CESR run's rows", errs[kernel]),
+            ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+            rows=median, kernel=kernel, path="cesr", shape=None)
+    print(f"CESR run's shaded row counts (K1, K2 and K3 held to their plain versions at "
+          f"each): {counts_run}", flush=True)
+    report(entries)
+    return entries
 
 
 def main() -> None:
@@ -914,7 +1220,7 @@ def main() -> None:
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after each main path, profile this many more of its steps")
     args = ap.parse_args()
-    if args.steps < 1 or args.cesr_steps < 1:
+    if min(args.steps, args.cesr_steps) < 1:
         ap.error("--steps and --cesr-steps must be at least 1")
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -931,8 +1237,8 @@ def main() -> None:
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False "
           "(plain versions in full fp32)", flush=True)
 
-    print(f"build: {build.build_all():.2f} s, nvcc {' '.join(build.NVCC_FLAGS)} "
-          f"for {', '.join(build.SOURCES)}", flush=True)
+    print(f"build: {build.build_all():.2f} s, nvcc {' '.join(build.NVCC_FLAGS)} for "
+          f"{', '.join(build.SOURCES)} (and {build.SOURCE_FLAGS} for those sources)", flush=True)
     ptxas_report()
 
     model_cfg, render_cfg, train_cfg, dataset_cfg, cesr_cfg, stage_cfg = load_configs()
@@ -952,14 +1258,28 @@ def main() -> None:
 
     dataset = shadow_scene(n_train=20, h=128, w=128, seed=args.seed)
     params = cesr_params(cesr_cfg, neus, args.seed)
-    check_cesr_step_against_cpu(cesr_cfg, stage_cfg, dataset, params, args.seed)
-    cesr = drive_cesr(cesr_cfg, stage_cfg, dataset, params, args.cesr_steps, args.seed,
-                      args.profile)
+    sphere_cfg = dataclasses.replace(cesr_cfg, tracer="sphere")
+    sphere_stage = dataclasses.replace(stage_cfg, compact_chunk=0)
+    check_cesr_step_against_cpu(sphere_cfg, sphere_stage, dataset, params, args.seed)
+    cesr_sphere = drive_cesr_sphere(sphere_cfg, sphere_stage, dataset, params,
+                                    SPHERE_STEPS, args.seed, args.profile)
+
+    # the CESR path at the JAX package's defaults: grid tracer, compaction
+    runner = CESRRunner(cesr_cfg, params, dataset, stage_cfg, seed=args.seed, device="cuda")
+    bake = bake_grid(runner)
+    entries.update(check_bake_kernel(runner))
+    entries.update(check_march(cesr_cfg.grid, runner.grid_values, dataset, stage_cfg.num_pixels,
+                               4096, args.seed, gen))
+    check_cesr_step_against_cpu(cesr_cfg, dataclasses.replace(stage_cfg, compact_chunk=16),
+                                dataset, params, args.seed, grid=runner.grid_values)
+    cesr, shaded = drive_cesr_grid(runner, args.cesr_steps, args.profile)
+    entries.update(check_grid_path_kernels(model_cfg.sdf, stage_cfg.normal_cfg, shaded, gen))
 
     # each entry counts its kernel's launches on its path, at its shape (or
-    # at every shape: stage 1's entries, timed at the path's largest rows);
-    # the check shapes off the main paths count none
-    paths = {"neus_stage1": stage1, "cesr": cesr}
+    # at every shape: stage 1's entries, timed at the path's largest rows;
+    # the CESR run's K1, K2 and K3 at its shaded rows); the check shapes off
+    # the main paths count none
+    paths = {"neus_stage1": stage1, "cesr_sphere": cesr_sphere, "bake": bake, "cesr": cesr}
     for name, e in entries.items():
         if e["path"] is None:
             e["launches"] = 0

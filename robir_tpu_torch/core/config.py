@@ -25,10 +25,11 @@ from ..fields.sdf import SDFConfig
 from ..fields.visibility import IndirIllumConfig, VisNetConfig
 from ..render.color import ToneMapConfig
 from ..render.neus import NeusRenderConfig
-from ..render.stage2 import GridConfig, Stage2Config
+from ..render.stage2 import Stage2Config
 from ..stages.losses import InvLossConfig
 from ..stages.neus_stage import NeusTrainConfig
 from ..stages.stage2_runner import StageOptConfig
+from ..tracing.grid import GridConfig
 from ..tracing.sphere import SphereTracerConfig
 
 

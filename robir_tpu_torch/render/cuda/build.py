@@ -27,10 +27,13 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("fused_mlp.cu", "fused_value_grad.cu")
+SOURCES = ("fused_mlp.cu", "fused_value_grad.cu", "grid_march.cu")
 HEADERS = ("trunk.cuh", "wgrad.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the grid march must round every product and sum as its plain version does
+# (a hit is a comparison), so nvcc may not contract them into multiply-adds
+SOURCE_FLAGS = {"grid_march.cu": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -47,8 +50,12 @@ def nvcc_path() -> str:
     return found
 
 
+def nvcc_flags(source: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+
+
 def library_path(source: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(source)).encode())
     for name in (source, *HEADERS):
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
@@ -63,7 +70,7 @@ def compile_source(source: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    cmd = [nvcc_path(), *nvcc_flags(source), "-o", str(tmp), str(CSRC_DIR / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source} ({' '.join(cmd)}):\n"

@@ -252,12 +252,14 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
                    prefit: Optional[str] = None, argmax_vis: bool = False,
                    diffuse_nsamp: int = 32, diffuse_vis_nsamp: int = 8,
                    specular_nsamp: int = 8, supervise_weight=None,
-                   diffuse_vis_grad: bool = True,
+                   supervise_rows: bool = False, diffuse_vis_grad: bool = True,
                    draw_prefix: str = "") -> SGRenderOutput:
     """Full SG shading for one light set (sg_render.py:343-565).
 
     points/normal/viewdirs [N, 3]; lgt_sgs [N, M, 7] or [M, 7]; roughness
     [N, 1]; diffuse_albedo [N, 3]; diffuse_vis (CESR) [N, M].
+    ``supervise_rows=True`` returns the supervision's per-row ingredient
+    |gt - vis| [N, M] in place of its KL.
     ``diffuse_vis_grad=False`` runs the diffuse sweep without a graph, for
     callers whose loss does not reach its result (the CESR warmup step
     without the rgb term): that changes no gradient."""
@@ -286,12 +288,15 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
             light_vis = diffuse_vis.reshape(N, M, 1).expand(N, M, 3)
             if prefit == "warmup":
                 sup_x = torch.abs(light_vis_gt.detach() - light_vis)[..., 0]
-                supervise = kl_divergence(sup_x, 0.01, weight=supervise_weight) * 0.1
+                factor = 0.1
                 light_vis = light_vis_gt
             else:
                 sup_x = torch.abs(light_vis_gt - light_vis)[..., 0]
                 factor = 0.2 if prefit == "project" else 1.0
-                supervise = kl_divergence(sup_x, 0.01, weight=supervise_weight) * factor
+            # per row, |gt - vis| [N, M]: the KL of the batch mean is taken
+            # by the caller, outside a surface-pixel compaction
+            supervise = sup_x if supervise_rows else kl_divergence(
+                sup_x, 0.01, weight=supervise_weight) * factor
         else:
             light_vis = light_vis_gt
         vis_shadow = (torch.sum(light_vis * origin_mus, dim=1) / torch.clamp(
@@ -338,16 +343,19 @@ def render_with_all_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
                        indir_integral=None, indir_lgt_sgs=None, vis_fn=None,
                        vis_outer_fn=None, lin_diff=False, metallic=None,
                        diffuse_vis=None, prefit=None, argmax_vis=False,
-                       supervise_weight=None,
+                       supervise_weight=None, supervise_rows: bool = False,
                        diffuse_vis_grad: bool = True) -> AllSGOutput:
     """Direct (visibility-attenuated) plus indirect SG shading
-    (sg_render.py:304-337)."""
+    (sg_render.py:304-337). The per-row draws (the specular sweeps') have
+    one row per point, so a compacted render draws them for its rows only;
+    the JAX package keys them per chunk instead (``spec_key``)."""
     direct = render_with_sg(
         draws, points, normal, viewdirs, lgt_sgs, specular_reflectance,
         roughness, diffuse_albedo, comp_vis=True, vis_fn=vis_fn,
         vis_outer_fn=vis_outer_fn, lin_diff=lin_diff, metallic=metallic,
         diffuse_vis=diffuse_vis, prefit=prefit, argmax_vis=argmax_vis,
-        supervise_weight=supervise_weight, diffuse_vis_grad=diffuse_vis_grad)
+        supervise_weight=supervise_weight, supervise_rows=supervise_rows,
+        diffuse_vis_grad=diffuse_vis_grad)
     if indir_lgt_sgs is not None:
         indirect = render_with_sg(
             draws, points, normal, viewdirs, indir_lgt_sgs, specular_reflectance,

@@ -1,7 +1,7 @@
 """Stage-2 composite model (counterpart of ``robir_tpu/render/stage2.py``,
 the reference's IDRNetwork): the frozen stage-1 NeuS bridge, the SG
 envmap/material heads, the indirect-illumination and visibility nets, the
-tone-mapping learnables and the primary-ray tracer, with the dense
+tone-mapping learnables and the primary-ray tracer, with
 ``stage2_forward``.
 
 The bridge queries the NeuS SDF at coordinate scale 2 and halves its
@@ -9,12 +9,14 @@ output (``neus_model.py:785-791``): ``sdf`` and ``sdf_full`` through K1,
 ``sdf_gradient`` through K3 with no graph (the 2 in and the / 2 out cancel
 in the gradient).
 
-Ported for ``tracer="sphere"`` (live sphere tracing of the frozen NeuS,
-each query a K1 launch). Not ported yet: the cached-SDF grid tracer (the
-JAX default, ``tracer="grid"``), surface-pixel compaction
-(``compact_chunk``), the Illum stage's forward, ``trace_radiance``,
-``borrow_color``, ``neus_bridge_render`` and the plain-IDR mode
-(``use_neus=False``).
+Two tracers, as in the JAX package: ``tracer="grid"`` (the default)
+marches the cached-SDF grid that the runner bakes from the frozen NeuS
+(``tracing/grid.py``, the grid-march kernel on the card), and
+``tracer="sphere"`` sphere-traces the live NeuS (each query a K1 launch).
+``stage2_forward(compact_chunk=...)`` shades only the surface pixels
+(``core/compact.py``). Not ported yet: the Illum stage's forward,
+``trace_radiance``, ``borrow_color``, ``neus_bridge_render`` and the
+plain-IDR mode (``use_neus=False``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import resolve_device
+from ..core.compact import compact_apply, effective_chunk
 from ..core.draws import Draws
 from ..core.params import ParamTree, from_jax
 from ..fields.envmap_material import (EnvmapMaterialConfig, MaterialOutput,
@@ -34,30 +37,12 @@ from ..fields.neus_model import NeuSConfig
 from ..fields.sdf import frozen_sdf, sdf_apply, sdf_full_and_gradient
 from ..fields.visibility import (IndirIllumConfig, VisNetConfig, indirect_apply,
                                  visnet_apply, visnet_outer_apply)
+from ..tracing.grid import GridConfig, grid_cast
 from ..tracing.sphere import SphereTracerConfig, sphere_trace
 from . import sg as sg_lib
 from .color import ToneMapConfig
 
 TINY = 1e-6
-
-
-@dataclasses.dataclass(frozen=True)
-class GridConfig:
-    """The cached-SDF grid tracer's settings (``robir_tpu/tracing/grid.py``):
-    parsed so that configs load, used by nothing yet."""
-    resolution: int = 256
-    bbox_min: tuple[float, float, float] = (-1.0, -1.0, -1.0)
-    bbox_max: tuple[float, float, float] = (1.0, 1.0, 1.0)
-    max_steps: int = 128
-    relax: float = 0.9
-    hit_eps_cells: float = 0.25
-    start_offset: float = 5e-3
-    compact_after: int = 2
-    compact_chunk: int = 4096
-    blocked_gather: bool = False
-    over_relax: float = 0.0
-    storage_dtype: str | None = None
-    quad_rows: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,20 +74,24 @@ class Stage2Config:
 
 
 class Stage2Model:
-    """Binder of (params, cfg) on a device: ``params`` is the stage-2 tree
-    with the reference's module names: implicit_network (the frozen NeuS),
-    envmap_material_network, indirect_illum_network, visibility_network,
-    gamma. A ``ParamTree`` already on ``device`` is used as it is (so
-    gradients reach it); anything else is copied there by ``from_jax``.
-    Runs on ``cuda`` unless ``device="cpu"`` is passed."""
+    """Binder of (params, cfg, grid) on a device: ``params`` is the stage-2
+    tree with the reference's module names: implicit_network (the frozen
+    NeuS), envmap_material_network, indirect_illum_network,
+    visibility_network, gamma. A ``ParamTree`` already on ``device`` is
+    used as it is (so gradients reach it); anything else is copied there by
+    ``from_jax``. ``grid_values`` is the baked [R, R, R] grid that
+    ``tracer="grid"`` marches. Runs on ``cuda`` unless ``device="cpu"`` is
+    passed."""
 
-    def __init__(self, params: Params, cfg: Stage2Config, device="cuda"):
+    def __init__(self, params: Params, cfg: Stage2Config, device="cuda",
+                 grid_values: Optional[torch.Tensor] = None):
         device = resolve_device(device)
         if not (isinstance(params, ParamTree) and all(
                 p.device.type == device.type for p in params.parameters())):
             params = from_jax(params, device)
         self.params = params
         self.cfg = cfg
+        self.grid_values = grid_values
 
     def _sdf_params(self):
         return self.params["implicit_network"]["sdf_network"]
@@ -153,17 +142,24 @@ class Stage2Model:
         return visnet_outer_apply(self.params["visibility_network"], self.cfg.visnet,
                                   points, dirs)
 
-    def trace(self, origins, dirs):
-        """Primary-ray cast -> (t [N], hit [N], x [N, 3]): ``sdf`` without a
-        graph, its weights folded and packed once for all the queries."""
-        if self.cfg.tracer != "sphere":
-            raise NotImplementedError("the cached-SDF grid tracer is not ported yet: "
-                                      "use Stage2Config(tracer='sphere')")
+    def frozen_sdf(self):
+        """``sdf`` without a graph, the weights folded and packed once for
+        all the queries (the sphere tracer's, the grid bake's)."""
         query = frozen_sdf(self._sdf_params(), self.cfg.neus.sdf, out_cols=1)
         scale = self.cfg.coord_scale
-        res = sphere_trace(lambda x: query(x * scale) / 2.0, origins, dirs,
-                           self.cfg.sphere_tracer)
-        return res.dists, res.mask, res.points
+        return lambda x: query(x * scale) / 2.0
+
+    def trace(self, origins, dirs):
+        """Primary-ray cast -> (t [N], hit [N], x [N, 3]), without a graph:
+        the grid march of ``grid_values`` (``tracer="grid"``) or sphere
+        tracing of ``sdf`` (``"sphere"``)."""
+        if self.cfg.tracer == "sphere":
+            res = sphere_trace(self.frozen_sdf(), origins, dirs, self.cfg.sphere_tracer)
+            return res.dists, res.mask, res.points
+        if self.grid_values is None:
+            raise ValueError("tracer='grid' needs baked grid_values: call the runner's "
+                             "bake_grid() or pass grid_values to Stage2Model")
+        return grid_cast(self.grid_values, self.cfg.grid, origins, dirs)
 
 
 SGRenderFn = Callable[..., dict]
@@ -209,17 +205,24 @@ _MASKED = ("sg_rgb", "indir_rgb", "sg_diffuse_rgb", "sg_specular_rgb",
 def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
                    sg_render_fn: Optional[SGRenderFn] = None,
                    train_spec: bool = False, lin_diff: bool = False,
-                   traced=None, **sg_kwargs) -> dict:
-    """IDRNetwork.forward (:290-479), dense and masked, for the Material
-    stages: trace (no grad), the indirect SGs at the hit points, then the
-    SG render of every lane, with misses' per-row outputs set to 1.
+                   compact_chunk: int = 0, traced=None, **sg_kwargs) -> dict:
+    """IDRNetwork.forward (:290-479), masked, for the Material stages:
+    trace (no grad), the indirect SGs at the hit points, then the SG
+    render, with misses' per-row outputs set to 1.
 
     ``inp`` (all [N, ...]): 'points' (ray origins), 'dirs'; optional
     'object_mask' [N] bool and 'hdr_shift' [N, 1]. ``traced`` is the
     (t, hit) of ``model.trace`` on these rays made beforehand (so that two
     devices can shade one trace); None traces here. The surface sdf
     (``sdf_output`` in the JAX package) is not computed: nothing here
-    reads it."""
+    reads it.
+
+    With ``compact_chunk`` below N the render runs on the surface rows only
+    (``core/compact.py``; the reference shades ``points[surface_mask]``,
+    implicit_differentiable_renderer.py:396-400), called with
+    ``row_outputs=True``: its outputs must all be per-row. Its per-row
+    draws then have one row per surface pixel; per-light draws are the
+    dense render's. Otherwise every lane is shaded."""
     cam_loc = inp["points"].reshape(-1, 3)
     ray_dirs = inp["dirs"].reshape(-1, 3)
     n = cam_loc.shape[0]
@@ -248,10 +251,27 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
         out["hdr_shift"] = hdr_shift
 
     render = sg_render_fn or default_sg_render
-    ret = render(model, draws, points, -ray_dirs, indirect_sgs,
-                 indir_integral=indirect_integral, train_spec=train_spec,
-                 lin_diff=lin_diff, hdr_shift=hdr_shift, surface_mask=surface_mask,
-                 **sg_kwargs)
+    if effective_chunk(n, compact_chunk):
+        def row_render(pts, vdirs, isgs, iint, h):
+            r = render(model, draws, pts, vdirs, isgs, indir_integral=iint,
+                       train_spec=train_spec, lin_diff=lin_diff, hdr_shift=h,
+                       surface_mask=torch.ones_like(pts[:, 0], dtype=torch.bool),
+                       row_outputs=True, **sg_kwargs)
+            bad = [k for k, v in r.items() if v.dim() == 0 or v.shape[0] != pts.shape[0]]
+            if bad:
+                raise ValueError(f"stage2_forward(compact_chunk=...) needs per-row render "
+                                 f"outputs; {bad} are batch statistics: run this render "
+                                 f"fn dense (compact_chunk=0)")
+            return r
+
+        hs = hdr_shift if hdr_shift is not None else points.new_zeros((n, 1))
+        ret = compact_apply(row_render, surface_mask,
+                            [points, -ray_dirs, indirect_sgs, indirect_integral, hs])
+    else:
+        ret = render(model, draws, points, -ray_dirs, indirect_sgs,
+                     indir_integral=indirect_integral, train_spec=train_spec,
+                     lin_diff=lin_diff, hdr_shift=hdr_shift, surface_mask=surface_mask,
+                     **sg_kwargs)
 
     def masked(x):
         if x.dim() == 1:

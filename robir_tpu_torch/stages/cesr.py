@@ -14,8 +14,12 @@ card. ``shadow_net_vis`` is the hand-factorised [N, L, 512] trunk in plain
 PyTorch, as in the JAX package (no Pallas kernel there). The frozen
 subtrees (implicit, indirect, visibility) have ``requires_grad=False``.
 
-Dense step only (``compact_chunk=0``): surface-pixel compaction is not
-ported yet, and its result is the dense one.
+With ``compact_chunk`` below the batch (the default: 128 of 1,024 pixels)
+the step runs in row mode: the render shades the surface pixels only and
+returns the supervision's per-row ingredients, which the step reduces
+(the weighted means equal the dense ones). The runner switches to the
+dense step while the measured surface fraction is above
+``compact_max_surface_frac``, as the JAX runner does.
 """
 
 from __future__ import annotations
@@ -59,14 +63,16 @@ class CESRStageConfig:
     white_light: bool = False
     argmax_vis: bool = False
     num_lights: int = 128
-    compact_chunk: int = 0          # only the dense step (0) is ported
+    # row mode when 0 < compact_chunk < num_pixels (0: the dense step); the
+    # runner steps dense while the surface fraction it reads every
+    # guard_every steps is above compact_max_surface_frac
+    compact_chunk: int = 128
+    compact_max_surface_frac: float = 0.6
+    guard_every: int = 8
+    # > 0 weights the diffuse-vis KL per light lobe by 1 + ambient_anchor /
+    # (1 + lambda); applied in row mode only, as in the JAX package
     ambient_anchor: float = 0.0
     sv_weight: float = 1.0
-
-    def __post_init__(self):
-        if self.compact_chunk:
-            raise NotImplementedError("surface-pixel compaction is not ported yet: "
-                                      "compact_chunk must be 0 (the dense step)")
 
     @property
     def shadow_cfg(self) -> SDFConfig:
@@ -129,10 +135,15 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
                    indir_lgt_sgs, indir_integral=None, *, shadow_params,
                    normal_params, stage_cfg: CESRStageConfig, prefit: str,
                    use_new_normal: bool, spec_var=None, train_spec=True,
-                   surface_mask=None, diffuse_vis_grad: bool = True, **_) -> dict:
-    """CESR get_sg_render (train_cesr.py:465-544), dense: the supervision
+                   surface_mask=None, diffuse_vis_grad: bool = True,
+                   row_outputs: bool = False, **_) -> dict:
+    """CESR get_sg_render (train_cesr.py:465-544). Dense, the supervision
     terms (shadow-net KL, normal consistency) are weighted by
-    ``surface_mask``, as the reference shades surface points only."""
+    ``surface_mask``, as the reference shades surface points only.
+    ``row_outputs=True`` returns per-row outputs only: the supervision's
+    ingredients ``supervise_x`` [N, M] (|gt - vis|) and ``normal_sq``
+    [N, 3] in place of its scalar, for the step to reduce outside a
+    surface-pixel compaction (``white_loss`` moves to the step too)."""
     view_dirs = view_dirs / (torch.linalg.norm(view_dirs, dim=-1, keepdim=True) + 1e-6)
     normals = model.sdf_gradient(points)
     normals = normals / torch.clamp(torch.linalg.norm(normals, dim=-1, keepdim=True),
@@ -151,7 +162,8 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
         indir_integral=indir_integral, vis_fn=model.vis_logits,
         vis_outer_fn=model.vis_logits_outer, lin_diff=True,
         diffuse_vis=diffuse_vis, prefit=prefit, argmax_vis=stage_cfg.argmax_vis,
-        supervise_weight=sv_weight, diffuse_vis_grad=diffuse_vis_grad)
+        supervise_weight=sv_weight, supervise_rows=row_outputs,
+        diffuse_vis_grad=diffuse_vis_grad)
 
     albedo = mat.diffuse_albedo / np.pi
     out = {
@@ -169,10 +181,14 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
         "random_xi_metallic": mat.random_xi_metallic,
         "random_xi_diffuse_albedo": mat.random_xi_diffuse_albedo,
     }
+    sq = (normal_map - normal_new) ** 2
+    if row_outputs:
+        out["supervise_x"] = sg_ret.supervise
+        out["normal_sq"] = sq
+        return out
     supervise = sg_ret.supervise
     if stage_cfg.white_light and prefit != "warmup":
         supervise = supervise + white_loss(mat.lgt_sgs)
-    sq = (normal_map - normal_new) ** 2
     if sv_weight is None:
         supervise = supervise + torch.mean(sq)
     else:
@@ -185,23 +201,43 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
 
 def cesr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: CESRStageConfig,
               spec_var: torch.Tensor, batch: dict, draws: Draws, prefit: str,
-              use_new_normal: bool, use_rgb_loss: bool, traced=None):
-    """The dense CESR step's loss (make_cesr_step's ``loss_fn``) ->
-    (total, metrics); ``traced`` as in ``stage2_forward``."""
-    model = Stage2Model(params, cfg, batch["dirs"].device)
+              use_new_normal: bool, use_rgb_loss: bool, traced=None,
+              grid_values=None):
+    """The CESR step's loss (make_cesr_step's ``loss_fn``) -> (total,
+    metrics): in row mode where ``stage2_forward`` compacts at
+    ``stage_cfg.compact_chunk``, else dense. ``traced`` as in
+    ``stage2_forward``; ``grid_values`` is the grid tracer's baked grid."""
+    model = Stage2Model(params, cfg, batch["dirs"].device, grid_values)
     n = batch["dirs"].shape[0]
     inp = {"points": batch["points"], "dirs": batch["dirs"],
            "object_mask": batch["object_mask"],
            "hdr_shift": as_input(params["gamma"]).expand(n, 1)}
     out = stage2_forward(
         model, draws, inp, sg_render_fn=cesr_sg_render, train_spec=True,
+        compact_chunk=stage_cfg.compact_chunk,
         stage_cfg=stage_cfg, prefit=prefit, use_new_normal=use_new_normal,
         shadow_params=params["shadow_net"], normal_params=params["normal_net"],
         spec_var=spec_var, traced=traced,
         # the warmup step without the rgb term never reads the sampled
         # visibility's gradient: sweep it without a graph there
         diffuse_vis_grad=use_rgb_loss or prefit != "warmup")
-    total = out["supervise"] * stage_cfg.sv_weight
+    if "supervise_x" in out:   # row mode
+        # the supervision from its per-row ingredients: weighted means over
+        # the surface rows, as the dense step's (miss rows weigh 0)
+        w = out["surface_mask"].to(torch.float32)
+        lgt = params["envmap_material_network"]["lgtSGs"]
+        lobe_w = None
+        if stage_cfg.ambient_anchor > 0:
+            lobe_w = 1.0 + stage_cfg.ambient_anchor / (1.0 + torch.abs(lgt[:, 3].detach()))
+        sv = sg_lib.kl_divergence(out["supervise_x"], 0.01, weight=w, lobe_weight=lobe_w)
+        sv = sv * {"warmup": 0.1, "project": 0.2}.get(prefit, 1.0)
+        if stage_cfg.white_light and prefit != "warmup":
+            sv = sv + white_loss(lgt)
+        w1 = w[:, None]
+        sv = sv + torch.sum(w1 * out["normal_sq"]) / torch.clamp(torch.sum(w1) * 3, min=1.0)
+        total = sv * stage_cfg.sv_weight
+    else:
+        total = out["supervise"] * stage_cfg.sv_weight
     metrics = {"sv_loss": total}
     mask = out["network_object_mask"] & out["object_mask"]
     if use_rgb_loss:
@@ -228,7 +264,9 @@ def cesr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: CESRStageConfig,
 
 
 class CESRRunner(Stage2RunnerBase):
-    """The CESR loop on a dataset: ``run(n)`` takes n dense steps.
+    """The CESR loop on a dataset: ``run(n)`` takes n steps, each in row
+    mode or dense as ``step_config`` picks. With ``tracer="grid"`` call
+    ``bake_grid()`` first.
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed."""
 
@@ -253,6 +291,18 @@ class CESRRunner(Stage2RunnerBase):
         self.dataset = dataset
         self.optimizer, self.lr_fn = make_adam(self.trainable, stage_cfg.opt)
         self.spec_var = torch.zeros((cfg.envmap.latent_dim,), device=self.device)
+        self.surface_frac = None  # read from the device every guard_every steps
+
+    def step_config(self) -> CESRStageConfig:
+        """The stage config the next step runs with (the JAX runner's
+        ``_pick_step``): the dense step (compact_chunk 0) once the last
+        surface fraction read is above ``compact_max_surface_frac``, since
+        compaction pays only when there are miss rows to skip."""
+        sc = self.stage_cfg
+        if (sc.compact_chunk > 0 and self.surface_frac is not None
+                and self.surface_frac > sc.compact_max_surface_frac):
+            return dataclasses.replace(sc, compact_chunk=0)
+        return sc
 
     def _batch(self) -> dict:
         idx = int(self.rng.integers(self.dataset.n_cameras))
@@ -264,16 +314,18 @@ class CESRRunner(Stage2RunnerBase):
         """One update at ``cur_iter``; returns the metrics (detached)."""
         sc = self.stage_cfg
         loss, metrics = cesr_loss(
-            self.params, self.cfg, sc, self.spec_var, batch, draws,
+            self.params, self.cfg, self.step_config(), self.spec_var, batch, draws,
             prefit=sc.prefit_option(self.cur_iter),
             use_new_normal=self.cur_iter > sc.normal_switch_iter,
-            use_rgb_loss=self.cur_iter > sc.warmup_iters)
+            use_rgb_loss=self.cur_iter > sc.warmup_iters, grid_values=self.grid_values)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_fn(self.cur_iter)
         self.optimizer.step()
         self.cur_iter += 1
+        if self.cur_iter % sc.guard_every == 0:
+            self.surface_frac = float(metrics["surface_frac"])
         if sc.dropout_iter > 0 and self.cur_iter % sc.dropout_iter == 0:
             # latent dropout resample (train_cesr.py:639-641)
             self.spec_var = (torch.rand(self.spec_var.shape, generator=self.generator,

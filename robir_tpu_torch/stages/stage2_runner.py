@@ -1,10 +1,10 @@
 """Shared stage-2 runner pieces (counterpart of
 ``robir_tpu/stages/stage2_runner.py``): the Adam optimizer with the
 MultiStep schedule, the stage-2 parameter init, and the runner base that
-holds the parameter tree on its device with the frozen subtrees frozen.
+holds the parameter tree on its device with the frozen subtrees frozen,
+and bakes the grid tracer's grid from the frozen NeuS.
 
-Params live in memory: no grid bake, no checkpoints, no chunked
-``render_view`` yet.
+Params live in memory: no checkpoints and no chunked ``render_view`` yet.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from ..fields.envmap_material import init_envmap_material
 from ..fields.neus_model import init_neus
 from ..fields.visibility import init_indirect, init_visnet
 from ..render.color import init_tonemap
-from ..render.stage2 import Stage2Config
+from ..render.stage2 import Stage2Config, Stage2Model
+from ..tracing.grid import build_sdf_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +63,8 @@ def init_stage2_params(gen: torch.Generator, cfg: Stage2Config) -> dict:
 class Stage2RunnerBase:
     """The parameter tree on its device (``cuda`` unless ``device="cpu"``),
     the trainable subtrees named by ``TRAINABLE`` and every other subtree
-    frozen, the host RNG for batches and the device generator for the
-    step's draws."""
+    frozen, the host RNG for batches, the device generator for the step's
+    draws, and the grid tracer's baked grid (``bake_grid``)."""
 
     TRAINABLE: Sequence[str] = ()
 
@@ -75,3 +76,14 @@ class Stage2RunnerBase:
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.cur_iter = 0
+        self.grid_values = None
+
+    def bake_grid(self) -> None:
+        """Bake the cached-SDF grid from the frozen NeuS (the reference's
+        ``ray_tracer.generate``): ``cfg.grid.resolution``^3 nodes through
+        the NeuS bridge's sdf, its weights folded and packed once for all
+        the chunks (on the card, K1 launches of 65,536 rows). Stores the
+        base [R, R, R] grid as ``grid_values``."""
+        model = Stage2Model(self.params, self.cfg, self.device)
+        self.grid_values = build_sdf_grid(model.frozen_sdf(), self.cfg.grid,
+                                          device=self.device)

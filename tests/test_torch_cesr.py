@@ -1,9 +1,11 @@
 """The port's CESR stage against the JAX package: the two CESR nets and one
 whole dense CESR step (loss and every trainable gradient) in a warmup and
 an explore step, at small widths, on bridged weights and the draws the
-JAX step makes from its key; and the runner through its schedule on the
-CPU. (The stage-2 model, losses, optimizer and scene:
-``test_torch_stage2_model.py``.)
+JAX step makes from its key; the runner through its schedule on the CPU,
+and its switch between compacted and dense steps against the JAX
+runner's. (The row-mode step on the grid tracer:
+``test_torch_cesr_rows.py``; the stage-2 model, losses, optimizer and
+scene: ``test_torch_stage2_model.py``.)
 
 Tolerances: 1e-5 on forward values (fp32, other summation order); the
 whole step's loss and metrics to 1e-5 relative. Gradients to rtol 5e-4
@@ -33,8 +35,10 @@ from robir_tpu.fields.visibility import IndirIllumConfig as JIndir
 from robir_tpu.fields.visibility import VisNetConfig as JVis
 from robir_tpu.render.color import ToneMapConfig as JTone
 from robir_tpu.render.stage2 import Stage2Config as JStage2Config
+from robir_tpu.render.stage2 import Stage2Model as JStage2Model
 from robir_tpu.stages import cesr as jcesr
 from robir_tpu.stages import stage2_runner as jrunner
+from robir_tpu.tracing import grid as jg
 from robir_tpu_torch.core import tree as ttree
 from robir_tpu_torch.core.draws import Draws
 from robir_tpu_torch.core.params import freeze, from_jax, to_numpy
@@ -49,6 +53,7 @@ from robir_tpu_torch.render.cuda import fused_mlp as tfm
 from robir_tpu_torch.render.stage2 import Stage2Config
 from robir_tpu_torch.stages import cesr as tcesr
 from robir_tpu_torch.stages import stage2_runner as trunner
+from robir_tpu_torch.tracing import grid as tg
 from torch_port_helpers import assert_close, jax_stage2_draws, to_t
 
 N_LIGHTS = 8
@@ -71,6 +76,10 @@ JCFG = JStage2Config(**_stage2_kw(JNeuS, JRender, jsdf.SDFConfig, JEnv, JIndir, 
 TCFG = Stage2Config(**_stage2_kw(NeuSConfig, RenderingConfig, tsdf.SDFConfig,
                                  EnvmapMaterialConfig, IndirIllumConfig, VisNetConfig,
                                  ToneMapConfig))
+# the grid tracer at configs/hotdog.json's settings, at a small resolution
+GRID_KW = dict(resolution=32, max_steps=64, storage_dtype="bfloat16", quad_rows=True)
+JCFG_GRID = dataclasses.replace(JCFG, tracer="grid", grid=jg.GridConfig(**GRID_KW))
+TCFG_GRID = dataclasses.replace(TCFG, tracer="grid", grid=tg.GridConfig(**GRID_KW))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +129,13 @@ def case():
     return shared_params(), JSmallCESR(compact_chunk=0, **STAGE_KW), ds, batch
 
 
+def shared_grid(params):
+    """JAX's grid baked from the shared NeuS (JCFG_GRID), and the same
+    values as a tensor, for both packages to march."""
+    jgrid = jg.build_sdf_grid(JStage2Model(params, JCFG_GRID).sdf, JCFG_GRID.grid)
+    return jgrid, torch.as_tensor(np.array(jgrid.astype(jnp.float32))).to(torch.bfloat16)
+
+
 def test_cesr_nets_match_jax(case):
     """shadow_net_vis (hand-factorised, plain PyTorch) and normal_net_apply
     (K1 and K2's plain versions): forward and parameter gradients."""
@@ -156,33 +172,42 @@ def _grab_grads():
     return optax.GradientTransformation(zeros, lambda g, s, p=None: (zeros(g), g))
 
 
-@pytest.mark.parametrize("prefit,use_new_normal,use_rgb_loss", [
-    ("warmup", False, False), ("explore", True, True)])
-def test_cesr_step_matches_jax(case, prefit, use_new_normal, use_rgb_loss):
-    """One dense CESR step: the loss and the gradient of every trainable
-    leaf (gamma, the envmap/material heads, shadow_net, normal_net)."""
-    params, jstage, _, batch = case
-    spec_var = (np.arange(8) % 4 == 2).astype(np.float32)
-    key = jax.random.PRNGKey(10)
-    trainable, frozen = jrunner.split_params(params, jcesr.CESRRunner.TRAINABLE)
-    step = jcesr.make_cesr_step(JCFG, jstage, _grab_grads())
-    jbatch = {k: jnp.asarray(batch[k]) for k in ("points", "dirs", "object_mask", "rgb")}
-    _, jgrads, metrics = step(trainable, frozen, None, None, jnp.asarray(spec_var), jbatch,
-                              key, prefit=prefit, use_new_normal=use_new_normal,
-                              use_rgb_loss=use_rgb_loss)
+SPEC_VAR = (np.arange(8) % 4 == 2).astype(np.float32)
+BATCH_KEYS = ("points", "dirs", "object_mask", "rgb")
 
+
+def jax_step(params, cfg, jstage, batch, key, prefit, use_new_normal, use_rgb_loss,
+             grid=None):
+    """(gradients, metrics) of one JAX CESR step."""
+    trainable, frozen = jrunner.split_params(params, jcesr.CESRRunner.TRAINABLE)
+    step = jcesr.make_cesr_step(cfg, jstage, _grab_grads())
+    jbatch = {k: jnp.asarray(batch[k]) for k in BATCH_KEYS}
+    _, grads, metrics = step(trainable, frozen, None, grid, jnp.asarray(SPEC_VAR), jbatch,
+                             key, prefit=prefit, use_new_normal=use_new_normal,
+                             use_rgb_loss=use_rgb_loss)
+    return grads, metrics
+
+
+def port_step(params, cfg, tstage, batch, draws, prefit, use_new_normal, use_rgb_loss,
+              grid=None):
+    """(loss, metrics, parameter tree with gradients) of one port step."""
     tparams = from_jax(params)
     freeze(tparams, tcesr.CESRRunner.TRAINABLE)
-    draws = Draws(given={k: to_t(v) for k, v in
-                         jax_stage2_draws(key, 48, JCFG, N_LIGHTS).items()})
-    tbatch = {k: torch.as_tensor(batch[k]) for k in jbatch}
-    loss, tmetrics = tcesr.cesr_loss(tparams, TCFG, TSmallCESR(**STAGE_KW), to_t(spec_var),
-                                     tbatch, draws, prefit, use_new_normal, use_rgb_loss)
+    tbatch = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS}
+    loss, metrics = tcesr.cesr_loss(tparams, cfg, tstage, to_t(SPEC_VAR), tbatch,
+                                    Draws(given={k: to_t(v) for k, v in draws.items()}),
+                                    prefit, use_new_normal, use_rgb_loss, grid_values=grid)
+    loss.backward()
+    return loss, metrics, tparams
+
+
+def assert_step_matches(tmetrics, tparams, metrics, jgrads):
+    """Loss and metrics to 1e-5 relative; each trainable gradient to rtol
+    5e-4 and GRAD_ATOL of its largest entry."""
     assert 0 < float(tmetrics["surface_frac"]) < 1
     assert float(tmetrics["surface_frac"]) == pytest.approx(float(metrics["surface_frac"]))
     for name in metrics:
         assert_close(tmetrics[name].detach(), metrics[name], rtol=1e-5, atol=1e-7, what=name)
-    loss.backward()
     flat = jtree.flatten_with_paths(jgrads)
     got = {p: leaf for p, leaf in ttree.flatten_with_paths(tparams).items()
            if leaf.requires_grad}
@@ -194,6 +219,21 @@ def test_cesr_step_matches_jax(case, prefit, use_new_normal, use_rgb_loss):
             assert leaf.grad is None or not leaf.grad.any(), path
             continue
         assert_close(leaf.grad, want, rtol=5e-4, atol=GRAD_ATOL * scale, what=path)
+
+
+@pytest.mark.parametrize("prefit,use_new_normal,use_rgb_loss", [
+    ("warmup", False, False), ("explore", True, True)])
+def test_cesr_step_matches_jax(case, prefit, use_new_normal, use_rgb_loss):
+    """One dense CESR step: the loss and the gradient of every trainable
+    leaf (gamma, the envmap/material heads, shadow_net, normal_net)."""
+    params, jstage, _, batch = case
+    key = jax.random.PRNGKey(10)
+    jgrads, metrics = jax_step(params, JCFG, jstage, batch, key, prefit, use_new_normal,
+                               use_rgb_loss)
+    _, tmetrics, tparams = port_step(params, TCFG, TSmallCESR(compact_chunk=0, **STAGE_KW),
+                                     batch, jax_stage2_draws(key, 48, JCFG, N_LIGHTS),
+                                     prefit, use_new_normal, use_rgb_loss)
+    assert_step_matches(tmetrics, tparams, metrics, jgrads)
 
 
 def test_runner_trains_through_the_schedule():
@@ -219,3 +259,33 @@ def test_runner_trains_through_the_schedule():
             assert not moved and not p.requires_grad, n
     assert any(not torch.equal(p.detach(), before[n])
                for n, p in runner.params.named_parameters() if n.startswith("normal_net."))
+
+
+@pytest.mark.parametrize("cam_dist,dense_after_guard", [(0.3, True), (2.0, False)])
+def test_runner_switch_matches_jax(cam_dist, dense_after_guard):
+    """CESRRunner on the grid tracer, 48 pixels at compact chunk 16, the
+    surface fraction read every 2 steps: compacted steps until the first
+    read; then dense steps while the fraction read is above 0.6 (a camera
+    close to the object: most pixels on its surface), compacted steps below
+    it. Each step's choice is the JAX runner's ``_pick_step`` on the same
+    fraction, and a compacted step draws its per-row noise for the surface
+    rows only (for row 0 where there is none)."""
+    ds = shadow_scene(n_train=2, h=16, w=16, cam_dist=cam_dist)
+    ds.object_masks = [np.ones_like(m) for m in ds.object_masks]
+    params = trunner.init_stage2_params(torch.Generator().manual_seed(0), TCFG_GRID)
+    kw = {**STAGE_KW, "compact_chunk": 16, "guard_every": 2}
+    runner = tcesr.CESRRunner(TCFG_GRID, params, ds, TSmallCESR(**kw), device="cpu")
+    runner.bake_grid()
+    jr = jcesr.CESRRunner(JCFG_GRID, to_numpy(params), ds, JSmallCESR(**kw))
+    compacted = []
+    for _ in range(5):
+        jr._surface_frac = runner.surface_frac
+        compacted.append(runner.step_config().compact_chunk > 0)
+        assert compacted[-1] == (jr._pick_step() is jr._step)
+        draws = Draws(runner.generator, record=True)
+        metrics = runner.step(runner._batch(), draws)
+        rows = draws.taken["spec_ae"].shape[0]
+        surface = round(float(metrics["surface_frac"]) * 48)
+        assert rows == (max(surface, 1) if compacted[-1] else 48)
+    assert compacted == [True, True] + [not dense_after_guard] * 3
+    assert (runner.surface_frac > 0.6) == dense_after_guard

@@ -23,8 +23,10 @@ from robir_tpu_torch.fields.radiance import RenderingConfig
 from robir_tpu_torch.fields.sdf import SDFConfig
 from robir_tpu_torch.render.cuda import fused_mlp as tfm
 from robir_tpu_torch.render.cuda import fused_value_grad as tfv
+from robir_tpu_torch.render.cuda import grid_march as tgm
 from robir_tpu_torch.render.neus import NeusRenderConfig
 from robir_tpu_torch.stages.neus_stage import NeusTrainConfig, NeusTrainer
+from robir_tpu_torch.tracing import grid as tg
 from torch_port_helpers import cuda_or_skip, to_t, trunk_case
 
 pytestmark = pytest.mark.cuda
@@ -203,3 +205,52 @@ def test_cesr_runner_steps_launch_each_kernel(dev):
         metrics = runner.run(1)
         assert all(np.isfinite(v) for v in metrics.values()), metrics
     assert [k.launches - b for k, b in zip(kernels, before)] == [156, 3, 3, 0]
+
+
+def _union_sdf(x):
+    """A sphere of radius 0.3 beside a torus (0.4, 0.12): convex and not."""
+    sphere = torch.linalg.norm(x - torch.tensor([0.45, 0.0, 0.0], device=x.device), dim=-1) - 0.3
+    q = torch.stack([torch.linalg.norm(x[:, :2] + torch.tensor([0.35, 0.0], device=x.device),
+                                       dim=-1) - 0.4, x[:, 2]], -1)
+    return torch.minimum(sphere, torch.linalg.norm(q, dim=-1) - 0.12)
+
+
+@pytest.mark.parametrize("store", [None, "bfloat16"])
+@pytest.mark.parametrize("over_relax", [0.0, 1.6])
+@pytest.mark.parametrize("n_rays", [1, 1000, 4099])
+def test_grid_march_matches_plain(dev, store, over_relax, n_rays):
+    """The grid-march kernel against grid_cast_plain on the card: the same
+    hits, t and x within 1e-5 where both hit; one launch."""
+    cfg = tg.GridConfig(resolution=96, max_steps=128, storage_dtype=store,
+                        over_relax=over_relax)
+    grid = tg.build_sdf_grid(_union_sdf, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(n_rays)
+    o = torch.randn(n_rays, 3, generator=gen, device=dev)
+    o = 1.8 * o / torch.linalg.norm(o, dim=-1, keepdim=True)
+    d = torch.rand(n_rays, 3, generator=gen, device=dev) * 1.2 - 0.6 - o
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    before = tgm.MARCH.launches
+    t, hit, x = tg.grid_cast(grid, cfg, o, d)
+    torch.cuda.synchronize()
+    assert tgm.MARCH.launches == before + 1
+    tp, hp, xp, _ = tg.grid_cast_plain(grid, cfg, o, d)
+    assert torch.equal(hit, hp), torch.nonzero(hit != hp).squeeze(1)[:20].tolist()
+    assert float(torch.where(hit, t - tp, 0.0).abs().max()) <= 1e-5
+    assert float(torch.where(hit[:, None], x - xp, 0.0).abs().max()) <= 1e-5
+    if n_rays > 100:
+        assert 0.1 < float(hit.float().mean()) < 0.9
+
+
+def test_grid_march_refuses_what_it_does_not_take(dev):
+    cfg = tg.GridConfig(resolution=8, storage_dtype="bfloat16")
+    grid = torch.zeros(8, 8, 8, device=dev)  # fp32, not the config's bf16
+    o = torch.zeros(4, 3, device=dev)
+    consts = tg.march_constants(cfg)
+    with pytest.raises(ValueError):
+        tg.grid_cast(grid, cfg, o, o)
+    with pytest.raises(ValueError):
+        tgm.grid_march_cuda(grid.bfloat16(), o.cpu(), o.cpu(), consts, 8, False)
+    with pytest.raises(ValueError):
+        tgm.grid_march_cuda(grid.half(), o, o, consts, 8, False)
+    with pytest.raises(ValueError):
+        tgm.grid_march_cuda(grid.bfloat16(), o, o, consts[:15], 8, False)

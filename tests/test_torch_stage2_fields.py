@@ -278,29 +278,23 @@ def test_bridge_round_trips_a_stage2_tree():
 def test_hotdog_config_matches_jax():
     raw = jconfig.load_config("configs/hotdog.json")
     want = jconfig.build_stage2_config(raw["model"])
-    got = tconfig.build_stage2_config(raw["model"], tracer="grid")
+    got = tconfig.build_stage2_config(raw["model"])
     for section in ("envmap", "indirect", "visnet", "tonemap", "grid", "sphere_tracer"):
         a, b = dataclasses.asdict(getattr(got, section)), dataclasses.asdict(getattr(want, section))
         assert a == {k: v for k, v in b.items() if k in a}, section
     assert dataclasses.asdict(got.neus.sdf) == dataclasses.asdict(want.neus.sdf)
     assert got.coord_scale == want.coord_scale == 2.0
+    assert got.tracer == want.tracer == "grid"
     jstage = jconfig.build_stage_config(jcesr.CESRStageConfig, raw["cesr"])
     tstage = tconfig.build_stage_config(tcesr.CESRStageConfig, raw["cesr"])
-    a, b = dataclasses.asdict(tstage), dataclasses.asdict(jstage)
-    # the port's stage config lacks only the compaction keys
-    assert set(b) - set(a) == {"compact_max_surface_frac", "guard_every"}
-    assert {k: v for k, v in a.items() if k != "compact_chunk"} == {
-        k: b[k] for k in a if k != "compact_chunk"}
+    # the same keys and values, the compaction defaults included
+    assert dataclasses.asdict(tstage) == dataclasses.asdict(jstage)
+    assert tstage.compact_chunk == 128
     with pytest.raises(KeyError):
         tconfig.build_stage2_config({**raw["model"], "no_such_key": 1})
     with pytest.raises(KeyError):
         tconfig.build_stage_config(tcesr.CESRStageConfig, {"no_such_key": 1})
-    with pytest.raises(NotImplementedError):  # compaction is not ported
-        tconfig.build_stage_config(tcesr.CESRStageConfig, {"compact_chunk": 128})
-    with pytest.raises(NotImplementedError):  # nor are BGR-ordered images
+    with pytest.raises(NotImplementedError):  # BGR-ordered images are not ported
         tconfig.build_stage2_config({**raw["model"], "bgr": True})
     with pytest.raises(KeyError):  # a JAX key the port reads nothing for yet
         tconfig.build_stage2_config({**raw["model"], "sweep_light_chunk": 0})
-    for key in ("guard_every", "compact_max_surface_frac"):
-        with pytest.raises(KeyError):
-            tconfig.build_stage_config(tcesr.CESRStageConfig, {key: 1})

@@ -65,7 +65,7 @@ def test_stage2_model_matches_jax(case):
     assert 0 < int(got[1].sum()) < 48
     assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
     assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="bake_grid"):  # the grid tracer needs its grid
         Stage2Model({}, dataclasses.replace(TCFG, tracer="grid"), "cpu").trace(to_t(x), to_t(d))
 
 

@@ -70,23 +70,54 @@ def jax_sg_draws(key, n_points: int, n_lights: int, diffuse_nsamp: int = 8,
 
 
 def jax_stage2_draws(key, n_points: int, stage2_cfg, n_lights: int,
-                     diffuse_nsamp: int = 8) -> dict:
-    """Every draw of one dense ``robir_tpu.render.stage2.stage2_forward``
-    with an ``hdr_shift`` (the CESR step's; ``diffuse_nsamp=32`` for
+                     diffuse_nsamp: int = 8, spec_nsamp: int = 8, surface=None,
+                     chunk: int = 0) -> dict:
+    """Every draw of one ``robir_tpu.render.stage2.stage2_forward`` with an
+    ``hdr_shift`` (the CESR step's; ``diffuse_nsamp=32`` for
     ``default_sg_render``) from its key, by the port's names: the indirect
-    AE noise, the material heads' noise, then the SG render's directions."""
+    AE noise, the material heads' noise, then the SG render's directions.
+
+    With ``chunk`` > 0 (the compacted render) and ``surface`` ([N] bool,
+    the surface pixels), the per-row draws are those of JAX's compacted
+    render, replayed: chunk c of the surface rows (in their order) keys
+    its material draws by ``fold_in(k_sg, id of its first row)``, its
+    specular sweep by ``fold_in(chunk_key, 2)`` and the indirect one by
+    ``fold_in(that, 1)``, each drawn at [chunk, ...]. The port gets the
+    surface rows' draws, [n_surface, ...] in row order; the per-light
+    draws and the indirect AE noise are the dense render's."""
     import jax
 
     env = stage2_cfg.envmap
     k_ind, key = jax.random.split(key)
     k_sg, _ = jax.random.split(key)
     k_mat, k_render = jax.random.split(k_sg)
-    k_spec, k_norm = jax.random.split(k_mat)
-    draws = {
-        "indirect_ae": np.asarray(jax.random.normal(
-            k_ind, (n_points, stage2_cfg.indirect.in_dim))),
-        "spec_ae": np.asarray(jax.random.normal(k_spec, (n_points, env.latent_dim))),
-        "normal_ae": np.asarray(jax.random.normal(k_norm, (n_points, env.ipe.out_dim))),
-    }
-    draws.update(jax_sg_draws(k_render, n_points, n_lights, diffuse_nsamp))
+
+    def material(k, n):
+        k_spec, k_norm = jax.random.split(k)
+        return {"spec_ae": np.asarray(jax.random.normal(k_spec, (n, env.latent_dim))),
+                "normal_ae": np.asarray(jax.random.normal(k_norm, (n, env.ipe.out_dim)))}
+
+    def pair(k, shape, prefix):
+        ka, kb = jax.random.split(k)
+        return {prefix + "theta": np.asarray(jax.random.uniform(ka, shape)),
+                prefix + "phi": np.asarray(jax.random.uniform(kb, shape))}
+
+    draws = {"indirect_ae": np.asarray(jax.random.normal(
+        k_ind, (n_points, stage2_cfg.indirect.in_dim)))}
+    dense = jax_sg_draws(k_render, n_points, n_lights, diffuse_nsamp, spec_nsamp)
+    if not chunk:
+        draws.update(material(k_mat, n_points))
+        draws.update(dense)
+        return draws
+    draws.update({k: v for k, v in dense.items() if k.startswith("lobe_")})
+    rows = np.flatnonzero(surface)
+    parts = []
+    for c in range(0, len(rows), chunk):
+        ck = jax.random.fold_in(k_sg, int(rows[c]))
+        k_spec = jax.random.fold_in(ck, 2)
+        part = material(ck, chunk)
+        part.update(pair(k_spec, (chunk, spec_nsamp), "spec_"))
+        part.update(pair(jax.random.fold_in(k_spec, 1), (chunk, spec_nsamp), "indir_spec_"))
+        parts.append({k: v[:len(rows) - c] for k, v in part.items()})
+    draws.update({k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
     return draws
