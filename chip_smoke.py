@@ -29,14 +29,21 @@
    scene for ``--steps`` steps, then the chunked eval render of a test view.
    The launch counts are set to 0 just before and must rise by exactly
    4 K1 + 1 K3 + 1 K4 per step and 4 K1 + 1 K3 per eval chunk.
-5. Drives the CESR path of the sphere tracer, dense: ``CESRRunner`` at the
-   widths of ``configs/hotdog.json`` (1,024 pixels, 128 SG lights, shadow
-   and normal nets 8 x 512, the 256-wide visibility net, indirect 4 x 512;
-   ``tracer="sphere"``, compact_chunk 0) on the in-memory two-sphere shadow
-   scene, with the NeuS just trained as its frozen geometry, for
-   SPHERE_STEPS (8) steps. The counts are set to 0 just before and must
-   rise by exactly 52 K1 (51 sphere-tracer queries, 50 at 1,024 rows and 1
-   at 102,400; the normal net), 1 K2 and 1 K3 per step, each at its shape.
+5. Checks one full-width CESR step (64 pixels) dense on the sphere tracer on
+   the card against the same step on the CPU in fp32 and fp64, from the
+   same weights (the frozen NeuS the seeded init, not the NeuS just trained,
+   so that the check's inputs are the same in every run), batch, trace and
+   random draws: the loss, every trainable gradient, and K2 on the step's
+   own operands; then shows that the gradient bounds reject a planted K2
+   fault. Then drives the CESR path of the sphere tracer, dense:
+   ``CESRRunner`` at the widths of ``configs/hotdog.json`` (1,024 pixels, 128
+   SG lights, shadow and normal nets 8 x 512, the 256-wide visibility net,
+   indirect 4 x 512; ``tracer="sphere"``, compact_chunk 0) on the in-memory
+   two-sphere shadow scene, with the NeuS just trained as its frozen
+   geometry, for SPHERE_STEPS (8) steps. The counts are set to 0 just before
+   and must rise by exactly 52 K1 (51 sphere-tracer queries, 50 at 1,024
+   rows and 1 at 102,400; the normal net), 1 K2 and 1 K3 per step, each at
+   its shape.
 6. Bakes the cached-SDF grid of ``configs/hotdog.json`` (320^3, bf16) from
    that NeuS through ``CESRRunner.bake_grid`` (500 K1 launches of 65,536
    rows, counted), prints its wall time, and holds K1 to its plain version
@@ -45,12 +52,9 @@
    1,024 primary rays of a CESR batch and 4,096 secondary rays from their
    surface points in random directions, at over_relax 0 and 1.6; the hit
    masks must be identical and t within 1e-5 where both hit.
-8. Checks one full-width CESR step (64 pixels) in row mode on the grid
-   tracer (compact_chunk 16) on the card against the same step on the CPU
-   in fp32 and fp64, from the same weights, batch and grid, one trace and
-   every random draw shared: the loss, every trainable gradient, and K2 on
-   the step's own operands; then shows that the gradient bounds reject a
-   planted K2 fault.
+8. Checks the CESR step against the CPU again, in row mode on the grid
+   tracer (compact_chunk 16), on a grid of the shadow scene's two spheres'
+   analytic sdf (the same values on each side and in every run).
 9. Drives the CESR path at the JAX package's defaults: the same runner,
    ``tracer="grid"`` and compact_chunk 128, for ``--cesr-steps`` steps on a
    shortened schedule that passes through warmup, explore and project, the
@@ -60,7 +64,27 @@
    K2 and 1 K3 at the step's rows (its surface rows if compacted, else
    1,024) per step; K1, K2 and K3 are then held to their plain versions at
    the row counts the run logged.
-10. With ``--profile STEPS``, profiles that many more steps of each path and
+10. The Vis stage at ``configs/hotdog.json``'s ``vis`` section (256 pixels,
+   512 directions, the 4 x 256 bf16 visibility net, indirect 4 x 512 with
+   24 SGs, L1, Adam 5e-4, fan_compact_chunk 4,096) through ``VisRunner``
+   with the trained NeuS: the energy prologue (1,000 Adam steps, timed, no
+   kernel of the port), ``bake_grid`` (timed, counted, its grid bit-equal
+   to the CESR runner's, K1 held to its plain version on a chunk).
+11. Holds the grid march to its plain version on a Vis batch's 256 primary
+   rays and their 131,072-ray fan; ``borrow_color`` on 32,768 rays from
+   the cameras' surface hits in uniform directions to its plain version
+   (K3's plain version), timed with K3 on one slice and the peak memory.
+12. Checks one full-width Vis step (24 + 8 pixels x 512 directions) on the
+   card against the CPU in fp32 and fp64, on the seeded weights and the
+   two-sphere grid, the CPU's primary and fan traces and every draw shared:
+   both losses, each trainable gradient; then shows that the bounds reject
+   a planted fault (K3 blind to a borrowed-colour launch's first row tile).
+13. Drives 20 Vis steps (counts set to 0 just before: per step 2 grid
+   marches, at 256 and 131,072 rays, and K3 once per slice of 4,096 rays
+   that need colour, 16 rows when none does; no K1, K2 or K4), then a
+   checkpoint round trip: ``save``, ``restore_latest`` into a fresh runner
+   (every leaf bit-equal), ``restore_surgical`` of the indirect net.
+14. With ``--profile STEPS``, profiles that many more steps of each path and
    prints the device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, the build time, each check, the
@@ -74,9 +98,11 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -87,6 +113,7 @@ from robir_tpu_torch.core.config import (build_stage1_configs, build_stage2_conf
                                          build_stage_config, load_config)
 from robir_tpu_torch.core.draws import Draws
 from robir_tpu_torch.core.params import to_numpy
+from robir_tpu_torch.core.tree import flatten_with_paths
 from robir_tpu_torch.data.blender import RayBatch
 from robir_tpu_torch.data.syn_dataset import shadow_scene
 from robir_tpu_torch.data.synthetic import make_sphere_scene
@@ -97,11 +124,13 @@ from robir_tpu_torch.render.cuda import fused_mlp as fm
 from robir_tpu_torch.render.cuda import fused_value_grad as fv
 from robir_tpu_torch.render.cuda import grid_march as gm
 from robir_tpu_torch.render.neus import render_samples, sample_z_vals
-from robir_tpu_torch.render.stage2 import Stage2Model
+from robir_tpu_torch.render.stage2 import Stage2Model, secondary_fan, stage2_forward
 from robir_tpu_torch.stages.cesr import SHADOW_PE, CESRRunner, CESRStageConfig, cesr_loss
 from robir_tpu_torch.stages.neus_stage import (NeusTrainer, batch_to_rays,
                                                cos_anneal_ratio, neus_loss)
 from robir_tpu_torch.stages.stage2_runner import init_stage2_params
+from robir_tpu_torch.stages.vis import BATCH_KEYS as VIS_BATCH_KEYS
+from robir_tpu_torch.stages.vis import VisRunner, VisStageConfig, vis_loss
 from robir_tpu_torch.tracing import grid as tg
 
 ROOT = Path(__file__).resolve().parent
@@ -147,6 +176,16 @@ SPHERE_STEPS = 8
 # fp32 operations of one march lookup (the cell's coordinates and weights,
 # the eight-corner blend), for its bound; the bytes it reads bound it
 MARCH_LOOKUP_FLOPS = 40
+# the shadow scene's two spheres (data/syn_dataset.py:render_two_sphere_gt)
+# in stage-2 coordinates: its world coordinates / the pose scale 2. The
+# step checks march a grid of their analytic sdf, the same in every run
+SHADOW_SPHERES = (((0.0, 0.0, 0.0), 0.25), ((0.185, 0.11, 0.305), 0.09))
+# steps of the driven Vis run
+VIS_STEPS = 20
+# the Vis step check: pixels on and off the object (x 512 directions)
+VIS_CHECK_PIXELS = (24, 8)
+# borrow_color's check: 25% of the 131,072-ray fan
+VIS_BORROW_RAYS = 32768
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
@@ -748,6 +787,7 @@ def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int, grid=Non
     if not abs(loss_gpu - loss_cpu) <= LOSS_RTOL * abs(loss_cpu):
         raise RuntimeError(f"CESR loss on the card {loss_gpu} vs CPU {loss_cpu}")
     worst = max(over, key=over.get)
+    print(f"CESR step check worst: gradient {worst} at {over[worst]:.3f} of its bound", flush=True)
     if not over[worst] <= 1.0:
         raise RuntimeError(f"CESR gradient {worst}: card vs fp64 {errs[worst][0]:.3e} of its "
                            f"largest entry > bound {bound[worst]:.3e}")
@@ -982,7 +1022,7 @@ def bake_grid(runner) -> dict:
     return run
 
 
-def check_bake_kernel(runner) -> dict:
+def check_bake_kernel(runner, path: str = "bake") -> dict:
     """K1 on one chunk of the bake (the nodes from the middle of the grid
     on), with the frozen NeuS's weights, against its plain version, and
     timed as the bake pays for it (weights packed once); returns its
@@ -1003,12 +1043,13 @@ def check_bake_kernel(runner) -> dict:
     nw = plan.n_weights()
     nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
     bound = bound_ms(2.0 * nw * rows, 4.0 * (rows * (plan.dims[0] + plan.out_dim) + nw + nb))
-    entries = {"K1 bake": dict(
-        name="K1 fused_mlp trunk forward, SDF trunk plan (width 264 build), the grid bake",
+    entries = {f"K1 {path}": dict(
+        name=f"K1 fused_mlp trunk forward, SDF trunk plan (width 264 build), the grid bake "
+             f"({path})",
         route="cuda", source="robir_tpu_torch/csrc/fused_mlp.cu",
         replaces="robir_tpu/render/pallas/fused_mlp.py:111", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None, rows=rows,
-        kernel="K1", path="bake", shape=(fm.MAX_WIDTH, rows),
+        kernel="K1", path=path, shape=(fm.MAX_WIDTH, rows),
         **geometry_line("K1", "sdf", plan, rows))}
     report(entries)
     return entries
@@ -1045,39 +1086,50 @@ def check_march(gcfg, grid, dataset, n_primary: int, n_secondary: int, seed: int
     for over in (0.0, 1.6):
         cfg = dataclasses.replace(gcfg, over_relax=over)
         for rays, (o, d) in (("primary", (o1, d1)), ("secondary", (o2, d2))):
-            n = o.shape[0]
-            t_k, hit_k, x_k = tg.grid_cast(grid, cfg, o, d)
-            t_p, hit_p, x_p, lookups = tg.grid_cast_plain(grid, cfg, o, d)
-            differ = torch.nonzero(hit_k != hit_p).squeeze(1)
-            if differ.numel():
-                raise RuntimeError(f"grid march, {rays} rays, over_relax {over}: the hits of "
-                                   f"rays {differ[:20].tolist()} differ from the plain version's")
-            both = hit_k
-            err_t = float((t_k - t_p)[both].abs().max()) if bool(both.any()) else 0.0
-            err_x = float((x_k - x_p)[both].abs().max()) if bool(both.any()) else 0.0
-            if not err_t <= MARCH_T_TOL:
-                raise RuntimeError(f"grid march, {rays} rays, over_relax {over}: t {err_t:.3e} "
-                                   f"from the plain version's > {MARCH_T_TOL}")
-            ms = cuda_ms(lambda: tg.grid_cast(grid, cfg, o, d), 20)
-            plain = cuda_ms(lambda: tg.grid_cast_plain(grid, cfg, o, d), 3)
-            looks = int(lookups.sum())
-            bound = bound_ms(MARCH_LOOKUP_FLOPS * looks,
-                             8 * grid.element_size() * looks + n * (4 * 3 * 3 + 4 + 1))
+            e = hold_march(grid, cfg, o, d, f"{rays} rays")
             main = rays == "primary" and over == gcfg.over_relax
-            print(f"grid march, {rays} rays ({n}), over_relax {over}: {int(hit_k.sum())} hits, "
-                  f"identical to the plain version's; t within {err_t:.3e}, x within "
-                  f"{err_x:.3e} where both hit; {looks} lookups ({looks / n:.1f} a ray, "
-                  f"{int(lookups.max())} at most); {ms:.4f} ms (plain {plain:.3f} ms, bound "
-                  f"{bound[0]:.5f} ms by {bound[1]})", flush=True)
             entries[f"march {rays} {over}"] = dict(
-                name=f"grid march (march + refine, one thread a ray), {rays} rays, over_relax "
-                     f"{over}" + (", the CESR trace" if main else ", a check shape"),
-                route="cuda", source="robir_tpu_torch/csrc/grid_march.cu",
+                e, name=f"grid march (march + refine, one thread a ray), {rays} rays, "
+                        f"over_relax {over}" + (", the CESR trace" if main else ", a check shape"),
+                path="cesr" if main else None, shape=(R, e["rows"]) if main else None)
+    return entries
+
+
+def hold_march(grid, cfg, o, d, what: str) -> dict:
+    """The grid-march kernel (through ``grid_cast``) against its plain
+    version on rays (o, d): raises unless the hits are identical and t
+    within MARCH_T_TOL where both hit. Timed; the bound counts the corner
+    bytes of the lookups the plain version says these rays need. Returns
+    the kernels-line fields (without name, path and shape)."""
+    n = o.shape[0]
+    with torch.no_grad():
+        t_k, hit_k, x_k = tg.grid_cast(grid, cfg, o, d)
+        t_p, hit_p, x_p, lookups = tg.grid_cast_plain(grid, cfg, o, d)
+    differ = torch.nonzero(hit_k != hit_p).squeeze(1)
+    if differ.numel():
+        raise RuntimeError(f"grid march, {what}, over_relax {cfg.over_relax}: the hits of "
+                           f"rays {differ[:20].tolist()} differ from the plain version's")
+    both = hit_k
+    err_t = float((t_k - t_p)[both].abs().max()) if bool(both.any()) else 0.0
+    err_x = float((x_k - x_p)[both].abs().max()) if bool(both.any()) else 0.0
+    if not err_t <= MARCH_T_TOL:
+        raise RuntimeError(f"grid march, {what}, over_relax {cfg.over_relax}: t {err_t:.3e} "
+                           f"from the plain version's > {MARCH_T_TOL}")
+    ms = cuda_ms(lambda: tg.grid_cast(grid, cfg, o, d), 20)
+    plain = cuda_ms(lambda: tg.grid_cast_plain(grid, cfg, o, d), 3)
+    looks = int(lookups.sum())
+    bound = bound_ms(MARCH_LOOKUP_FLOPS * looks,
+                     8 * grid.element_size() * looks + n * (4 * 3 * 3 + 4 + 1))
+    print(f"grid march, {what} ({n}), over_relax {cfg.over_relax}: {int(hit_k.sum())} hits, "
+          f"identical to the plain version's; t within {err_t:.3e}, x within {err_x:.3e} "
+          f"where both hit; {looks} lookups ({looks / n:.1f} a ray, {int(lookups.max())} at "
+          f"most); {ms:.4f} ms (plain {plain:.3f} ms, bound {bound[0]:.5f} ms by {bound[1]})",
+          flush=True)
+    return dict(route="cuda", source="robir_tpu_torch/csrc/grid_march.cu",
                 replaces="robir_tpu/tracing/grid.py:473 (grid_cast, XLA, no Pallas kernel)",
                 max_abs_err=err_t, ms=ms, plain_ms=plain, bound_ms=bound[0],
-                bound_by=bound[1], library_ms=None, rows=n, kernel="march",
-                path="cesr" if main else None, shape=(R, n) if main else None)
-    return entries
+                bound_by=bound[1], library_ms=None, rows=n, kernel="march", lookups=looks,
+                hits=int(hit_k.sum()))
 
 
 def drive_cesr_grid(runner, steps: int, profile: int = 0):
@@ -1212,6 +1264,354 @@ def check_grid_path_kernels(sdf_cfg, normal_cfg, shaded: list, gen) -> dict:
     return entries
 
 
+def seeded_neus(model_cfg, seed: int) -> dict:
+    """A NeuS that no kernel with a run-dependent summation order produced:
+    the seeded init, carried through the weights bridge (numpy, JAX
+    layout). The step checks trace and shade it, so that their inputs are
+    the same in every run."""
+    return to_numpy(init_neus(torch.Generator().manual_seed(seed), model_cfg))
+
+
+def two_sphere_sdf(x: torch.Tensor) -> torch.Tensor:
+    """The analytic sdf of the shadow scene's two spheres in stage-2
+    coordinates."""
+    return torch.stack([torch.linalg.norm(x - torch.tensor(c, device=x.device), dim=-1) - r
+                        for c, r in SHADOW_SPHERES]).amin(0)
+
+
+def vis_fan_k3_launches(need: int, chunk: int) -> dict:
+    """K3's launches by (build width, rows) of one Vis step whose fan needed
+    colour on ``need`` rays: one per slice of ``chunk`` rays, 16 sample rows
+    a ray; one at 16 rows where none is needed (compaction runs row 0)."""
+    out = {}
+    for i in range(0, max(need, 1), chunk):
+        shape = (fm.MAX_WIDTH, 16 * min(chunk, max(need, 1) - i))
+        out[shape] = out.get(shape, 0) + 1
+    return out
+
+
+def check_vis_march(runner, seed: int) -> dict:
+    """The grid-march kernel against its plain version on the Vis stage's
+    own rays: the 256 primary rays of a batch on the baked grid, then the
+    fan of 131,072 secondary rays from their offset origins
+    (``secondary_fan``, which the step traces). Returns their entries."""
+    stage, R = runner.stage_cfg, runner.cfg.grid.resolution
+    rng = np.random.default_rng(seed + 1)
+    b = runner.dataset.sample_pixels(rng, int(rng.integers(runner.dataset.n_cameras)),
+                                     stage.num_pixels)
+    b["hdr_shift"] = rng.random((stage.num_pixels, 1)).astype(np.float32)
+    inp = {k: torch.as_tensor(b[k], device="cuda") for k in VIS_BATCH_KEYS}
+    model = Stage2Model(runner.params, runner.cfg, "cuda", runner.grid_values)
+    draws = Draws(torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    with torch.no_grad():
+        fwd = stage2_forward(model, draws, inp, trainstage="Illum")
+        fan = secondary_fan(model, draws, fwd, stage.nsamp)
+    entries = {}
+    for what, (o, d) in (("primary", (inp["points"], inp["dirs"])),
+                         ("fan", (fan["origins"], fan["dirs"]))):
+        e = hold_march(runner.grid_values, runner.cfg.grid, o, d, f"the Vis {what} rays")
+        entries[f"march vis {what}"] = dict(
+            e, name=f"grid march (march + refine, one thread a ray), the Vis {what} rays",
+            path="vis", shape=(R, e["rows"]))
+    print(f"Vis fan of that batch: {int(fwd['network_object_mask'].sum())} surface pixels, "
+          f"{int((~fan['back_cull']).sum())} rays front facing of {fan['dirs'].shape[0]}",
+          flush=True)
+    return entries
+
+
+def check_borrow_color(runner, gen) -> dict:
+    """``borrow_color`` on a realistic fan: VIS_BORROW_RAYS rays from points
+    where the scene's cameras' object pixels hit the baked grid, in uniform
+    directions, in slices of ``fan_compact_chunk`` rays as the step runs it.
+    The card's colour (K3) against the same call with K3's plain version,
+    within KERNEL_TOL of its largest entry; the whole call and K3 on one
+    slice timed, the peak memory of the call. Returns K3's Vis entry."""
+    ds, chunk = runner.dataset, runner.stage_cfg.fan_compact_chunk
+    model = Stage2Model(runner.params, runner.cfg, "cuda", runner.grid_values)
+    hits = []
+    with torch.no_grad():
+        for cam in range(ds.n_cameras):
+            b = ds.pixels(cam, np.flatnonzero(ds.object_masks[cam]))
+            _, hit, x = model.trace(torch.as_tensor(b["points"], device="cuda"),
+                                    torch.as_tensor(b["dirs"], device="cuda"))
+            hits.append(x[hit])
+    pts = torch.cat(hits)
+    x = pts[torch.randint(pts.shape[0], (VIS_BORROW_RAYS,), generator=gen, device="cuda")]
+    d = torch.randn(VIS_BORROW_RAYS, 3, generator=gen, device="cuda")
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    real = fv.vg_forward_cuda
+    slices = []
+
+    def recorded(plan, xs, ws, bs):
+        slices.append((plan, xs, ws, bs))
+        return real(plan, xs, ws, bs)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        fv.vg_forward_cuda = recorded
+        with torch.no_grad():
+            got = model.borrow_color(x, -d, chunk)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        fv.vg_forward_cuda = lambda plan, xs, ws, bs: fv._forward_phases(plan, xs, ws, bs)[:2]
+        with torch.no_grad():
+            want = model.borrow_color(x, -d, chunk)
+            plain_call = cuda_ms(lambda: model.borrow_color(x, -d, chunk), 1)
+    finally:
+        fv.vg_forward_cuda = real
+    with torch.no_grad():
+        call = cuda_ms(lambda: model.borrow_color(x, -d, chunk), 3)
+    err_call = held_to_plain(f"borrow_color at {VIS_BORROW_RAYS} rays", [("colour", got, want)])
+    plan, xs, ws, bs = slices[0]
+    rows = xs.shape[0]
+    with torch.no_grad():
+        y, de = fv.vg_forward_cuda(plan, xs, ws, bs)
+        yp, dep, *_ = fv._forward_phases(plan, xs, ws, bs)
+        err = held_to_plain(f"K3 on a borrowed-colour slice ({rows} rows)",
+                            [("y", y, yp), ("de", de, dep)])
+        del y, de, yp, dep
+        ms = cuda_ms(lambda: fv.vg_forward_cuda(plan, xs, ws, bs), 10)
+        plain = cuda_ms(lambda: fv._forward_phases(plan, xs, ws, bs), 3)
+    nw = plan.n_weights()
+    nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
+    bound = bound_ms(4.0 * nw * rows,
+                     4.0 * (rows * (2 * plan.dims[0] + plan.out_dim) + nw + nb))
+    print(f"borrow_color at {VIS_BORROW_RAYS} rays from {pts.shape[0]} surface points of "
+          f"{ds.n_cameras} cameras, slices of {chunk}: {len(slices)} K3 launches of "
+          f"{rows} rows; colour within {err_call:.3e} of the plain version's (largest entry "
+          f"{float(want.abs().max()):.4f}); the call {call:.3f} ms (with K3's plain version "
+          f"{plain_call:.3f} ms); K3 on one slice {ms:.3f} ms (plain {plain:.3f} ms, bound "
+          f"{bound[0]:.3f} ms by {bound[1]}); peak device memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - base) / 2**30:.2f} GiB above what was held before the call", flush=True)
+    if len(slices) != -(-VIS_BORROW_RAYS // chunk):
+        raise RuntimeError(f"borrow_color launched K3 {len(slices)} times")
+    return {"K3 vis": dict(
+        name=f"K3 fused_value_grad forward (value + d sdf/dx), the Vis borrowed colour, no "
+             f"graph (timed on a slice of {chunk} rays; counts every slice)",
+        route="cuda", source="robir_tpu_torch/csrc/fused_value_grad.cu",
+        replaces="robir_tpu/render/pallas/fused_value_grad.py:131", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None, rows=rows,
+        kernel="K3", path="vis", shape=None)}
+
+
+def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> None:
+    """One full-width Vis step (VIS_CHECK_PIXELS on and off the object x 512
+    directions) on the card against the same step on the CPU in fp32 and in
+    fp64 (the visibility and colour nets without their bf16 storage), from
+    the same weights and batch, the CPU's primary and secondary traces of
+    ``grid`` (the same values on each side) and every draw shared (the
+    CPU's, replayed): both losses to LOSS_RTOL of the CPU fp32 step's, and
+    each trainable gradient to fp64 within CESR_GRAD_TOL of its largest
+    entry or CESR_FP32_FACTOR x the CPU fp32 step's own distance.
+
+    Then a planted fault: the card's step again with K3 blind to the first
+    row tile of each launch of the borrowed colour (its outputs zeroed
+    there, as a kernel that skipped the tile would leave them), which the
+    loss or gradient bounds must reject."""
+    cfg = dataclasses.replace(
+        cfg, visnet=dataclasses.replace(cfg.visnet, storage_dtype=None),
+        neus=dataclasses.replace(cfg.neus, color=dataclasses.replace(cfg.neus.color,
+                                                                     storage_dtype=None)))
+    on, off = VIS_CHECK_PIXELS
+    stage = dataclasses.replace(stage, num_pixels=on + off)
+    rng = np.random.default_rng(seed)
+    mask = dataset.object_masks[0]
+    b = dataset.pixels(0, np.concatenate([rng.choice(np.flatnonzero(mask), on, replace=False),
+                                          rng.choice(np.flatnonzero(~mask), off, replace=False)]))
+    b["hdr_shift"] = rng.random((on + off, 1)).astype(np.float32)
+    tb = {k: torch.as_tensor(b[k]) for k in VIS_BATCH_KEYS}
+    sides = (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64))
+    runners = {side: VisRunner(cfg, params, dataset, stage, seed=seed, device=side[0])
+               for side in sides}
+    runners["cpu", torch.float64].params.to(torch.float64)
+    grids = {"cpu": grid.cpu(), "cuda": grid}
+    cpu = Stage2Model(runners["cpu", torch.float32].params, cfg, "cpu", grids["cpu"])
+    card = Stage2Model(runners["cuda", torch.float32].params, cfg, "cuda", grid)
+    draws = Draws(torch.Generator().manual_seed(seed), record=True)
+    with torch.no_grad():
+        traced = cpu.trace(tb["points"], tb["dirs"])[:2]
+        own = card.trace(tb["points"].cuda(), tb["dirs"].cuda())[1].cpu()
+        fwd = stage2_forward(cpu, draws, tb, trainstage="Illum", traced=traced)
+        fan = secondary_fan(cpu, draws, fwd, stage.nsamp)
+        fan_traced = cpu.trace(fan["origins"], fan["dirs"])
+        own_fan = card.trace(fan["origins"].cuda(), fan["dirs"].cuda())[1].cpu()
+    taken = draws.taken
+    print(f"Vis step check ({on} + {off} pixels x {stage.nsamp} directions, the two-sphere "
+          f"grid): the card's own traces vs the CPU's: {int((own != traced[1]).sum())} of "
+          f"{on + off} primary and {int((own_fan != fan_traced[1]).sum())} of "
+          f"{fan_traced[1].numel()} fan hit flags differ; every side shades the CPU's "
+          f"({int((traced[1] & tb['object_mask']).sum())} surface pixels, "
+          f"{int(fan_traced[1].sum())} fan hits)", flush=True)
+    names = [n for n, p in runners["cpu", torch.float32].params.named_parameters()
+             if p.requires_grad]
+
+    def step(dev: str, dtype=torch.float32) -> tuple:
+        runner = runners[dev, dtype]
+        torch.set_default_dtype(dtype)
+        try:
+            inp = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+                   for k, v in tb.items()}
+            t0 = time.perf_counter()
+            k3 = K3.launches
+            loss, metrics = vis_loss(
+                runner.params, cfg, stage, inp, Draws(given=taken, device=dev), grids[dev],
+                traced=(traced[0].to(dev, dtype), traced[1].to(dev)),
+                fan_traced=(fan_traced[0].to(dev, dtype), fan_traced[1].to(dev),
+                            fan_traced[2].to(dev, dtype)))
+            grads = torch.autograd.grad(loss, runner.trainable, materialize_grads=True)
+            secs = time.perf_counter() - t0
+        finally:
+            torch.set_default_dtype(torch.float32)
+        return ({k: float(v) for k, v in metrics.items()},
+                [g.to("cpu", torch.float64) for g in grads], secs, K3.launches - k3)
+
+    real = fv.vg_forward_cuda
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def blind_to_first_tile(plan, x, ws, bs):
+        y, de = real(plan, x, ws, bs)
+        tile = 64 if x.shape[0] >= VG_TALL_ROWS_PER_SM * sms else 16
+        y[:tile] = 0
+        de[:tile] = 0
+        return y, de
+
+    m_cpu, g_cpu, s_cpu, _ = step("cpu")
+    m64, g64, _, _ = step("cpu", torch.float64)
+    m_gpu, g_gpu, _, k3_launches = step("cuda")
+    try:
+        fv.vg_forward_cuda = blind_to_first_tile
+        m_fault, g_fault, _, _ = step("cuda")
+    finally:
+        fv.vg_forward_cuda = real
+
+    def rel(a, ref):
+        return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+    losses = ("radiance_loss", "visibility_loss")
+    loss_over = {k: abs(m_gpu[k] - m_cpu[k]) / (LOSS_RTOL * abs(m_cpu[k])) for k in losses}
+    errs = {n: (rel(a, r), rel(c, r), rel(a, c)) for n, a, c, r in zip(names, g_gpu, g_cpu, g64)}
+    bound = {n: max(CESR_GRAD_TOL, CESR_FP32_FACTOR * e[1]) for n, e in errs.items()}
+    over = {n: errs[n][0] / bound[n] for n in errs}
+    need = int(m_gpu["fan_need"])
+    print(f"Vis step on the card vs the CPU: radiance loss card {m_gpu['radiance_loss']:.8f}, "
+          f"CPU fp32 {m_cpu['radiance_loss']:.8f}, fp64 {m64['radiance_loss']:.8f}; visibility "
+          f"loss {m_gpu['visibility_loss']:.8f}, {m_cpu['visibility_loss']:.8f}, "
+          f"{m64['visibility_loss']:.8f}; confidences lit/occluded card "
+          f"{m_gpu['vis_conf_lit']:.5f}/{m_gpu['vis_conf_occ']:.5f}; needed rays card "
+          f"{need}, CPU {int(m_cpu['fan_need'])}, fp64 {int(m64['fan_need'])} ({k3_launches} K3 "
+          f"launches); {len(errs)} tensors; CPU fp32 step {s_cpu:.1f} s", flush=True)
+    for n in sorted(over, key=over.get)[-6:]:
+        print(f"  {n:50s} card vs fp64 {errs[n][0]:.3e}, CPU fp32 vs fp64 {errs[n][1]:.3e}, "
+              f"bound {bound[n]:.3e}", flush=True)
+    worst = max(over, key=over.get)
+    print(f"Vis step check worst: gradient {worst} at {over[worst]:.3f} of its bound; losses "
+          + ", ".join(f"{k} at {v:.3f} of LOSS_RTOL" for k, v in loss_over.items()), flush=True)
+    fault = {k: abs(m_fault[k] - m_cpu[k]) / (LOSS_RTOL * abs(m_cpu[k])) for k in losses}
+    fault.update({n: rel(a, r) / bound[n] for n, a, r in zip(names, g_fault, g64)})
+    caught = max(fault, key=fault.get)
+    print(f"planted fault (K3 blind to the first row tile of each borrowed-colour launch): "
+          f"worst {caught} {fault[caught]:.1f}x its bound", flush=True)
+    if need == 0:
+        raise RuntimeError("the Vis step check needed no borrowed colour")
+    if not max(loss_over.values()) <= 1.0:
+        raise RuntimeError(f"Vis losses on the card {m_gpu} vs CPU {m_cpu}")
+    if not over[worst] <= 1.0:
+        raise RuntimeError(f"Vis gradient {worst}: card vs fp64 {errs[worst][0]:.3e} of its "
+                           f"largest entry > bound {bound[worst]:.3e}")
+    if not fault[caught] > 1.0:
+        raise RuntimeError("the Vis step's bounds passed the planted K3 fault")
+
+
+def drive_vis(runner, steps: int, profile: int = 0):
+    """``steps`` VisRunner steps on the card with the counts set to 0 just
+    before. Each step's line gives its time, both losses and confidences,
+    the surface pixels and the fan's rays that face the front, that hit and
+    whose colour was borrowed. Each step must launch the grid march twice
+    (the batch's rays and the fan's) and K3 once per slice of needed rays
+    (``vis_fan_k3_launches``); K1, K2 and K4 never. Returns the launches by
+    shape. Then, if ``profile``, profiles that many more steps."""
+    stage, R = runner.stage_cfg, runner.cfg.grid.resolution
+    n, fan = stage.num_pixels, stage.num_pixels * stage.nsamp
+    want = {k: {} for k in KERNELS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    reset_counts()
+    for _ in range(steps):
+        it = runner.cur_iter
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = runner.run(1)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        bad = {k: v for k, v in m.items() if not np.isfinite(v)}
+        if bad:
+            raise RuntimeError(f"Vis step {it}: non-finite {bad}")
+        for shape in ((R, n), (R, fan)):
+            want["march"][shape] = want["march"].get(shape, 0) + 1
+        for shape, k in vis_fan_k3_launches(int(m["fan_need"]),
+                                            stage.fan_compact_chunk).items():
+            want["K3"][shape] = want["K3"].get(shape, 0) + k
+        print(f"Vis step {it:2d}: {step_ms[-1]:8.3f} ms, radiance loss "
+              f"{m['radiance_loss']:.5f}, visibility loss {m['visibility_loss']:.5f}, confidence "
+              f"lit {m['vis_conf_lit']:.4f} occluded {m['vis_conf_occ']:.4f}; "
+              f"{int(m['surface_pixels'])} surface pixels; fan of {fan}: "
+              f"{int(m['fan_front'])} front facing, {int(m['fan_hits'])} hit, "
+              f"{int(m['fan_need'])} needed colour", flush=True)
+    run = shapes()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        profile_steps(runner.run, profile, "Vis")
+    if run != want:
+        raise RuntimeError(f"Vis launches {run}, expected {want}")
+    steady = step_ms[2:] or step_ms
+    print(f"Vis step ({n} pixels x {stage.nsamp} directions, grid {R}^3, fan_compact_chunk "
+          f"{stage.fan_compact_chunk}): median {float(np.median(steady)):.3f} ms, mean "
+          f"{float(np.mean(steady)):.3f} ms over steps 3-{steps} (CUDA events around "
+          f"VisRunner.run(1)); first step {step_ms[0]:.3f} ms; peak device memory {peak:.2f} "
+          f"GiB", flush=True)
+    print(f"Vis launches over the {steps} steps by kernel and (width or grid resolution, rows): "
+          f"{want}", flush=True)
+    return run
+
+
+def check_vis_checkpoint(runner, cfg, params, stage, seed: int) -> None:
+    """``save`` after the steps; ``restore_latest`` into a fresh runner must
+    give every leaf bit-equal; ``restore_surgical`` of the indirect net into
+    another must change those leaves only."""
+    def flat(r):
+        return {k: v.detach().clone() for k, v in flatten_with_paths(r.params).items()}
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        runner.log_dir = log_dir
+        path = runner.save()
+        fresh = VisRunner(cfg, params, runner.dataset, stage, seed=seed, device="cuda",
+                          log_dir=log_dir)
+        if not fresh.restore_latest() or fresh.cur_iter != runner.cur_iter:
+            raise RuntimeError("restore_latest found no checkpoint or another step")
+        saved, restored = flat(runner), flat(fresh)
+        differ = [k for k in saved if not torch.equal(saved[k], restored[k])]
+        if differ or saved.keys() != restored.keys():
+            raise RuntimeError(f"restore_latest: leaves differ: {differ[:5]}")
+        surgical = VisRunner(cfg, params, runner.dataset, stage, seed=seed, device="cuda")
+        before = flat(surgical)
+        keep = lambda p: p.startswith("indirect_illum_network/")  # noqa: E731
+        surgical.restore_surgical(path, keep)
+        after = flat(surgical)
+        wrong = [k for k in after if not torch.equal(after[k], saved[k] if keep(k) else before[k])]
+        if wrong:
+            raise RuntimeError(f"restore_surgical: leaves {wrong[:5]} are not as kept")
+        changed = sum(not torch.equal(after[k], before[k]) for k in after)
+    print(f"checkpoint round trip: {os.path.basename(path)} and latest.npz, {len(saved)} leaves; "
+          f"restore_latest bit-equal at step {fresh.cur_iter}; restore_surgical of "
+          f"indirect_illum_network: {changed} leaves changed, "
+          f"{sum(keep(k) for k in after)} kept, the rest as they were", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -1258,9 +1658,12 @@ def main() -> None:
 
     dataset = shadow_scene(n_train=20, h=128, w=128, seed=args.seed)
     params = cesr_params(cesr_cfg, neus, args.seed)
+    # the step checks: the seeded NeuS, not the one stage 1 just trained
+    # (its K4 sums dW with atomics in an order that changes between runs)
+    check_params = cesr_params(cesr_cfg, seeded_neus(model_cfg, args.seed), args.seed)
     sphere_cfg = dataclasses.replace(cesr_cfg, tracer="sphere")
     sphere_stage = dataclasses.replace(stage_cfg, compact_chunk=0)
-    check_cesr_step_against_cpu(sphere_cfg, sphere_stage, dataset, params, args.seed)
+    check_cesr_step_against_cpu(sphere_cfg, sphere_stage, dataset, check_params, args.seed)
     cesr_sphere = drive_cesr_sphere(sphere_cfg, sphere_stage, dataset, params,
                                     SPHERE_STEPS, args.seed, args.profile)
 
@@ -1270,16 +1673,48 @@ def main() -> None:
     entries.update(check_bake_kernel(runner))
     entries.update(check_march(cesr_cfg.grid, runner.grid_values, dataset, stage_cfg.num_pixels,
                                4096, args.seed, gen))
+    two_spheres = tg.build_sdf_grid(two_sphere_sdf, cesr_cfg.grid, device="cuda")
     check_cesr_step_against_cpu(cesr_cfg, dataclasses.replace(stage_cfg, compact_chunk=16),
-                                dataset, params, args.seed, grid=runner.grid_values)
+                                dataset, check_params, args.seed, grid=two_spheres)
     cesr, shaded = drive_cesr_grid(runner, args.cesr_steps, args.profile)
     entries.update(check_grid_path_kernels(model_cfg.sdf, stage_cfg.normal_cfg, shaded, gen))
+
+    # the Vis stage at configs/hotdog.json's vis section: the energy
+    # prologue, the bake, then the steps
+    vis_stage = build_stage_config(VisStageConfig, load_config(str(STAGE2_CONFIG))["vis"])
+    vis_runner = VisRunner(cesr_cfg, params, dataset, vis_stage, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    vis_runner.fit_energy_prologue()
+    torch.cuda.synchronize()
+    prologue_s = time.perf_counter() - t0
+    if any(counts().values()):
+        raise RuntimeError(f"the energy prologue launched {counts()}")
+    energy = to_numpy(vis_runner.params["gamma"]["energy"])
+    if not all(np.isfinite(v).all() for v in flatten_with_paths(energy).values()):
+        raise RuntimeError("the fitted energy net is not finite")
+    print(f"Vis energy prologue: 1000 Adam steps (8,192 pixels x 512 shifts each) on "
+          f"{len(dataset.masked_pixels())} masked pixels, {prologue_s:.3f} s wall to a "
+          f"synchronize; no kernel of the port launched", flush=True)
+    vis_bake = bake_grid(vis_runner)
+    if not torch.equal(vis_runner.grid_values, runner.grid_values):
+        raise RuntimeError("the Vis runner's grid differs from the CESR runner's of that NeuS")
+    print("Vis grid bit-equal to the CESR runner's grid of the same NeuS", flush=True)
+    entries.update(check_bake_kernel(vis_runner, "vis_bake"))
+    entries.update(check_vis_march(vis_runner, args.seed))
+    entries.update(check_borrow_color(vis_runner, gen))
+    check_vis_step_against_cpu(cesr_cfg, vis_stage, dataset, check_params, args.seed,
+                               two_spheres)
+    vis = drive_vis(vis_runner, VIS_STEPS, args.profile)
+    check_vis_checkpoint(vis_runner, cesr_cfg, params, vis_stage, args.seed)
 
     # each entry counts its kernel's launches on its path, at its shape (or
     # at every shape: stage 1's entries, timed at the path's largest rows;
     # the CESR run's K1, K2 and K3 at its shaded rows); the check shapes off
     # the main paths count none
-    paths = {"neus_stage1": stage1, "cesr_sphere": cesr_sphere, "bake": bake, "cesr": cesr}
+    paths = {"neus_stage1": stage1, "cesr_sphere": cesr_sphere, "bake": bake, "cesr": cesr,
+             "vis_bake": vis_bake, "vis": vis}
     for name, e in entries.items():
         if e["path"] is None:
             e["launches"] = 0

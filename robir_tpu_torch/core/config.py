@@ -7,8 +7,8 @@ missing keys and rejecting unknown ones. Covered sections: stage 1's
 ``model``, ``render``, ``train`` and ``dataset``; stage 2's ``model``
 (``neus``, ``envmap_material_network``, ``indirect_illum_network``,
 ``visibility_network``, ``tonemap``, ``grid``, ``coord_scale`` and the
-tracer keys) and the ``cesr`` stage section. Other sections (``mesh``,
-``norm``, ``vis``, ``pbr``) are not read.
+tracer keys), the ``cesr`` and ``vis`` stage sections. Other sections
+(``mesh``, ``norm``, ``pbr``) are not read.
 """
 
 from __future__ import annotations
@@ -26,9 +26,10 @@ from ..fields.visibility import IndirIllumConfig, VisNetConfig
 from ..render.color import ToneMapConfig
 from ..render.neus import NeusRenderConfig
 from ..render.stage2 import Stage2Config
-from ..stages.losses import InvLossConfig
+from ..stages.losses import IllumLossConfig, InvLossConfig
 from ..stages.neus_stage import NeusTrainConfig
 from ..stages.stage2_runner import StageOptConfig
+from ..stages.vis import VisStageConfig
 from ..tracing.grid import GridConfig
 from ..tracing.sphere import SphereTracerConfig
 
@@ -112,11 +113,14 @@ def build_stage2_config(d: dict, **overrides) -> Stage2Config:
 
 
 def build_stage_config(dc_type, d: dict | None, **overrides):
-    """A stage config (e.g. ``CESRStageConfig``) from its section, with the
-    nested ``opt`` and ``loss`` sections built from plain dicts."""
+    """A stage config (``CESRStageConfig``, ``VisStageConfig``) from its
+    section, with the nested ``opt`` and ``loss`` sections built from plain
+    dicts (the Vis stage's loss is an ``IllumLossConfig``). Unknown keys
+    raise KeyError; ``VisStageConfig`` refuses ``shard_fan: true``."""
     d = {**(d or {}), **overrides}
     if isinstance(d.get("opt"), dict):
         d["opt"] = _build(StageOptConfig, d["opt"])
     if isinstance(d.get("loss"), dict):
-        d["loss"] = _build(InvLossConfig, d["loss"])
+        loss_type = IllumLossConfig if dc_type is VisStageConfig else InvLossConfig
+        d["loss"] = _build(loss_type, d["loss"])
     return _build(dc_type, d)

@@ -3,7 +3,9 @@ part of ``robir_tpu/core/tree.py``).
 
 Parameters are nested dicts (or the port's ``ParamTree`` modules);
 stage-boundary surgery keeps or drops subtrees by top-level path prefix,
-as the reference filters state-dict keys (``training/train_pbr.py:157-203``).
+as the reference filters state-dict keys (``training/train_pbr.py:157-203``),
+and a partial restore merges a loaded tree into a base one
+(``merge_trees``, the reference's ``load_state_dict(strict=False)``).
 """
 
 from __future__ import annotations
@@ -61,3 +63,16 @@ def keep_prefixes(tree: Params, prefixes: tuple[str, ...]) -> dict:
 
 def drop_prefixes(tree: Params, prefixes: tuple[str, ...]) -> dict:
     return filter_tree(tree, lambda p: not _under(p, prefixes))
+
+
+def merge_trees(base: Params, override: Params) -> dict:
+    """Leaves present in ``override`` replace those of ``base``; every other
+    leaf keeps its ``base`` value. Raises KeyError on a path of
+    ``override`` that ``base`` does not have."""
+    flat = flatten_with_paths(base)
+    over = flatten_with_paths(override)
+    unknown = set(over) - set(flat)
+    if unknown:
+        raise KeyError(f"override contains paths not in base: {sorted(unknown)[:5]} ...")
+    flat.update(over)
+    return unflatten_paths(flat)

@@ -4,8 +4,9 @@ pixel sampling of ``robir_tpu/data/syn_dataset.py``, the reference's
 
 ``SynDataset`` holds linear-radiance images, object masks, intrinsics and
 poses (translations already / pose_scale into stage-2 coordinates);
-``camera_rays`` lifts pixels to rays and ``sample_pixels`` draws a random
-pixel batch of one camera. ``shadow_scene`` builds the two-sphere scene
+``camera_rays`` lifts pixels to rays, ``sample_pixels`` draws a random
+pixel batch of one camera and ``masked_pixels`` gathers the object's
+pixels. ``shadow_scene`` builds the two-sphere scene
 with cast shadows of ``robir_tpu/data/synthetic.py:make_shadow_dataset``
 (same cameras from the same seed, same 8-bit quantisation and gamma-2.2
 decode as a load of its PNGs) without writing files. Reading a dataset
@@ -61,6 +62,11 @@ class SynDataset:
         return {"uv": uv, "points": np.broadcast_to(cam_loc, dirs.shape).copy(),
                 "dirs": dirs, "object_mask": self.object_masks[idx][sel],
                 "rgb": self.rgb_images[idx][sel]}
+
+    def masked_pixels(self) -> np.ndarray:
+        """Every in-mask pixel of every camera, [P, 3] (the Vis stage's
+        energy prologue, model/energy_integral.py:51-61)."""
+        return np.concatenate([img[m] for img, m in zip(self.rgb_images, self.object_masks)], 0)
 
 
 def render_two_sphere_gt(c2w: np.ndarray, h: int, w: int, focal: float,

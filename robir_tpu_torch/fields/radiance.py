@@ -81,7 +81,8 @@ def rendering_apply(params: Params, cfg: RenderingConfig, points: torch.Tensor,
     for i in range(1, n - 1):
         h = torch.relu(h)
         h = apply_linear(params[f"lin{i}"], h, storage_dtype=cfg.storage_dtype)
-    h = h.float()
+    if cfg.storage_dtype is not None:
+        h = h.float()
     if cfg.use_sigmoid:
         h = torch.sigmoid(h)
     return h

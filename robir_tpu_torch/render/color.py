@@ -6,20 +6,23 @@ scale-ACES (what the shipped configs select), 1 warp-ACES, 2 ln-space, 3
 identity; the learnable shift ``adapt_illum`` enters as ``as_input``.
 Parameters ride in the ``gamma`` subtree, the mode in a frozen config.
 
-Not ported yet: the energy-integral prefit (``fit_energy``,
-``energy_apply``, ``energy_scalar``), which only the Vis stage runs; the
-``energy`` subtree is created by ``init_tonemap`` so the tree matches the
-JAX package's.
+The energy-integral net (``energy_apply``, ``energy_scalar``) maps a shift
+to the mean HDR energy of the dataset's pixels under that shift;
+``fit_energy`` fits it once, in the Vis stage's prologue
+(``model/energy_integral.py:51-77``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
-from ..fields.encoding import PEConfig
-from ..fields.mlp import Params, init_linear
+from ..core.draws import Draws
+from ..core.params import ParamTree, from_jax
+from ..fields.encoding import PEConfig, positional_encoding
+from ..fields.mlp import Params, apply_linear, init_linear, softplus_beta
 
 
 def aces_fn(x):
@@ -128,3 +131,50 @@ def hdr2ldr(params: Params, cfg: ToneMapConfig, x, raw_shift=None):
 def ldr2hdr(params: Params, cfg: ToneMapConfig, x, raw_shift=None):
     _, inv = _HDR_MODES[cfg.hdr_mode]
     return inv(x, make_shift(params, raw_shift))
+
+
+def energy_scalar(params: Params, shift: torch.Tensor) -> torch.Tensor:
+    """E(shift) / E(1) (color_correction.py ``scalar``); ``params`` is the
+    ``gamma`` subtree."""
+    max_e = torch.mean(energy_apply(params["energy"], torch.ones_like(shift)), -1,
+                       keepdim=True)
+    e = torch.mean(energy_apply(params["energy"], shift), -1, keepdim=True)
+    return e / torch.clamp(max_e, 1e-4, 1.0)
+
+
+def energy_apply(params: Params, shift: torch.Tensor) -> torch.Tensor:
+    """[N, 1] shift -> [N, 3] softplus energy (energy_integral.py)."""
+    h = positional_encoding(shift, _ENERGY_PE)
+    n = len(_ENERGY_DIMS) + 1
+    for i in range(n):
+        h = apply_linear(params[f"lin{i}"], h)
+        if i < n - 1:
+            h = torch.relu(h)
+    return softplus_beta(h, 1.0)
+
+
+def fit_energy(init: Params, masked_pixels: torch.Tensor,
+               ldr2hdr_fn: Callable, step_draws: Callable[[int], Draws],
+               n_steps: int = 1000, batch_px: int = 8192, batch_shift: int = 512,
+               lr: float = 5e-4) -> ParamTree:
+    """Fit E(shift) ~ mean over pixels of ``ldr2hdr_fn(pixel, shift)``
+    (energy_integral.py:51-77), from the weights ``init`` (an
+    ``init_energy`` tree), on ``masked_pixels`` [P, 3] in [0, 1]'s device.
+    Each of the ``n_steps`` Adam steps (b2 0.99) draws from
+    ``step_draws(step)``: ``energy_shift`` (U[0, 1) [batch_shift, 1],
+    clipped to [1e-4, 1 - 1e-4]) and ``energy_pixels`` ([batch_px] indices
+    into the pixels). Returns the fitted weights."""
+    params = from_jax(init, masked_pixels.device)
+    opt = torch.optim.Adam(params.parameters(), lr=lr, betas=(0.9, 0.99), eps=1e-8)
+    px = torch.clamp(masked_pixels, 1e-4, 1.0)
+    for i in range(n_steps):
+        draws = step_draws(i)
+        shift = torch.clamp(draws.uniform("energy_shift", (batch_shift, 1)), 1e-4, 1 - 1e-4)
+        batch = px[draws.integers("energy_pixels", (batch_px,), px.shape[0])]
+        with torch.no_grad():
+            gt = torch.mean(ldr2hdr_fn(batch[:, None, :], shift), dim=0)
+        loss = torch.mean((gt - energy_apply(params, shift)) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    return params

@@ -14,14 +14,19 @@ marches the cached-SDF grid that the runner bakes from the frozen NeuS
 (``tracing/grid.py``, the grid-march kernel on the card), and
 ``tracer="sphere"`` sphere-traces the live NeuS (each query a K1 launch).
 ``stage2_forward(compact_chunk=...)`` shades only the surface pixels
-(``core/compact.py``). Not ported yet: the Illum stage's forward,
-``trace_radiance``, ``borrow_color``, ``neus_bridge_render`` and the
-plain-IDR mode (``use_neus=False``).
+(``core/compact.py``). ``stage2_forward(trainstage="Illum")`` and
+``trace_radiance`` are the Vis stage's forward: the indirect SGs and AE
+normals at the primary hits, then a fan of secondary rays, traced (the
+grid march on the card), whose hits borrow their colour from the frozen
+NeuS (``borrow_color``: a 16-sample mini render through K3 and the colour
+net, run only on the rays whose colour a loss reads). Not ported yet:
+``neus_bridge_render`` and the plain-IDR mode (``use_neus=False``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -33,14 +38,15 @@ from ..core.params import ParamTree, from_jax
 from ..fields.envmap_material import (EnvmapMaterialConfig, MaterialOutput,
                                       envmap_material_apply)
 from ..fields.mlp import Params
-from ..fields.neus_model import NeuSConfig
+from ..fields.neus_model import NeuSConfig, variance_apply
+from ..fields.radiance import rendering_apply
 from ..fields.sdf import frozen_sdf, sdf_apply, sdf_full_and_gradient
 from ..fields.visibility import (IndirIllumConfig, VisNetConfig, indirect_apply,
                                  visnet_apply, visnet_outer_apply)
-from ..tracing.grid import GridConfig, grid_cast
+from ..tracing.grid import GridConfig, f32, grid_cast
 from ..tracing.sphere import SphereTracerConfig, sphere_trace
 from . import sg as sg_lib
-from .color import ToneMapConfig
+from .color import ToneMapConfig, ldr2hdr
 
 TINY = 1e-6
 
@@ -111,6 +117,54 @@ class Stage2Model:
             _, g = sdf_full_and_gradient(self._sdf_params(), self.cfg.neus.sdf,
                                          x * self.cfg.coord_scale)
         return g * (self.cfg.coord_scale / 2.0)
+
+    def color(self, points, normals, view_dirs, feature_vectors) -> torch.Tensor:
+        """The frozen NeuS's colour net at stage-2 ``points``."""
+        return rendering_apply(self.params["implicit_network"]["color_network"],
+                               self.cfg.neus.color, points * self.cfg.coord_scale, normals,
+                               view_dirs, feature_vectors)
+
+    def volume_render_color(self, sdf: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
+        """NeuS alpha compositing of precomputed samples (neus_model.py:828-854):
+        sdf [B, S, 1], color [B, S, 3] -> [B, 3]."""
+        inv_s = torch.clamp(variance_apply(self.params["implicit_network"]["deviation_network"]),
+                            1e-6, 1e6)
+        next_sdf = torch.cat([sdf[:, 1:], sdf[:, -1:]], 1)
+        prev_sdf = torch.cat([sdf[:, :-1], sdf[:, -1:]], 1)
+        prev_cdf = torch.sigmoid(prev_sdf * inv_s)
+        next_cdf = torch.sigmoid(next_sdf * inv_s)
+        alpha = torch.clamp(((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5))[..., 0], 0.0, 1.0)
+        ones = torch.ones_like(alpha[:, :1])
+        trans = torch.cumprod(torch.cat([ones, 1.0 - alpha + 1e-7], -1), -1)[:, :-1]
+        return torch.sum(color * (alpha * trans)[:, :, None], dim=1)
+
+    def borrow_color(self, points: torch.Tensor, view_dirs: torch.Tensor,
+                     chunk: int = 0) -> torch.Tensor:
+        """The frozen NeuS's colour at stage-2 ``points`` [B, 3] seen along
+        ``-view_dirs``: a 16-sample mini render (neus_model.py:856-871) at
+        t in linspace(-0.01, 0.05) along the negated view direction, in
+        stage-1 coordinates, one K3 call for (sdf, feature, gradient) at the
+        B x 16 samples and one colour-net call; with ``chunk`` > 0, one of
+        each per slice of ``chunk`` points (the same result: nothing here
+        couples two points). No bgr flip: the reference calls the stage-1
+        model directly here. Differentiable through K4 if a caller asks;
+        ``trace_radiance`` runs it without a graph."""
+        if 0 < chunk < points.shape[0]:
+            return torch.cat([self.borrow_color(points[i:i + chunk], view_dirs[i:i + chunk])
+                              for i in range(0, points.shape[0], chunk)])
+        n_samp = 16
+        vd = -view_dirs / torch.linalg.norm(view_dirs, dim=-1, keepdim=True)
+        t = torch.linspace(-0.01, 0.05, n_samp, dtype=points.dtype,
+                           device=points.device)[:, None]
+        pts = points[:, None, :] * self.cfg.coord_scale + vd[:, None, :] * t
+        flat = pts.reshape(-1, 3)
+        full, grads = sdf_full_and_gradient(self._sdf_params(), self.cfg.neus.sdf, flat)
+        color = rendering_apply(self.params["implicit_network"]["color_network"],
+                                self.cfg.neus.color, flat, grads,
+                                vd[:, None, :].expand(pts.shape).reshape(-1, 3), full[..., 1:])
+        b = points.shape[0]
+        return self.volume_render_color(full[..., :1].reshape(b, n_samp, 1),
+                                        color.reshape(b, n_samp, 3))
 
     def material(self, points, draws: Optional[Draws] = None, train_spec=False,
                  spec_var=None) -> MaterialOutput:
@@ -203,12 +257,17 @@ _MASKED = ("sg_rgb", "indir_rgb", "sg_diffuse_rgb", "sg_specular_rgb",
 
 
 def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
+                   trainstage: str = "Material",
                    sg_render_fn: Optional[SGRenderFn] = None,
                    train_spec: bool = False, lin_diff: bool = False,
                    compact_chunk: int = 0, traced=None, **sg_kwargs) -> dict:
-    """IDRNetwork.forward (:290-479), masked, for the Material stages:
-    trace (no grad), the indirect SGs at the hit points, then the SG
-    render, with misses' per-row outputs set to 1.
+    """IDRNetwork.forward (:290-479), masked: trace (no grad), the indirect
+    SGs at the hit points, then for the Material stages the SG render, with
+    misses' per-row outputs set to 1. With ``trainstage="Illum"`` (the Vis
+    stage) it returns before any render, with ``indirect_sgs``,
+    ``indir_integral`` and ``normals``: the material heads' AE normal map
+    at the surface rows (no smoothness draws of the spec head,
+    ``train_spec=False``) and ones elsewhere.
 
     ``inp`` (all [N, ...]): 'points' (ray origins), 'dirs'; optional
     'object_mask' [N] bool and 'hdr_shift' [N, 1]. ``traced`` is the
@@ -250,6 +309,13 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
         indirect_integral = torch.where(surface_mask[:, None], integral, indirect_integral)
         out["hdr_shift"] = hdr_shift
 
+    if trainstage == "Illum":
+        mat = model.material(points, draws, train_spec=False)
+        out.update({"indirect_sgs": indirect_sgs, "indir_integral": indirect_integral,
+                    "normals": torch.where(surface_mask[:, None], mat.normal_map,
+                                           torch.ones_like(points))})
+        return out
+
     render = sg_render_fn or default_sg_render
     if effective_chunk(n, compact_chunk):
         def row_render(pts, vdirs, isgs, iint, h):
@@ -288,3 +354,96 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
     for name in ret:  # any extra per-row outputs, unmasked
         out.setdefault(name, ret[name])
     return out
+
+
+def spherical_uniform(draws: Draws, shape) -> torch.Tensor:
+    """Directions uniform on the sphere, ``shape + (3,)``
+    (IDRNetwork.trace_radiance:583-590), from the draws ``sphere_u`` (the
+    z coordinate) and ``sphere_t`` (the azimuth), each U[0, 1) of
+    ``shape``."""
+    u = draws.uniform("sphere_u", shape) * 2 - 1
+    t = draws.uniform("sphere_t", shape) * 2 * math.pi
+    r = torch.sqrt(torch.clamp(1 - u ** 2, min=0.0))
+    return torch.stack([r * torch.cos(t), r * torch.sin(t), u], -1)
+
+
+def secondary_fan(model: Stage2Model, draws: Draws, forward_out: dict, nsamp: int) -> dict:
+    """The Vis stage's secondary rays from the primary points
+    (trace_radiance:583-612): ``nsamp`` uniform directions a pixel, culled
+    where ``n . d < 0`` against the unit (detached, clipped) normals, the
+    origins pushed off the surface along them by max(0.005,
+    2 hit_eps_cells cell) on the grid tracer (0.005 on the sphere tracer),
+    rounded to fp32 as the JAX package rounds it: a grazing ray re-hits its
+    own surface below that. Returns normals [N, 3], sample_dirs [N, S, 3],
+    back_cull [N, S], and the fan's origins and directions, [N * S, 3]."""
+    points = forward_out["points"]
+    normals = forward_out["normals"].detach()
+    normals = normals / torch.clamp(torch.linalg.norm(normals, dim=-1, keepdim=True), min=1e-4)
+    n = points.shape[0]
+    sample_dirs = spherical_uniform(draws, (n, nsamp))
+    back_cull = torch.sum(normals[:, None, :] * sample_dirs, -1) < 0
+    offset = 0.005
+    if model.cfg.tracer == "grid":
+        offset = max(offset, 2.0 * model.cfg.grid.hit_eps_cells * model.cfg.grid.cell)
+    origins = points + normals * f32(offset)
+    return {"normals": normals, "sample_dirs": sample_dirs, "back_cull": back_cull,
+            "origins": origins[:, None, :].expand(n, nsamp, 3).reshape(-1, 3),
+            "dirs": sample_dirs.reshape(-1, 3)}
+
+
+def trace_radiance(model: Stage2Model, draws: Draws, forward_out: dict, nsamp: int = 16,
+                   compact_chunk: int = 4096, traced=None) -> dict:
+    """Secondary-ray supervision of the Vis stage (IDRNetwork.trace_radiance,
+    :566-650), from ``stage2_forward(trainstage="Illum")``'s output.
+
+    One trace of the fan (``secondary_fan``) without a graph, or ``traced``
+    = its (t, hit, x) made beforehand (so that two devices can share one
+    trace). The borrowed colour runs without a graph on the rays that need
+    it (hit, front facing, from a surface pixel), in slices of
+    ``compact_chunk`` rays (0: dense, on every ray of the fan at once): K3's
+    scratch, about 8 KB a sample row, stays bounded at any hit rate, and the
+    result equals one call (the colour has no draws). Then the radiance
+    ``ldr2hdr(clip(colour)^2.2)`` under each pixel's shift, culled and
+    masked; the trainable visibility net's logits over the whole fan; the
+    labels and the hemisphere integral of the traced radiance.
+
+    Returns trace_radiance [N, S, 3], sample_dirs [N, S, 3], gt_vis [N, S]
+    bool, pred_vis [N, S, 2], indir_mask [N, S], gt_integral [N, 3], and
+    the fan's ``hit`` and ``need`` [N * S] bool: its rays that hit, and
+    those whose colour was borrowed."""
+    points = forward_out["points"]
+    points_mask = forward_out["network_object_mask"]
+    n = points.shape[0]
+    fan = secondary_fan(model, draws, forward_out, nsamp)
+    normals, sample_dirs, back_cull = fan["normals"], fan["sample_dirs"], fan["back_cull"]
+    d_flat = fan["dirs"]
+    sec_t, sec_hit, sec_x = model.trace(fan["origins"], d_flat) if traced is None else traced
+    need = sec_hit & ~back_cull.reshape(-1) & points_mask[:, None].expand(n, nsamp).reshape(-1)
+    chunk = effective_chunk(n * nsamp, compact_chunk)
+    with torch.no_grad():
+        if chunk:
+            color = compact_apply(lambda x, d: {"color": model.borrow_color(x, d, chunk)},
+                                  need, [sec_x, -d_flat])["color"]
+        else:
+            color = model.borrow_color(sec_x, -d_flat)
+        color = torch.where(sec_hit[:, None], color, 0.0)
+        shift = forward_out["hdr_shift"][:, None, :].expand(n, nsamp, 1).reshape(-1, 1)
+        hdr = ldr2hdr(model.params["gamma"], model.cfg.tonemap,
+                      torch.clamp(color, min=0.0) ** 2.2, shift)
+        hdr = torch.where(sec_hit[:, None], hdr, 0.0)
+        radiance = torch.where(back_cull[..., None], 0.0, hdr.reshape(n, nsamp, 3))
+        radiance = torch.where(points_mask[:, None, None], radiance, 0.0)
+
+    p_in = points[:, None, :].expand(n, nsamp, 3).reshape(-1, 3)
+    pred_vis = model.vis_logits(p_in, d_flat).reshape(n, nsamp, 2)
+    pred_vis = torch.where(points_mask[:, None, None], pred_vis, 0.0)
+    gt_vis = sec_hit.reshape(n, nsamp) & points_mask[:, None]
+    indir_mask = ~back_cull & gt_vis
+    cos_dot = radiance * torch.relu(torch.sum(normals[:, None, :] * sample_dirs, -1,
+                                              keepdim=True))
+    hemi = torch.sum(~back_cull, -1, keepdim=True).to(radiance.dtype)
+    gt_integral = torch.sum(cos_dot, dim=-2) / torch.clamp(hemi, min=1e-4)
+    gt_integral = torch.where(points_mask[:, None], gt_integral, 0.0)
+    return {"trace_radiance": radiance, "sample_dirs": sample_dirs, "gt_vis": gt_vis,
+            "pred_vis": pred_vis, "indir_mask": indir_mask, "gt_integral": gt_integral,
+            "hit": sec_hit, "need": need}

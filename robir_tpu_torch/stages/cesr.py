@@ -270,11 +270,12 @@ class CESRRunner(Stage2RunnerBase):
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed."""
 
+    stage_name = "CESR"
     TRAINABLE = ("gamma", "envmap_material_network", "shadow_net", "normal_net")
 
     def __init__(self, cfg: Stage2Config, params: dict, dataset: SynDataset,
                  stage_cfg: CESRStageConfig = CESRStageConfig(), seed: int = 0,
-                 device="cuda"):
+                 device="cuda", log_dir: str | None = None):
         if stage_cfg.num_lights != cfg.envmap.num_lgt_sgs:
             # the one-hot label width is the envmap's number of SG lights
             stage_cfg = dataclasses.replace(stage_cfg, num_lights=cfg.envmap.num_lgt_sgs)
@@ -286,12 +287,16 @@ class CESRRunner(Stage2RunnerBase):
         gen = torch.Generator().manual_seed(seed + 77)
         params["shadow_net"] = init_sdf(gen, stage_cfg.shadow_cfg)
         params["normal_net"] = init_sdf(gen, stage_cfg.normal_cfg)
-        super().__init__(cfg, params, seed, device)
+        super().__init__(cfg, params, seed, device, log_dir)
         self.stage_cfg = stage_cfg
         self.dataset = dataset
         self.optimizer, self.lr_fn = make_adam(self.trainable, stage_cfg.opt)
         self.spec_var = torch.zeros((cfg.envmap.latent_dim,), device=self.device)
         self.surface_frac = None  # read from the device every guard_every steps
+
+    def _refresh_after_restore(self) -> None:
+        super()._refresh_after_restore()
+        self.optimizer, self.lr_fn = make_adam(self.trainable, self.stage_cfg.opt)
 
     def step_config(self) -> CESRStageConfig:
         """The stage config the next step runs with (the JAX runner's

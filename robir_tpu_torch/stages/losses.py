@@ -1,10 +1,11 @@
-"""Stage-2 losses of the Material stages (counterpart of
-``robir_tpu/stages/losses.py``, the reference's ``model/loss.py``
-InvLoss, and of ``robir_tpu/stages/pbr.py:white_loss``). Boolean-indexed
-reductions are mask-weighted dense sums with the reference's normalisers.
+"""Stage-2 losses (counterpart of ``robir_tpu/stages/losses.py``, the
+reference's ``model/loss.py``): InvLoss's terms of the Material stages,
+``robir_tpu/stages/pbr.py:white_loss``, and the Vis stage's IllumLoss
+(the indirect SGs against the traced radiance, the indirect integral, and
+the visibility cross-entropy). Boolean-indexed reductions are
+mask-weighted dense sums with the reference's normalisers.
 
-Not ported yet: eikonal, mask, normal-consistency and the Vis stage's
-IllumLoss.
+Not ported yet: eikonal, mask and normal-consistency.
 """
 
 from __future__ import annotations
@@ -67,3 +68,55 @@ def white_loss(lgt_sgs: torch.Tensor) -> torch.Tensor:
     lgt = torch.abs(lgt_sgs[..., -3:])
     mu = torch.linalg.norm(lgt, dim=-1, keepdim=True) + 1e-4
     return torch.var(lgt / mu, dim=-1, correction=1).mean() * 0.01
+
+
+def query_indir_illum(lgt_sgs: torch.Tensor, sample_dirs: torch.Tensor) -> torch.Tensor:
+    """Per-point SG sets along sample directions (loss.py:128-141):
+    lgt_sgs [N, L, 7], sample_dirs [N, S, 3] -> [N, S, 3]."""
+    lobes = lgt_sgs[..., :3] / torch.linalg.norm(lgt_sgs[..., :3], dim=-1, keepdim=True)
+    lam = lgt_sgs[..., 3:4]
+    mu = lgt_sgs[..., -3:]
+    d = sample_dirs[:, :, None, :]
+    rad = mu[:, None] * torch.exp(lam[:, None] * (
+        torch.sum(d * lobes[:, None], -1, keepdim=True) - 1.0))
+    return torch.sum(rad, dim=2)
+
+
+@dataclasses.dataclass(frozen=True)
+class IllumLossConfig:
+    loss_type: str = "L1"
+
+
+def illum_loss(cfg: IllumLossConfig, *, indirect_sgs, indir_integral, network_object_mask,
+               trace_radiance, sample_dirs, gt_vis, pred_vis, indir_mask, gt_integral,
+               anneal_t: float = 0.0):
+    """(radiance_loss, visibility_loss) of IllumLoss.forward (loss.py:156-179).
+
+    N rays, S secondary directions: indirect_sgs [N, L, 7], indir_integral
+    [N, 3], network_object_mask [N] bool, trace_radiance [N, S, 3],
+    sample_dirs [N, S, 3], gt_vis [N, S] bool (True: occluded, the ray
+    hit), pred_vis [N, S, 2] logits, indir_mask [N, S] bool, gt_integral
+    [N, 3]. The radiance loss sums the SG radiance term over the needed
+    rays and the integral term over the surface pixels; the visibility
+    loss is the cross-entropy over every direction of the surface pixels,
+    label 1 (visible) where the ray did not hit."""
+    if cfg.loss_type == "L1":
+        err = lambda a, b: torch.abs(a - b)  # noqa: E731
+    elif cfg.loss_type == "L2":
+        err = lambda a, b: (a - b) ** 2  # noqa: E731
+    else:
+        raise ValueError(cfg.loss_type)
+    pred_rad = query_indir_illum(indirect_sgs, sample_dirs)
+    w = (indir_mask & network_object_mask[:, None]).to(pred_rad.dtype)[..., None]
+    radiance = torch.sum(err(trace_radiance + anneal_t, pred_rad) * w) / torch.clamp(
+        torch.sum(w) * 3, min=1.0)
+    wi = network_object_mask.to(pred_rad.dtype)[:, None]
+    integral = torch.sum(err(gt_integral, indir_integral) * wi) / torch.clamp(
+        torch.sum(wi) * 3, min=1.0)
+    labels = (~gt_vis).to(torch.int64)
+    logp = torch.log_softmax(pred_vis, dim=-1)
+    ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    wv = network_object_mask.to(ce.dtype)[:, None]
+    visibility = torch.sum(ce * wv) / torch.clamp(torch.sum(wv * torch.ones_like(ce)),
+                                                  min=1.0)
+    return radiance + integral, visibility

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core import checkpoint as ckpt_lib
 from ..core.schedule import log_lerp_lr
 from ..data.blender import BlenderScene, Prefetcher, RayBatch
 from ..fields.neus_model import NeuS, NeuSConfig, init_neus
@@ -134,13 +135,14 @@ class NeusTrainer:
     """Host-side loop over a scene: sampling, train steps, test renders.
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed; raises if CUDA is
-    asked for and absent.
+    asked for and absent. ``save`` writes checkpoints into ``log_dir``.
     """
 
     def __init__(self, scene: BlenderScene, model_cfg: NeuSConfig,
                  render_cfg: NeusRenderConfig, train_cfg: NeusTrainConfig,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", log_dir: str | None = None):
         self.scene = scene
+        self.log_dir = log_dir
         self.model_cfg = model_cfg
         self.render_cfg = render_cfg
         self.train_cfg = train_cfg
@@ -173,6 +175,20 @@ class NeusTrainer:
                                  generator=self._noise)
             self.step += 1
         return {k: float(v) for k, v in metrics.items()}
+
+    def save(self) -> str:
+        """Write ``log_dir/ckpt_<step>.npz``: the parameters under
+        ``params/...`` and the step, in the JAX package's layout, so that
+        either package's stage 2 reads it (``stage2_runner.load_neus_checkpoint``,
+        ``robir_tpu/cli.py``). The Adam moments are not written: the JAX
+        trainer's ``restore`` keeps the ``opt_state`` paths a file lacks at
+        their fresh values, so a JAX run resumes from this file with fresh
+        moments. Returns the path."""
+        if not self.log_dir:
+            raise ValueError("NeusTrainer.save needs a log_dir")
+        path = ckpt_lib.step_path(self.log_dir, self.step)
+        ckpt_lib.save(path, {"params": self.model.params}, step=self.step)
+        return path
 
     def close(self) -> None:
         """Stop the prefetch thread."""

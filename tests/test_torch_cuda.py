@@ -254,3 +254,74 @@ def test_grid_march_refuses_what_it_does_not_take(dev):
         tgm.grid_march_cuda(grid.half(), o, o, consts, 8, False)
     with pytest.raises(ValueError):
         tgm.grid_march_cuda(grid.bfloat16(), o, o, consts[:15], 8, False)
+
+
+# the Vis stage's K3 launches: a slice of 4,096 needed rays x 16 samples,
+# and a ragged slice
+@pytest.mark.parametrize("n_rows", [16 * 1000, 65536])
+def test_k3_without_a_graph_matches_plain(dev, n_rows):
+    """``fused_value_grad`` under no_grad, as the borrowed colour calls it:
+    one K3 launch, no K4, values and d sdf/dx as the plain version's."""
+    plan = tfm.plan_from_sdf_config(SDFConfig())
+    x, ws, bs = trunk_case(plan, 6, n_rows)
+    x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
+    for t in (*ws, *bs):
+        t.requires_grad_(True)
+    before = (tfv.FORWARD.launches, tfv.BACKWARD.launches)
+    with torch.no_grad():
+        y, de = tfv.fused_value_grad(plan, x, ws, bs)
+        yr, der, *_ = tfv._forward_phases(plan, x, ws, bs)
+    torch.cuda.synchronize()
+    assert (tfv.FORWARD.launches, tfv.BACKWARD.launches) == (before[0] + 1, before[1])
+    assert not y.requires_grad and y.grad_fn is None
+    _close(y, yr)
+    _close(de, der)
+
+
+def test_grid_march_on_a_vis_fan_matches_plain(dev):
+    """131,072 rays, the Vis stage's fan (256 pixels x 512 directions), from
+    points near a sphere's surface pushed off by the fan's offset, in
+    uniform directions, on a 320^3 bf16 grid: the same hits as the plain
+    version, t within 1e-5 where both hit."""
+    cfg = tg.GridConfig(resolution=320, max_steps=192, storage_dtype="bfloat16")
+    grid = tg.build_sdf_grid(_union_sdf, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = torch.randn(256, 3, generator=gen, device=dev)
+    n = p / torch.linalg.norm(p, dim=-1, keepdim=True)
+    o = (torch.tensor([0.45, 0.0, 0.0], device=dev) + 0.305 * n)[:, None, :].expand(
+        256, 512, 3).reshape(-1, 3)
+    d = torch.randn(256 * 512, 3, generator=gen, device=dev)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    t, hit, _ = tg.grid_cast(grid, cfg, o, d)
+    tp, hp, _, _ = tg.grid_cast_plain(grid, cfg, o, d)
+    assert torch.equal(hit, hp), torch.nonzero(hit != hp).squeeze(1)[:20].tolist()
+    assert float(torch.where(hit, t - tp, 0.0).abs().max()) <= 1e-5
+    assert 0.05 < float(hit.float().mean()) < 0.95
+
+
+def test_borrow_color_matches_plain(dev):
+    """``Stage2Model.borrow_color`` at full width on 2,000 rays: K3 (one
+    launch) against the same call with K3's plain version, within 1e-4 of
+    the largest entry."""
+    from robir_tpu_torch.render.stage2 import Stage2Config, Stage2Model
+    from robir_tpu_torch.stages.stage2_runner import init_stage2_params
+
+    cfg = Stage2Config()
+    model = Stage2Model(init_stage2_params(torch.Generator().manual_seed(0), cfg), cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(2000, 3, generator=gen, device=dev)
+    x = 0.25 * x / torch.linalg.norm(x, dim=-1, keepdim=True)
+    d = torch.randn(2000, 3, generator=gen, device=dev)
+    before = (tfv.FORWARD.launches, tfv.BACKWARD.launches)
+    with torch.no_grad():
+        got = model.borrow_color(x, d)
+    assert (tfv.FORWARD.launches, tfv.BACKWARD.launches) == (before[0] + 1, before[1])
+    real = tfv.vg_forward_cuda
+    try:
+        tfv.vg_forward_cuda = lambda plan, x, ws, bs: tfv._forward_phases(plan, x, ws, bs)[:2]
+        with torch.no_grad():
+            want = model.borrow_color(x, d)
+    finally:
+        tfv.vg_forward_cuda = real
+    assert float(want.abs().max()) > 1e-3
+    _close(got, want)

@@ -121,3 +121,70 @@ def jax_stage2_draws(key, n_points: int, stage2_cfg, n_lights: int,
         parts.append({k: v[:len(rows) - c] for k, v in part.items()})
     draws.update({k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
     return draws
+
+
+def jax_vis_draws(key, n_points: int, nsamp: int, stage2_cfg) -> dict:
+    """Every draw of one ``robir_tpu.stages.vis.make_vis_step`` step from its
+    key, by the port's names. The step splits its key into the forward's
+    and the trace's (``vis.py:56``); ``stage2_forward(trainstage="Illum")``
+    draws the indirect AE noise, then the material heads' noise; then
+    ``trace_radiance`` draws the fan's directions (``spherical_uniform``:
+    the z coordinate, then the azimuth)."""
+    import jax
+
+    env = stage2_cfg.envmap
+    k_fwd, k_trace = jax.random.split(key)
+    k_ind, k = jax.random.split(k_fwd)
+    k_spec, k_norm = jax.random.split(jax.random.split(k)[0])
+    k_u, k_t = jax.random.split(jax.random.split(k_trace)[0])
+    return {"indirect_ae": np.asarray(jax.random.normal(
+                k_ind, (n_points, stage2_cfg.indirect.in_dim))),
+            "spec_ae": np.asarray(jax.random.normal(k_spec, (n_points, env.latent_dim))),
+            "normal_ae": np.asarray(jax.random.normal(k_norm, (n_points, env.ipe.out_dim))),
+            "sphere_u": np.asarray(jax.random.uniform(k_u, (n_points, nsamp))),
+            "sphere_t": np.asarray(jax.random.uniform(k_t, (n_points, nsamp)))}
+
+
+def jax_energy_draws(key, n_steps: int, n_pixels: int, batch_px: int,
+                     batch_shift: int) -> list:
+    """The draws of ``robir_tpu.render.color.fit_energy``'s first
+    ``n_steps`` steps from its key, one dict a step, by the port's names:
+    each step splits a key off, then its shift batch and its pixel
+    indices."""
+    import jax
+
+    out = []
+    for _ in range(n_steps):
+        key, k = jax.random.split(key)
+        k1, k2 = jax.random.split(k)
+        out.append({"energy_shift": np.asarray(jax.random.uniform(k1, (batch_shift, 1))),
+                    "energy_pixels": np.asarray(jax.random.randint(k2, (batch_px,), 0,
+                                                                   n_pixels))})
+    return out
+
+
+# the two spheres of the shadow scene (``data/syn_dataset.py:shadow_scene``)
+# in stage-2 coordinates: the scene's world coordinates / its pose scale 2
+SHADOW_SPHERES = (((0.0, 0.0, 0.0), 0.25), ((0.185, 0.11, 0.305), 0.09))
+
+
+def two_sphere_grid(grid_cfg):
+    """The analytic sdf of the shadow scene's two spheres on the nodes of
+    ``grid_cfg`` (either package's ``GridConfig``; the nodes are the same
+    float32 linspace axes), as (JAX array, torch tensor) holding the same
+    values in the config's storage dtype (bf16 rounded once, by JAX)."""
+    import jax.numpy as jnp
+
+    R = grid_cfg.resolution
+    axes = [np.linspace(grid_cfg.bbox_min[i], grid_cfg.bbox_max[i], R, dtype=np.float32)
+            for i in range(3)]
+    p = np.stack(np.meshgrid(*axes, indexing="ij"), -1)
+    sdf = np.min([np.linalg.norm(p - np.float32(c), axis=-1) - np.float32(r)
+                  for c, r in SHADOW_SPHERES], axis=0).astype(np.float32)
+    jgrid = jnp.asarray(sdf)
+    if grid_cfg.storage_dtype == "bfloat16":
+        jgrid = jgrid.astype(jnp.bfloat16)
+    tgrid = torch.as_tensor(np.array(jgrid.astype(jnp.float32)))
+    if grid_cfg.storage_dtype == "bfloat16":
+        tgrid = tgrid.to(torch.bfloat16)
+    return jgrid, tgrid
