@@ -83,8 +83,41 @@
    marches, at 256 and 131,072 rays, and K3 once per slice of 4,096 rays
    that need colour, 16 rows when none does; no K1, K2 or K4), then a
    checkpoint round trip: ``save``, ``restore_latest`` into a fresh runner
-   (every leaf bit-equal), ``restore_surgical`` of the indirect net.
-14. With ``--profile STEPS``, profiles that many more steps of each path and
+   (every leaf bit-equal), ``restore_surgical`` of the indirect net; the
+   saved file is the PBR stage's start.
+14. Checks one full-width PBR step (48 + 16 pixels, 128 SG lights x 32
+   diffuse samples) on the card against the CPU in fp32 and fp64, on the
+   seeded weights and the two-sphere grid, the CPU's trace and every draw
+   shared, in row mode (compact_chunk 16) and dense, each shading with the
+   AE normal map and with the geometry normals: the metrics, the
+   ``normals`` output (K3's) and each trainable gradient; then shows that
+   the bounds reject a planted fault (K3 blind to the first row tile of
+   the step's launch): the normals always, the gradients too on the
+   geometry normals.
+15. The PBR stage at ``configs/hotdog.json``'s ``pbr`` section (1,024 pixels,
+   the frozen 4 x 256 bf16 visibility net and 4 x 512 indirect net with 24
+   SGs, L1, Adam 5e-4, compact_chunk 128 with the guard) through
+   ``PBRRunner``: ``load_vis_checkpoint`` of the Vis phase's file (the
+   indirect and visibility nets bit-equal to the Vis runner's, every other
+   leaf the PBR runner's own), ``bake_grid`` (counted, bit-equal to the CESR
+   runner's grid, K1 held on a chunk), and PBR_STEPS (20) steps (counts set
+   to 0 just before: per step one grid march at 1,024 rays and one K3 at
+   the shaded rows; no K1, K2 or K4); K3 then held to its plain version at
+   every row count the run shaded, and the march on a PBR batch's rays;
+   the diffuse sweep alone timed at the run's median rows.
+16. The eval render: ``PBRRunner.render_view`` of test view 0 of the shadow
+   scene (128 x 128 in 3 chunks of 8,000 rays; counted: one march and one
+   K3 a chunk), timed, its PSNR against the view's ground truth; the same
+   render on recorded draws against the march's and K3's plain versions
+   (identical masks, each buffer within KERNEL_TOL); K3 held to its plain
+   version on each chunk's operands and the march on a chunk's rays. Then
+   the SG envmap image (``compute_envmap``, 128 x 256), finite.
+17. The hand-over to CESR: ``save`` the PBR runner;
+   ``CESRRunner.load_pbr_checkpoint`` at the ``cesr`` section (shadow_net,
+   normal_net and, at dropout_iter 0, the spec-BRDF autoencoder the CESR
+   runner's own; every other leaf bit-equal to the PBR runner's), then
+   HANDOVER_STEPS (4) CESR steps with the per-step counts of 9.
+18. With ``--profile STEPS``, profiles that many more steps of each path and
    prints the device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, the build time, each check, the
@@ -96,6 +129,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -123,12 +157,17 @@ from robir_tpu_torch.render.cuda import build
 from robir_tpu_torch.render.cuda import fused_mlp as fm
 from robir_tpu_torch.render.cuda import fused_value_grad as fv
 from robir_tpu_torch.render.cuda import grid_march as gm
+from robir_tpu_torch.render import sg as sg_lib
+from robir_tpu_torch.render import stage2 as stage2_mod
 from robir_tpu_torch.render.neus import render_samples, sample_z_vals
+from robir_tpu_torch.render.sg import compute_envmap
 from robir_tpu_torch.render.stage2 import Stage2Model, secondary_fan, stage2_forward
+from robir_tpu_torch.stages import pbr as pbr_mod
 from robir_tpu_torch.stages.cesr import SHADOW_PE, CESRRunner, CESRStageConfig, cesr_loss
 from robir_tpu_torch.stages.neus_stage import (NeusTrainer, batch_to_rays,
                                                cos_anneal_ratio, neus_loss)
-from robir_tpu_torch.stages.stage2_runner import init_stage2_params
+from robir_tpu_torch.stages.pbr import PBRRunner, PBRStageConfig, pbr_loss, pbr_sg_render
+from robir_tpu_torch.stages.stage2_runner import BATCH_KEYS, init_stage2_params, render_view
 from robir_tpu_torch.stages.vis import BATCH_KEYS as VIS_BATCH_KEYS
 from robir_tpu_torch.stages.vis import VisRunner, VisStageConfig, vis_loss
 from robir_tpu_torch.tracing import grid as tg
@@ -186,6 +225,18 @@ VIS_STEPS = 20
 VIS_CHECK_PIXELS = (24, 8)
 # borrow_color's check: 25% of the 131,072-ray fan
 VIS_BORROW_RAYS = 32768
+# steps of the driven PBR run, and of CESR after the hand-over
+PBR_STEPS = 20
+HANDOVER_STEPS = 4
+# the PBR step check: pixels on and off the object; its row mode's chunk
+PBR_CHECK_PIXELS = (48, 16)
+PBR_CHECK_CHUNK = 16
+# a metric that vanishes (the white-light term on gray lights) is held to
+# this absolute floor beside LOSS_RTOL
+METRIC_FLOOR = 1e-9
+# the eval render: rays a chunk (render_view's default) and the envmap image
+VIEW_CHUNK = 8000
+ENVMAP_HW = (128, 256)
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
@@ -1016,7 +1067,8 @@ def bake_grid(runner) -> dict:
     if not bool(torch.isfinite(vals).all()) or not float(vals.min()) < 0 < float(vals.max()):
         raise RuntimeError("the baked grid is not finite or holds no surface")
     print(f"grid bake: {cfg.resolution}^3 = {nodes} nodes, {g.dtype}, {secs:.3f} s wall "
-          f"(CESRRunner.bake_grid to a synchronize), K1 launches by (build width, rows) "
+          f"({type(runner).__name__}.bake_grid to a synchronize), K1 launches by (build width, "
+          f"rows) "
           f"{want['K1']}; sdf in [{float(vals.min()):.4f}, {float(vals.max()):.4f}], "
           f"{float((vals < 0).float().mean()):.4f} of the nodes inside", flush=True)
     return run
@@ -1579,37 +1631,490 @@ def drive_vis(runner, steps: int, profile: int = 0):
     return run
 
 
-def check_vis_checkpoint(runner, cfg, params, stage, seed: int) -> None:
-    """``save`` after the steps; ``restore_latest`` into a fresh runner must
-    give every leaf bit-equal; ``restore_surgical`` of the indirect net into
-    another must change those leaves only."""
-    def flat(r):
-        return {k: v.detach().clone() for k, v in flatten_with_paths(r.params).items()}
+def flat_leaves(runner) -> dict:
+    """A copy of every leaf of ``runner``'s parameters, by path."""
+    return {k: v.detach().clone() for k, v in flatten_with_paths(runner.params).items()}
 
-    with tempfile.TemporaryDirectory() as log_dir:
-        runner.log_dir = log_dir
-        path = runner.save()
-        fresh = VisRunner(cfg, params, runner.dataset, stage, seed=seed, device="cuda",
-                          log_dir=log_dir)
-        if not fresh.restore_latest() or fresh.cur_iter != runner.cur_iter:
-            raise RuntimeError("restore_latest found no checkpoint or another step")
-        saved, restored = flat(runner), flat(fresh)
-        differ = [k for k in saved if not torch.equal(saved[k], restored[k])]
-        if differ or saved.keys() != restored.keys():
-            raise RuntimeError(f"restore_latest: leaves differ: {differ[:5]}")
-        surgical = VisRunner(cfg, params, runner.dataset, stage, seed=seed, device="cuda")
-        before = flat(surgical)
-        keep = lambda p: p.startswith("indirect_illum_network/")  # noqa: E731
-        surgical.restore_surgical(path, keep)
-        after = flat(surgical)
-        wrong = [k for k in after if not torch.equal(after[k], saved[k] if keep(k) else before[k])]
-        if wrong:
-            raise RuntimeError(f"restore_surgical: leaves {wrong[:5]} are not as kept")
-        changed = sum(not torch.equal(after[k], before[k]) for k in after)
+
+def check_surgery(what: str, before: dict, after: dict, saved: dict, keep) -> int:
+    """Raise unless every leaf of ``after`` is bit-equal to the file's
+    (``saved``) where ``keep`` holds and to the receiver's own (``before``)
+    elsewhere; returns the number of leaves kept."""
+    wrong = [k for k in after if not torch.equal(after[k], saved[k] if keep(k) else before[k])]
+    if wrong or after.keys() != before.keys():
+        raise RuntimeError(f"{what}: leaves {wrong[:5]} are not as kept")
+    return sum(keep(k) for k in after)
+
+
+def check_vis_checkpoint(runner, cfg, params, stage, seed: int, log_dir: str) -> str:
+    """``save`` after the steps (into ``log_dir``, where the PBR stage reads
+    it); ``restore_latest`` into a fresh runner must give every leaf
+    bit-equal; ``restore_surgical`` of the indirect net into another must
+    change those leaves only. Returns the saved file."""
+    runner.log_dir = log_dir
+    path = runner.save()
+    fresh = VisRunner(cfg, params, runner.dataset, stage, seed=seed, device="cuda",
+                      log_dir=log_dir)
+    if not fresh.restore_latest() or fresh.cur_iter != runner.cur_iter:
+        raise RuntimeError("restore_latest found no checkpoint or another step")
+    saved, restored = flat_leaves(runner), flat_leaves(fresh)
+    differ = [k for k in saved if not torch.equal(saved[k], restored[k])]
+    if differ or saved.keys() != restored.keys():
+        raise RuntimeError(f"restore_latest: leaves differ: {differ[:5]}")
+    surgical = VisRunner(cfg, params, runner.dataset, stage, seed=seed, device="cuda")
+    before = flat_leaves(surgical)
+    keep = lambda p: p.startswith("indirect_illum_network/")  # noqa: E731
+    surgical.restore_surgical(path, keep)
+    after = flat_leaves(surgical)
+    check_surgery("restore_surgical", before, after, saved, keep)
+    changed = sum(not torch.equal(after[k], before[k]) for k in after)
     print(f"checkpoint round trip: {os.path.basename(path)} and latest.npz, {len(saved)} leaves; "
           f"restore_latest bit-equal at step {fresh.cur_iter}; restore_surgical of "
           f"indirect_illum_network: {changed} leaves changed, "
           f"{sum(keep(k) for k in after)} kept, the rest as they were", flush=True)
+    return path
+
+
+def pbr_check_setting(cfg, stage, dataset, params, seed: int, tb: dict, traced, grids) -> dict:
+    """One PBR step (``pbr_loss`` and its gradients) at ``stage``'s setting on
+    the card (fp32) and the CPU (fp32, fp64) on one batch, trace and draws;
+    then on the card with K3 blind to the first row tile of its launch (its
+    outputs zeroed there). Returns the readings over their bounds: the
+    metrics, the ``normals`` output, the worst gradient, and the planted
+    fault's on the normals and the gradients."""
+    sides = (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64))
+    runners = {side: PBRRunner(cfg, params, dataset, stage, seed=seed, device=side[0])
+               for side in sides}
+    runners["cpu", torch.float64].params.to(torch.float64)
+    names = [n for n, p in runners["cpu", torch.float32].params.named_parameters()
+             if p.requires_grad]
+    taken = None
+    forward = pbr_mod.stage2_forward
+
+    def step(dev: str, dtype=torch.float32) -> tuple:
+        nonlocal taken
+        runner, outs = runners[dev, dtype], []
+
+        def recorded(*a, **kw):
+            outs.append(forward(*a, **kw))
+            return outs[-1]
+
+        torch.set_default_dtype(dtype)
+        try:
+            pbr_mod.stage2_forward = recorded
+            draws = (Draws(torch.Generator().manual_seed(seed), record=True) if taken is None
+                     else Draws(given=taken, device=dev))
+            inp = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+                   for k, v in tb.items()}
+            k3, t0 = K3.launches, time.perf_counter()
+            loss, metrics = pbr_loss(runner.params, cfg, stage, inp, draws,
+                                     traced=(traced[0].to(dev, dtype), traced[1].to(dev)),
+                                     grid_values=grids[dev])
+            grads = torch.autograd.grad(loss, runner.trainable, materialize_grads=True)
+            secs = time.perf_counter() - t0
+        finally:
+            pbr_mod.stage2_forward = forward
+            torch.set_default_dtype(torch.float32)
+        if taken is None:
+            taken = draws.taken
+        return ({k: float(v) for k, v in metrics.items()},
+                outs[0]["normals"].detach().to("cpu", torch.float64),
+                [g.to("cpu", torch.float64) for g in grads], secs, K3.launches - k3)
+
+    real = fv.vg_forward_cuda
+
+    def blind_to_first_tile(plan, x, ws, bs):
+        y, de = real(plan, x, ws, bs)
+        y[:16] = 0  # below VG_TALL_ROWS_PER_SM rows a SM: 16-row tiles
+        de[:16] = 0
+        return y, de
+
+    m_cpu, n_cpu, g_cpu, s_cpu, _ = step("cpu")
+    m64, n64, g64, _, _ = step("cpu", torch.float64)
+    m_gpu, n_gpu, g_gpu, _, k3_launches = step("cuda")
+    try:
+        fv.vg_forward_cuda = blind_to_first_tile
+        _, n_fault, g_fault, _, _ = step("cuda")
+    finally:
+        fv.vg_forward_cuda = real
+
+    def rel(a, ref):
+        return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+    metric_over = {k: abs(m_gpu[k] - m_cpu[k]) / (LOSS_RTOL * abs(m_cpu[k]) + METRIC_FLOOR)
+                   for k in m_cpu}
+    n_bound = max(CESR_GRAD_TOL, CESR_FP32_FACTOR * rel(n_cpu, n64))
+    errs = {n: (rel(a, r), rel(c, r)) for n, a, c, r in zip(names, g_gpu, g_cpu, g64)}
+    bound = {n: max(CESR_GRAD_TOL, CESR_FP32_FACTOR * e[1]) for n, e in errs.items()}
+    over = {n: errs[n][0] / bound[n] for n in errs}
+    worst = max(over, key=over.get)
+    fault_g = {n: rel(a, r) / bound[n] for n, a, r in zip(names, g_fault, g64)}
+    caught = max(fault_g, key=fault_g.get)
+    readings = {"metrics": max(metric_over.values()), "normals": rel(n_gpu, n64) / n_bound,
+                "gradients": over[worst], "fault normals": rel(n_fault, n64) / n_bound,
+                "fault gradients": fault_g[caught]}
+    mode = (f"row mode (compact_chunk {stage.compact_chunk})" if stage.compact_chunk
+            else "dense")
+    print(f"PBR step check, {mode}, shading with the "
+          f"{'AE normal map' if stage.use_normal_map else 'geometry normals'}: loss card "
+          f"{m_gpu['loss']:.8f}, CPU fp32 {m_cpu['loss']:.8f}, fp64 {m64['loss']:.8f}; rgb_loss "
+          f"{m_gpu['rgb_loss']:.8f}, PSNR {m_gpu['psnr']:.4f} dB; worst metric "
+          f"{max(metric_over, key=metric_over.get)} at {readings['metrics']:.3f} of its bound; "
+          f"normals card vs fp64 {rel(n_gpu, n64):.3e} (bound {n_bound:.3e}); worst gradient "
+          f"{worst} at {over[worst]:.3f} of its bound; {k3_launches} K3 launch; CPU fp32 step "
+          f"{s_cpu:.1f} s", flush=True)
+    print(f"  planted fault (K3 blind to the first 16 rows of its launch): normals "
+          f"{readings['fault normals']:.1f}x their bound, worst gradient {caught} "
+          f"{fault_g[caught]:.1f}x its bound", flush=True)
+    if k3_launches != 1:
+        raise RuntimeError(f"the card's PBR step launched K3 {k3_launches} times, not once")
+    if not readings["metrics"] <= 1.0:
+        raise RuntimeError(f"PBR metrics on the card {m_gpu} vs CPU {m_cpu}")
+    if not readings["normals"] <= 1.0:
+        raise RuntimeError(f"PBR normals: card vs fp64 {rel(n_gpu, n64):.3e} > {n_bound:.3e}")
+    if not readings["gradients"] <= 1.0:
+        raise RuntimeError(f"PBR gradient {worst}: card vs fp64 {errs[worst][0]:.3e} of its "
+                           f"largest entry > bound {bound[worst]:.3e}")
+    if not readings["fault normals"] > 1.0:
+        raise RuntimeError("the PBR normals bound passed the planted K3 fault")
+    if not stage.use_normal_map and not readings["fault gradients"] > 1.0:
+        raise RuntimeError("the PBR gradient bounds passed the planted K3 fault on the "
+                           "geometry normals")
+    return readings
+
+
+def check_pbr_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> None:
+    """One full-width PBR step (PBR_CHECK_PIXELS on and off the object; 128
+    SG lights x 32 diffuse samples) on the card against the same step on
+    the CPU in fp32 and fp64 (the visibility net without its bf16 storage),
+    from the same weights (the seeded NeuS, the same in every run), batch,
+    the CPU's trace of ``grid`` (the shadow scene's two analytic spheres)
+    and every draw shared (the CPU's, replayed): in row mode (compact_chunk
+    PBR_CHECK_CHUNK) and dense, each shading with the AE normal map and with
+    the geometry normals. The metrics to LOSS_RTOL of the CPU fp32 step's;
+    the ``normals`` output (K3's) and each trainable gradient to fp64
+    within CESR_GRAD_TOL of its largest entry or CESR_FP32_FACTOR x the
+    CPU fp32 step's own distance. Then a planted fault, K3 blind to the
+    first row tile of the step's launch, which the normals bound must
+    reject, and on the geometry normals the gradient bounds too."""
+    cfg = dataclasses.replace(cfg, visnet=dataclasses.replace(cfg.visnet, storage_dtype=None))
+    on, off = PBR_CHECK_PIXELS
+    rng = np.random.default_rng(seed)
+    mask = dataset.object_masks[0]
+    b = dataset.pixels(0, np.concatenate([rng.choice(np.flatnonzero(mask), on, replace=False),
+                                          rng.choice(np.flatnonzero(~mask), off, replace=False)]))
+    tb = {k: torch.as_tensor(b[k]) for k in BATCH_KEYS}
+    grids = {"cpu": grid.cpu(), "cuda": grid}
+    with torch.no_grad():
+        traced = Stage2Model(params, cfg, "cpu", grids["cpu"]).trace(tb["points"], tb["dirs"])[:2]
+        own = Stage2Model(params, cfg, "cuda", grid).trace(tb["points"].cuda(),
+                                                           tb["dirs"].cuda())[1].cpu()
+    surface = traced[1] & tb["object_mask"]
+    print(f"PBR step check ({on} + {off} pixels x {cfg.envmap.num_lgt_sgs} lights x 32 "
+          f"samples, the two-sphere grid): the card's own trace vs the CPU's: "
+          f"{int((own != traced[1]).sum())} of {on + off} hit flags differ; every side shades "
+          f"the CPU's ({int(surface.sum())} surface pixels, {int(surface[:16].sum())} of them in "
+          f"the first 16 rows)", flush=True)
+    readings = {}
+    for chunk in (PBR_CHECK_CHUNK, 0):
+        for use_normal_map in (True, False):
+            setting = dataclasses.replace(stage, num_pixels=on + off, compact_chunk=chunk,
+                                          use_normal_map=use_normal_map)
+            readings[chunk, use_normal_map] = pbr_check_setting(cfg, setting, dataset, params,
+                                                                seed, tb, traced, grids)
+    worst = max(((s, k) for s in readings for k in ("metrics", "normals", "gradients")),
+                key=lambda sk: readings[sk[0]][sk[1]])
+    faults = {k: min(r[k] for s, r in readings.items() if k == "fault normals" or not s[1])
+              for k in ("fault normals", "fault gradients")}
+    print(f"PBR step check worst: {worst[1]} at {readings[worst[0]][worst[1]]:.3f} of the bound "
+          f"({'row mode' if worst[0][0] else 'dense'}, use_normal_map {worst[0][1]}); planted "
+          f"fault caught at least {faults['fault normals']:.1f}x by the normals, "
+          f"{faults['fault gradients']:.1f}x by the gradients on the geometry normals",
+          flush=True)
+
+
+def load_pbr_runner(cfg, params, dataset, stage, seed: int, vis_runner, vis_path: str,
+                    log_dir: str):
+    """``PBRRunner`` at ``stage`` from the Vis stage's checkpoint
+    (``load_vis_checkpoint``): the indirect and visibility nets must be the
+    Vis runner's, bit for bit, every other leaf the PBR runner's own."""
+    runner = PBRRunner(cfg, params, dataset, stage, seed=seed, device="cuda", log_dir=log_dir)
+    before = flat_leaves(runner)
+    runner.load_vis_checkpoint(vis_path)
+    kept = check_surgery("load_vis_checkpoint", before, flat_leaves(runner),
+                         flat_leaves(vis_runner),
+                         lambda p: p.startswith(("indirect_illum_network", "visibility_network")))
+    changed = sum(not torch.equal(v, before[k]) for k, v in flat_leaves(runner).items())
+    print(f"PBRRunner from the Vis checkpoint {os.path.basename(vis_path)}: {kept} leaves of the "
+          f"indirect and visibility nets kept ({changed} changed), bit-equal to the Vis runner's; "
+          f"the other {len(before) - kept} the PBR runner's own; {stage.num_pixels} pixels, "
+          f"compact_chunk {stage.compact_chunk}, use_normal_map {stage.use_normal_map}",
+          flush=True)
+    return runner
+
+
+def drive_pbr(runner, steps: int, profile: int = 0):
+    """``steps`` PBRRunner steps on the card with the counts set to 0 just
+    before. Each step's line gives its time, its mode (``step_config``:
+    compacted or dense), surface rows, loss, rgb_loss and PSNR; the guard's
+    choice is printed where it reads. Each step must launch the grid march
+    once at the batch's rays and K3 once at the rows it shades (its surface
+    rows if compacted, else the batch); K1, K2 and K4 never. Returns the
+    launches by shape and the shaded rows of each step. Then, if
+    ``profile``, profiles that many more steps."""
+    stage = runner.stage_cfg
+    n, R = stage.num_pixels, runner.cfg.grid.resolution
+    want = {k: {} for k in KERNELS}
+
+    def add(kernel, shape):
+        want[kernel][shape] = want[kernel].get(shape, 0) + 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, shaded = [], []
+    reset_counts()
+    for _ in range(steps):
+        it = runner.cur_iter
+        compacted = runner.step_config().compact_chunk > 0  # below n: row mode
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = runner.run(1)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        bad = {k: v for k, v in m.items() if not np.isfinite(v)}
+        if bad:
+            raise RuntimeError(f"PBR step {it}: non-finite {bad}")
+        surface = round(m["surface_frac"] * n)
+        rows = max(surface, 1) if compacted else n
+        shaded.append(rows)
+        add("march", (R, n))
+        add("K3", (fm.MAX_WIDTH, rows))
+        print(f"PBR step {it:2d} ({'compacted' if compacted else 'dense'}): {step_ms[-1]:8.3f} ms, "
+              f"{surface} surface rows (fraction {m['surface_frac']:.4f}), {rows} rows shaded; "
+              f"loss {m['loss']:.5f}, rgb_loss {m['rgb_loss']:.5f}, PSNR {m['psnr']:.3f} dB, kl "
+              f"{m['kl']:.5f}, smooth {m['smooth']:.6f}, white {m['white']:.3e}", flush=True)
+        if runner.cur_iter % stage.guard_every == 0:
+            dense = runner.step_config().compact_chunk == 0
+            print(f"  guard after step {runner.cur_iter}: surface fraction "
+                  f"{runner.surface_frac:.4f} {'>' if dense else '<='} "
+                  f"{stage.compact_max_surface_frac}: the next steps run "
+                  f"{'dense' if dense else 'compacted'}", flush=True)
+    run = shapes()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        profile_steps(runner.run, profile, "PBR")
+    if run != want:
+        raise RuntimeError(f"PBR launches {run}, expected {want}")
+    steady = step_ms[2:] or step_ms
+    print(f"PBR step ({n} pixels, {runner.cfg.envmap.num_lgt_sgs} SG lights x 32 diffuse "
+          f"samples, grid {R}^3, compact_chunk {stage.compact_chunk}): median "
+          f"{float(np.median(steady)):.3f} ms, mean {float(np.mean(steady)):.3f} ms over steps "
+          f"3-{steps} (CUDA events around PBRRunner.run(1)); first step {step_ms[0]:.3f} ms; "
+          f"peak device memory {peak:.2f} GiB", flush=True)
+    print(f"PBR launches per step: the grid march 1 ({n} rays), K3 1 ({fm.MAX_WIDTH}) at the "
+          f"step's shaded rows, no K1, K2 or K4; over the {steps} steps by kernel and (width or "
+          f"grid resolution, rows): {want}", flush=True)
+    return run, shaded
+
+
+def time_pbr_sweep(runner, rows: int, gen) -> None:
+    """The PBR step's diffuse sweep alone (``get_diffuse_visibility`` as
+    ``render_with_sg`` calls it): ``rows`` points on the shadow scene's
+    larger sphere x the runner's SG lights x 32 samples through its frozen
+    visibility net, forward and the backward to ``lgtSGs``, timed by CUDA
+    events, with the peak memory it adds. No kernel of the port runs in it."""
+    model = runner.model()
+    lgt = runner.params["envmap_material_network"]["lgtSGs"]
+    m = lgt.shape[0]
+    p = torch.randn(rows, 3, generator=gen, device="cuda")
+    normals = p / torch.linalg.norm(p, dim=-1, keepdim=True)
+    theta, phi = (torch.rand(m, 32, generator=gen, device="cuda") for _ in range(2))
+
+    def sweep():
+        vis = sg_lib.get_diffuse_visibility(
+            0.25 * normals, normals, model.vis_logits, sg_lib._unit_lobes(lgt[:, :3]),
+            torch.abs(lgt[:, 3]), theta, phi, chunk_lights=runner.cfg.sweep_light_chunk,
+            vis_outer_fn=model.vis_logits_outer)
+        torch.autograd.grad(vis.sum(), lgt)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(sweep, 10)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"the PBR diffuse sweep alone at {rows} rows x {m} lights x 32 samples "
+          f"({rows * m * 32} rows of the visibility net), forward and backward to lgtSGs: "
+          f"{ms:.3f} ms (CUDA events), {peak / 2**30:.2f} GiB above what was held", flush=True)
+
+
+def k3_entry(name: str, slices, path: str, timed: int, reps: int = 20) -> dict:
+    """K3 against its plain version on each (plan, x, ws, bs) of ``slices``,
+    timed on ``slices[timed]``; its kernels-line entry (shape None: it
+    counts the path's launches at every row count)."""
+    pairs = []
+    with torch.no_grad():
+        for plan, x, ws, bs in slices:
+            y, de = fv.vg_forward_cuda(plan, x, ws, bs)
+            yp, dep, *_ = fv._forward_phases(plan, x, ws, bs)
+            pairs += [(f"y at {x.shape[0]} rows", y, yp), (f"de at {x.shape[0]} rows", de, dep)]
+        err = held_to_plain(f"K3, {name}", pairs)
+        plan, x, ws, bs = slices[timed]
+        ms = cuda_ms(lambda: fv.vg_forward_cuda(plan, x, ws, bs), reps)
+        plain = cuda_ms(lambda: fv._forward_phases(plan, x, ws, bs), reps)
+    rows, nw = x.shape[0], plan.n_weights()
+    nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
+    bound = bound_ms(4.0 * nw * rows, 4.0 * (rows * (2 * plan.dims[0] + plan.out_dim) + nw + nb))
+    return dict(name=f"K3 fused_value_grad forward (value + d sdf/dx), {name}", route="cuda",
+                source="robir_tpu_torch/csrc/fused_value_grad.cu",
+                replaces="robir_tpu/render/pallas/fused_value_grad.py:131", max_abs_err=err,
+                ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                rows=rows, kernel="K3", path=path, shape=None)
+
+
+def check_pbr_path_kernels(runner, shaded: list, seed: int, gen) -> dict:
+    """K3 at the SDF trunk's plan against its plain version at every row
+    count the PBR run shaded (timed at the median), and the grid march on
+    the 1,024 primary rays of a PBR batch; returns their entries."""
+    plan = fm.plan_from_sdf_config(runner.cfg.neus.sdf)
+    counts_run = sorted(set(shaded))
+    x, ws, bs = trunk_inputs(plan, runner.cfg.neus.sdf.pe, max(counts_run), gen)
+    slices = [(plan, x[:r], ws, bs) for r in counts_run]
+    median = int(np.median(shaded))
+    entries = {"K3 pbr rows": k3_entry(
+        f"the PBR geometry normals at the shaded rows ({counts_run[0]}-{counts_run[-1]}; timed "
+        f"at the median)", slices + [(plan, x[:median], ws, bs)], "pbr", -1)}
+    print(f"PBR run's shaded row counts (K3 held to its plain version at each): {counts_run}",
+          flush=True)
+    stage, R = runner.stage_cfg, runner.cfg.grid.resolution
+    b = runner.dataset.sample_pixels(np.random.default_rng(seed + 2), 0, stage.num_pixels)
+    e = hold_march(runner.grid_values, runner.cfg.grid, torch.as_tensor(b["points"], device="cuda"),
+                   torch.as_tensor(b["dirs"], device="cuda"), "a PBR batch's primary rays")
+    entries["march pbr"] = dict(e, name="grid march (march + refine, one thread a ray), the PBR "
+                                        "primary trace", path="pbr", shape=(R, e["rows"]))
+    report({k: v for k, v in entries.items() if v["kernel"] == "K3"})
+    return entries
+
+
+def check_pbr_view(runner, view) -> tuple:
+    """The eval render of test view 0 of ``view`` through
+    ``PBRRunner.render_view`` (chunks of VIEW_CHUNK rays), timed, with the
+    counts set to 0 just before: per chunk one grid march at VIEW_CHUNK rays
+    and one K3, nothing else. Its PSNR against the view's ground truth.
+    Then the same render on recorded draws against the same call with the
+    march's and K3's plain versions: identical masks, each buffer within
+    KERNEL_TOL of its largest entry; K3 held to its plain version on each
+    chunk's operands and the march on chunk 0's rays. Then the SG envmap
+    image (``compute_envmap``, ENVMAP_HW), finite. Returns the entries and
+    the launches by shape."""
+    h, w = view.img_res
+    n_chunks, R = -(-h * w // VIEW_CHUNK), runner.cfg.grid.resolution
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = runner.render_view(0, view, chunk=VIEW_CHUNK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    run, peak = shapes(), torch.cuda.max_memory_allocated() / 2**30
+    k3_rows = sorted(r for (_, r), k in run["K3"].items() for _ in range(k))
+    if (run["march"] != {(R, VIEW_CHUNK): n_chunks} or len(k3_rows) != n_chunks
+            or any(run[k] for k in ("K1", "K2", "K4"))):
+        raise RuntimeError(f"render_view launches {run}, expected {n_chunks} marches of "
+                           f"{VIEW_CHUNK} rays and {n_chunks} K3")
+    gt = view.rgb_images[0]
+    psnr = -10 * np.log10(float(np.mean((out["pred_rgb"] - gt) ** 2)) + 1e-12)
+    if out["pred_rgb"].shape != (h * w, 3) or not all(np.isfinite(v).all() for v in out.values()):
+        raise RuntimeError("render_view's buffers are not finite or have the wrong shape")
+    print(f"render_view of test view 0 ({h}x{w}, {n_chunks} chunks of {VIEW_CHUNK} rays, the last "
+          f"padded): {secs:.3f} s wall (PBRRunner.render_view to a synchronize), "
+          f"{int(out['mask'].sum())} surface pixels, K3 at {k3_rows} rows, PSNR {psnr:.3f} dB "
+          f"against the view's ground truth; peak device memory {peak:.2f} GiB", flush=True)
+
+    taken, slices = [], []
+    real_k3, real_cast = fv.vg_forward_cuda, stage2_mod.grid_cast
+
+    def recorded(plan, x, ws, bs):
+        slices.append((plan, x, ws, bs))
+        return real_k3(plan, x, ws, bs)
+
+    def drawn(_):
+        taken.append(Draws(runner.generator, device="cuda", record=True))
+        return taken[-1]
+
+    kw = dict(sg_render_fn=functools.partial(pbr_sg_render,
+                                             use_normal_map=runner.stage_cfg.use_normal_map),
+              chunk=VIEW_CHUNK)
+    try:
+        fv.vg_forward_cuda = recorded
+        got = render_view(runner.model(), view, 0, draws=drawn, **kw)
+        fv.vg_forward_cuda = lambda plan, x, ws, bs: fv._forward_phases(plan, x, ws, bs)[:2]
+        stage2_mod.grid_cast = lambda g, c, o, d: tg.grid_cast_plain(g, c, o, d)[:3]
+        want = render_view(runner.model(), view, 0,
+                           draws=lambda c: Draws(given=taken[c].taken, device="cuda"), **kw)
+    finally:
+        fv.vg_forward_cuda, stage2_mod.grid_cast = real_k3, real_cast
+    if not np.array_equal(got["mask"], want["mask"]):
+        raise RuntimeError("render_view: the traced mask differs from the plain march's")
+    err = held_to_plain("render_view against the plain versions", [
+        (k, torch.as_tensor(got[k]), torch.as_tensor(want[k])) for k in want if k != "mask"])
+    print(f"render_view on the kernels vs on their plain versions (the same draws): masks "
+          f"identical, every buffer within {err:.3e} of the plain render's", flush=True)
+    entries = {"K3 pbr_view": k3_entry(
+        f"the PBR eval render, no graph (one launch a {VIEW_CHUNK}-ray chunk at its surface "
+        f"rows; timed on the largest)", slices, "pbr_view",
+        max(range(len(slices)), key=lambda i: slices[i][1].shape[0]))}
+    dirs, cam_loc = view.camera_rays(0)
+    d = torch.as_tensor(dirs[:VIEW_CHUNK], device="cuda")
+    e = hold_march(runner.grid_values, runner.cfg.grid,
+                   torch.as_tensor(cam_loc, device="cuda").expand(VIEW_CHUNK, 3).contiguous(), d,
+                   "an eval-render chunk's rays")
+    entries["march pbr_view"] = dict(e, name="grid march (march + refine, one thread a ray), the "
+                                             "PBR eval render's chunks", path="pbr_view",
+                                     shape=(R, VIEW_CHUNK))
+    report({"K3 pbr_view": entries["K3 pbr_view"]})
+
+    with torch.no_grad():
+        lgt = runner.model().material(torch.zeros((1, 3), device="cuda")).lgt_sgs
+        t0 = time.perf_counter()
+        env = compute_envmap(lgt, *ENVMAP_HW)
+        torch.cuda.synchronize()
+    env_ms = 1e3 * (time.perf_counter() - t0)
+    if env.shape != (*ENVMAP_HW, 3) or not bool(torch.isfinite(env).all()):
+        raise RuntimeError("the SG envmap image is not finite or has the wrong shape")
+    print(f"SG envmap image (compute_envmap of the {lgt.shape[0]} trained lights, "
+          f"{ENVMAP_HW[0]}x{ENVMAP_HW[1]}): finite, in [{float(env.min()):.4f}, "
+          f"{float(env.max()):.4f}], mean {float(env.mean()):.4f}; {env_ms:.3f} ms", flush=True)
+    return entries, run
+
+
+def check_pbr_handover(pbr_runner, cfg, params, dataset, stage, seed: int, log_dir: str):
+    """``save`` the PBR runner into ``log_dir``; ``CESRRunner.load_pbr_checkpoint``
+    of that file: shadow_net and normal_net stay the CESR runner's own, the
+    spec-BRDF autoencoder too unless ``stage.dropout_iter`` is -1, and every
+    other leaf must be the PBR runner's, bit for bit. Then HANDOVER_STEPS
+    CESR steps on the PBR runner's grid with the per-step counts of
+    ``drive_cesr_grid``."""
+    pbr_runner.log_dir = log_dir
+    path = pbr_runner.save()
+    cesr = CESRRunner(cfg, params, dataset, stage, seed=seed, device="cuda")
+    before = flat_leaves(cesr)
+
+    def keep(p: str) -> bool:
+        return (not p.startswith(("shadow_net", "normal_net"))
+                and ("spec_brdf" not in p or stage.dropout_iter == -1))
+
+    cesr.load_pbr_checkpoint(path)
+    kept = check_surgery("load_pbr_checkpoint", before, flat_leaves(cesr),
+                         flat_leaves(pbr_runner), keep)
+    spec = sum("spec_brdf" in k for k in before)
+    print(f"CESRRunner from the PBR checkpoint {os.path.basename(path)} (step "
+          f"{pbr_runner.cur_iter}): {kept} leaves bit-equal to the PBR runner's; shadow_net, "
+          f"normal_net and the {spec} spec_brdf leaves (dropout_iter {stage.dropout_iter}) the "
+          f"CESR runner's own; then {HANDOVER_STEPS} CESR steps", flush=True)
+    cesr.grid_values = pbr_runner.grid_values
+    drive_cesr_grid(cesr, HANDOVER_STEPS)
 
 
 def main() -> None:
@@ -1707,14 +2212,39 @@ def main() -> None:
     check_vis_step_against_cpu(cesr_cfg, vis_stage, dataset, check_params, args.seed,
                                two_spheres)
     vis = drive_vis(vis_runner, VIS_STEPS, args.profile)
-    check_vis_checkpoint(vis_runner, cesr_cfg, params, vis_stage, args.seed)
+    raw = load_config(str(STAGE2_CONFIG))
+    with tempfile.TemporaryDirectory() as log_dir:
+        vis_path = check_vis_checkpoint(vis_runner, cesr_cfg, params, vis_stage, args.seed,
+                                        log_dir)
+
+        # the PBR stage at configs/hotdog.json's pbr section, from the Vis
+        # checkpoint: the step check, the bake, the steps, the eval render
+        # and the envmap; then the hand-over to CESR at its cesr section
+        pbr_stage = build_stage_config(PBRStageConfig, raw["pbr"])
+        check_pbr_step_against_cpu(cesr_cfg, pbr_stage, dataset, check_params, args.seed,
+                                   two_spheres)
+        pbr_runner = load_pbr_runner(cesr_cfg, params, dataset, pbr_stage, args.seed,
+                                     vis_runner, vis_path, log_dir)
+        pbr_bake = bake_grid(pbr_runner)
+        if not torch.equal(pbr_runner.grid_values, runner.grid_values):
+            raise RuntimeError("the PBR runner's grid differs from the CESR runner's of that NeuS")
+        entries.update(check_bake_kernel(pbr_runner, "pbr_bake"))
+        pbr, pbr_shaded = drive_pbr(pbr_runner, PBR_STEPS, args.profile)
+        time_pbr_sweep(pbr_runner, int(np.median(pbr_shaded)), gen)
+        entries.update(check_pbr_path_kernels(pbr_runner, pbr_shaded, args.seed, gen))
+        view_entries, pbr_view = check_pbr_view(
+            pbr_runner, shadow_scene(n_train=20, h=128, w=128, seed=args.seed, split="test"))
+        entries.update(view_entries)
+        check_pbr_handover(pbr_runner, cesr_cfg, params, dataset,
+                           build_stage_config(CESRStageConfig, raw["cesr"]), args.seed, log_dir)
 
     # each entry counts its kernel's launches on its path, at its shape (or
     # at every shape: stage 1's entries, timed at the path's largest rows;
-    # the CESR run's K1, K2 and K3 at its shaded rows); the check shapes off
-    # the main paths count none
+    # the CESR and PBR runs' trunk kernels at their shaded rows); the check
+    # shapes off the main paths count none
     paths = {"neus_stage1": stage1, "cesr_sphere": cesr_sphere, "bake": bake, "cesr": cesr,
-             "vis_bake": vis_bake, "vis": vis}
+             "vis_bake": vis_bake, "vis": vis, "pbr_bake": pbr_bake, "pbr": pbr,
+             "pbr_view": pbr_view}
     for name, e in entries.items():
         if e["path"] is None:
             e["launches"] = 0

@@ -6,9 +6,9 @@ Reads the same ``configs/*.json`` files: JSON with ``//`` line comments.
 missing keys and rejecting unknown ones. Covered sections: stage 1's
 ``model``, ``render``, ``train`` and ``dataset``; stage 2's ``model``
 (``neus``, ``envmap_material_network``, ``indirect_illum_network``,
-``visibility_network``, ``tonemap``, ``grid``, ``coord_scale`` and the
-tracer keys), the ``cesr`` and ``vis`` stage sections. Other sections
-(``mesh``, ``norm``, ``pbr``) are not read.
+``visibility_network``, ``tonemap``, ``grid``, ``coord_scale``,
+``sweep_light_chunk`` and the tracer keys), the ``vis``, ``pbr`` and
+``cesr`` stage sections. Other sections (``mesh``, ``norm``) are not read.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def build_stage1_configs(cfg: dict):
 
 _STAGE2_KEYS = {"neus", "envmap_material_network", "indirect_illum_network",
                 "visibility_network", "tonemap", "grid", "coord_scale", "bgr",
-                "vis_compute_dtype", "use_neus", "tracer",
+                "vis_compute_dtype", "sweep_light_chunk", "use_neus", "tracer",
                 "sphere_tracer"}
 
 
@@ -107,16 +107,18 @@ def build_stage2_config(d: dict, **overrides) -> Stage2Config:
         coord_scale=d.get("coord_scale", 2.0),
         bgr=d.get("bgr", False),
         vis_compute_dtype=d.get("vis_compute_dtype"),
+        sweep_light_chunk=d.get("sweep_light_chunk", 0),
         use_neus=d.get("use_neus", True),
         tracer=d.get("tracer", "grid"),
         sphere_tracer=_build(SphereTracerConfig, d.get("sphere_tracer")))
 
 
 def build_stage_config(dc_type, d: dict | None, **overrides):
-    """A stage config (``CESRStageConfig``, ``VisStageConfig``) from its
-    section, with the nested ``opt`` and ``loss`` sections built from plain
-    dicts (the Vis stage's loss is an ``IllumLossConfig``). Unknown keys
-    raise KeyError; ``VisStageConfig`` refuses ``shard_fan: true``."""
+    """A stage config (``VisStageConfig``, ``PBRStageConfig``,
+    ``CESRStageConfig``) from its section, with the nested ``opt`` and
+    ``loss`` sections built from plain dicts (the Vis stage's loss is an
+    ``IllumLossConfig``). Unknown keys raise KeyError; ``VisStageConfig``
+    refuses ``shard_fan: true``."""
     d = {**(d or {}), **overrides}
     if isinstance(d.get("opt"), dict):
         d["opt"] = _build(StageOptConfig, d["opt"])

@@ -4,13 +4,14 @@ pixel sampling of ``robir_tpu/data/syn_dataset.py``, the reference's
 
 ``SynDataset`` holds linear-radiance images, object masks, intrinsics and
 poses (translations already / pose_scale into stage-2 coordinates);
-``camera_rays`` lifts pixels to rays, ``sample_pixels`` draws a random
-pixel batch of one camera and ``masked_pixels`` gathers the object's
-pixels. ``shadow_scene`` builds the two-sphere scene
-with cast shadows of ``robir_tpu/data/synthetic.py:make_shadow_dataset``
-(same cameras from the same seed, same 8-bit quantisation and gamma-2.2
-decode as a load of its PNGs) without writing files. Reading a dataset
-from disk is not ported yet.
+``camera_rays`` lifts pixels (by default every pixel of the view,
+``full_uv``) to rays, ``sample_pixels`` draws a random pixel batch of one
+camera and ``masked_pixels`` gathers the object's pixels.
+``shadow_scene`` builds a split of the two-sphere scene with cast shadows
+of ``robir_tpu/data/synthetic.py:make_shadow_dataset`` (same cameras from
+the same seed, same 8-bit quantisation and gamma-2.2 decode as a load of
+its PNGs) without writing files. Reading a dataset from disk is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -35,9 +36,18 @@ class SynDataset:
         self.rgb_images = [np.asarray(im, np.float32).reshape(-1, 3) for im in images]
         self.object_masks = [np.asarray(m, bool).reshape(-1) for m in masks]
 
-    def camera_rays(self, idx: int, uv: np.ndarray):
-        """uv [N, 2] (x, y) -> (ray_dirs [N, 3], cam_loc [3])
-        (utils/rend_util.py:51-97)."""
+    def full_uv(self) -> np.ndarray:
+        """[H * W, 2] (x, y) pixel coordinates in row-major order
+        (syn_dataset.py:122-125)."""
+        h, w = self.img_res
+        grid = np.mgrid[0:h, 0:w].astype(np.float32)
+        return np.flip(grid, axis=0).reshape(2, -1).T.copy()
+
+    def camera_rays(self, idx: int, uv: np.ndarray | None = None):
+        """uv [N, 2] (x, y), by default every pixel (``full_uv``) ->
+        (ray_dirs [N, 3], cam_loc [3]) (utils/rend_util.py:51-97)."""
+        if uv is None:
+            uv = self.full_uv()
         K = self.intrinsics
         pose = self.poses[idx]
         x_lift = (uv[:, 0] - K[0, 2]) / K[0, 0]
@@ -125,21 +135,28 @@ def render_two_sphere_gt(c2w: np.ndarray, h: int, w: int, focal: float,
 
 def shadow_scene(n_train: int = 20, h: int = 128, w: int = 128,
                  camera_angle_x: float = 0.6911112070083618, cam_dist: float = 3.2,
-                 seed: int = 0, pose_scale: float = 2.0) -> SynDataset:
-    """The train split of the two-sphere shadow scene as a ``SynDataset``:
-    the cameras of ``make_shadow_dataset`` from ``seed``, each image
+                 seed: int = 0, pose_scale: float = 2.0, split: str = "train",
+                 n_test: int = 3) -> SynDataset:
+    """A split ("train" or "test") of the two-sphere shadow scene as a
+    ``SynDataset``: the cameras of ``make_shadow_dataset`` from ``seed``
+    (the test split's follow the train split's draws), each image
     quantised to 8 bits and decoded with gamma 2.2, masks from alpha."""
     focal = 0.5 * w / np.tan(0.5 * camera_angle_x)
     rng = np.random.default_rng(seed)
-    images, masks, poses = [], [], []
-    for i in range(n_train):
-        theta = (i / n_train) * 2 * np.pi + float(rng.uniform(0, 0.1))
-        phi = float(rng.uniform(0.15, 1.1))
-        eye = cam_dist * np.array([np.cos(theta) * np.cos(phi),
-                                   np.sin(theta) * np.cos(phi), np.sin(phi)], np.float32)
-        c2w = look_at(eye, np.array([0.2, 0.1, 0.35], np.float32))
-        img = (render_two_sphere_gt(c2w, h, w, focal) * 255).astype(np.uint8)
-        images.append(np.power(img[..., :3].astype(np.float32) / 255.0, 2.2))
-        masks.append(img[..., 3].astype(np.float32) / 255.0 > 0.5)
-        poses.append(c2w)
-    return SynDataset(images, masks, np.stack(poses), focal, (h, w), pose_scale)
+    for sp, n in (("train", n_train), ("test", n_test)):
+        images, masks, poses = [], [], []
+        for i in range(n):
+            theta = (i / n) * 2 * np.pi + float(rng.uniform(0, 0.1))
+            phi = float(rng.uniform(0.15, 1.1))
+            eye = cam_dist * np.array([np.cos(theta) * np.cos(phi),
+                                       np.sin(theta) * np.cos(phi), np.sin(phi)], np.float32)
+            c2w = look_at(eye, np.array([0.2, 0.1, 0.35], np.float32))
+            if sp != split:
+                continue
+            img = (render_two_sphere_gt(c2w, h, w, focal) * 255).astype(np.uint8)
+            images.append(np.power(img[..., :3].astype(np.float32) / 255.0, 2.2))
+            masks.append(img[..., 3].astype(np.float32) / 255.0 > 0.5)
+            poses.append(c2w)
+        if sp == split:
+            return SynDataset(images, masks, np.stack(poses), focal, (h, w), pose_scale)
+    raise ValueError(f"unknown split {split!r}")

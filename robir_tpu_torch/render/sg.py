@@ -6,10 +6,12 @@ The random directions of the sweeps come from U[0, 1) draws that are
 arguments of the functions below; ``render_with_sg`` takes them from a
 ``Draws`` by name: ``lobe_theta``/``lobe_phi`` [M, S] for the diffuse sweep
 and ``spec_theta``/``spec_phi`` [N, S] for the specular one, prefixed
-``indir_`` for the indirect light set.
+``indir_`` for the indirect light set. ``compute_envmap`` renders the SG
+lights into a lat-long image and ``render_envmap`` looks such an image up
+along directions.
 
-Not ported yet: ``compute_envmap``/``render_envmap``, ``fun_spec`` and
-multi-view shading.
+Not ported yet: ``fun_spec`` and multi-view shading (their callers are the
+relighting and texture tools).
 """
 
 from __future__ import annotations
@@ -36,6 +38,54 @@ def norm_axis(x: torch.Tensor) -> torch.Tensor:
 
 def _unit_lobes(x: torch.Tensor) -> torch.Tensor:
     return x / (torch.linalg.norm(x, dim=-1, keepdim=True) + TINY)
+
+
+def render_envmap_sg(lgt_sgs: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+    """The SG mixture [M, 7] along ``viewdirs`` [..., 3] -> [..., 3]
+    (sg_render.py:26-42): no epsilon in the lobes' norm, as the
+    reference."""
+    v = viewdirs[..., None, :]
+    lobes = lgt_sgs[..., :3] / torch.linalg.norm(lgt_sgs[..., :3], dim=-1, keepdim=True)
+    lambdas = torch.abs(lgt_sgs[..., 3:4])
+    mus = torch.abs(lgt_sgs[..., -3:])
+    rgb = mus * torch.exp(lambdas * (torch.sum(v * lobes, -1, keepdim=True) - 1.0))
+    return torch.sum(rgb, dim=-2)
+
+
+def envmap_dirs(H: int, W: int, upper_hemi: bool = False, device="cpu") -> torch.Tensor:
+    """[H, W, 3] lat-long directions, blender convention (sg_render.py:9-19):
+    the polar angle over rows from +z, the azimuth from +pi to -pi over
+    columns."""
+    phi = torch.linspace(0.0, np.pi / 2.0 if upper_hemi else np.pi, H, device=device)
+    theta = torch.linspace(np.pi, -np.pi, W, device=device)
+    phi, theta = torch.meshgrid(phi, theta, indexing="ij")
+    return torch.stack([torch.cos(theta) * torch.sin(phi), torch.sin(theta) * torch.sin(phi),
+                        torch.cos(phi)], -1)
+
+
+def compute_envmap(lgt_sgs: torch.Tensor, H: int, W: int,
+                   upper_hemi: bool = False) -> torch.Tensor:
+    """The SG lights [M, 7] as an [H, W, 3] lat-long image."""
+    return render_envmap_sg(lgt_sgs, envmap_dirs(H, W, upper_hemi, lgt_sgs.device))
+
+
+def render_envmap(envmap: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+    """Bilinear lookup of a lat-long [H, W, 3] image along [N, 3] unit
+    directions (sg_render.py:45-59: grid_sample with align_corners=True,
+    border texels clamped)."""
+    H, W = envmap.shape[:2]
+    phi = torch.arccos(torch.clamp(viewdirs[:, 2], -1.0, 1.0)) - TINY
+    theta = torch.atan2(viewdirs[:, 1], viewdirs[:, 0])
+    gy, gx = (phi / np.pi) * 2 - 1, -theta / np.pi  # grid_sample's [-1, 1]
+    py, px = (gy + 1) * 0.5 * (H - 1), (gx + 1) * 0.5 * (W - 1)
+    y0 = torch.clamp(torch.floor(py).long(), 0, H - 1)
+    x0 = torch.clamp(torch.floor(px).long(), 0, W - 1)
+    y1 = torch.clamp(y0 + 1, 0, H - 1)
+    x1 = torch.clamp(x0 + 1, 0, W - 1)
+    wy = (py - y0)[:, None]
+    wx = (px - x0)[:, None]
+    return (envmap[y0, x0] * ((1 - wy) * (1 - wx)) + envmap[y0, x1] * ((1 - wy) * wx)
+            + envmap[y1, x0] * (wy * (1 - wx)) + envmap[y1, x1] * (wy * wx))
 
 
 def hemisphere_int(lambda_val: torch.Tensor, cos_beta: torch.Tensor) -> torch.Tensor:
@@ -121,24 +171,37 @@ def get_diffuse_visibility(points: torch.Tensor, normals: torch.Tensor,
                            vis_fn: VisFn, lgt_lobes: torch.Tensor,
                            lgt_lambdas: torch.Tensor, r_theta_u: torch.Tensor,
                            r_phi_u: torch.Tensor, thr: float = 1.0,
-                           argmax_vis: bool = False,
+                           argmax_vis: bool = False, chunk_lights: int = 0,
                            vis_outer_fn=None) -> torch.Tensor:
     """SG-weighted mean visibility toward each light lobe (sg_render.py:
     111-195), dense over every (point, sample) pair with back-facing
     samples masked to zero. points/normals [N, 3]; lgt_lobes [M, 3];
-    lgt_lambdas [M]; draws [M, S] -> vis [M, N]."""
+    lgt_lambdas [M]; draws [M, S] -> vis [M, N].
+
+    With ``chunk_lights`` > 0 dividing M (and below it) the [N, M*S] sweep
+    runs in groups of that many lights, one visibility-net call each, as
+    the JAX package's ``lax.map``: the same values, a smaller peak of
+    activations; otherwise in one pass."""
     M, N = lgt_lobes.shape[0], points.shape[0]
     nsamp = r_theta_u.shape[1]
     lobes = norm_axis(lgt_lobes)
     sample_dir = sample_lobe_dirs(lobes, lgt_lambdas, r_theta_u, r_phi_u, thr=thr)
-    dirs = sample_dir.reshape(-1, 3)
-    cos_term = (normals @ dirs.t()) > TINY  # [N, M*S]
-    if vis_outer_fn is not None:
-        logits = vis_outer_fn(points, dirs)
+
+    def sweep(sd: torch.Tensor) -> torch.Tensor:
+        """sample directions [m, S, 3] -> visibility [N, m * S]."""
+        dirs = sd.reshape(-1, 3)
+        cos_term = (normals @ dirs.t()) > TINY
+        if vis_outer_fn is not None:
+            logits = vis_outer_fn(points, dirs)
+        else:
+            k = dirs.shape[0]
+            logits = vis_fn(points[:, None, :].expand(N, k, 3), dirs[None].expand(N, k, 3))
+        return torch.where(cos_term, _visible(logits, 1, argmax_vis), 0.0)
+
+    if chunk_lights and M > chunk_lights and M % chunk_lights == 0:
+        pred = torch.cat([sweep(g) for g in sample_dir.split(chunk_lights)], dim=1)
     else:
-        logits = vis_fn(points[:, None, :].expand(N, M * nsamp, 3),
-                        dirs[None].expand(N, M * nsamp, 3))
-    pred = torch.where(cos_term, _visible(logits, 1, argmax_vis), 0.0)
+        pred = sweep(sample_dir)
     vis = pred.reshape(N, M, nsamp).permute(1, 2, 0)  # [M, S, N]
     w = torch.exp(lgt_lambdas[:, None, None]
                   * (torch.sum(sample_dir * lobes[:, None, :], -1, keepdim=True) - 1.0))
@@ -251,9 +314,9 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
                    indir_integral=None, metallic=None, diffuse_vis=None,
                    prefit: Optional[str] = None, argmax_vis: bool = False,
                    diffuse_nsamp: int = 32, diffuse_vis_nsamp: int = 8,
-                   specular_nsamp: int = 8, supervise_weight=None,
-                   supervise_rows: bool = False, diffuse_vis_grad: bool = True,
-                   draw_prefix: str = "") -> SGRenderOutput:
+                   specular_nsamp: int = 8, diffuse_sweep_chunk: int = 0,
+                   supervise_weight=None, supervise_rows: bool = False,
+                   diffuse_vis_grad: bool = True, draw_prefix: str = "") -> SGRenderOutput:
     """Full SG shading for one light set (sg_render.py:343-565).
 
     points/normal/viewdirs [N, 3]; lgt_sgs [N, M, 7] or [M, 7]; roughness
@@ -262,7 +325,8 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
     |gt - vis| [N, M] in place of its KL.
     ``diffuse_vis_grad=False`` runs the diffuse sweep without a graph, for
     callers whose loss does not reach its result (the CESR warmup step
-    without the rgb term): that changes no gradient."""
+    without the rgb term): that changes no gradient.
+    ``diffuse_sweep_chunk`` is the sweep's ``chunk_lights``."""
     N = points.shape[0]
     if lgt_sgs.dim() == 2:
         lgt_sgs = lgt_sgs[None].expand((N,) + lgt_sgs.shape)
@@ -282,7 +346,8 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
                 points, normal.detach(), vis_fn, lgt_lobes[0], lgt_lambdas[0, :, 0],
                 draws.uniform(draw_prefix + "lobe_theta", (M, nsamp)),
                 draws.uniform(draw_prefix + "lobe_phi", (M, nsamp)),
-                argmax_vis=argmax_vis, vis_outer_fn=vis_outer_fn)  # [M, N]
+                argmax_vis=argmax_vis, chunk_lights=diffuse_sweep_chunk,
+                vis_outer_fn=vis_outer_fn)  # [M, N]
         light_vis_gt = light_vis_gt.t()[..., None].expand(N, M, 3)
         if diffuse_vis is not None:
             light_vis = diffuse_vis.reshape(N, M, 1).expand(N, M, 3)
@@ -343,7 +408,8 @@ def render_with_all_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
                        indir_integral=None, indir_lgt_sgs=None, vis_fn=None,
                        vis_outer_fn=None, lin_diff=False, metallic=None,
                        diffuse_vis=None, prefit=None, argmax_vis=False,
-                       supervise_weight=None, supervise_rows: bool = False,
+                       diffuse_sweep_chunk: int = 0, supervise_weight=None,
+                       supervise_rows: bool = False,
                        diffuse_vis_grad: bool = True) -> AllSGOutput:
     """Direct (visibility-attenuated) plus indirect SG shading
     (sg_render.py:304-337). The per-row draws (the specular sweeps') have
@@ -354,8 +420,8 @@ def render_with_all_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
         roughness, diffuse_albedo, comp_vis=True, vis_fn=vis_fn,
         vis_outer_fn=vis_outer_fn, lin_diff=lin_diff, metallic=metallic,
         diffuse_vis=diffuse_vis, prefit=prefit, argmax_vis=argmax_vis,
-        supervise_weight=supervise_weight, supervise_rows=supervise_rows,
-        diffuse_vis_grad=diffuse_vis_grad)
+        diffuse_sweep_chunk=diffuse_sweep_chunk, supervise_weight=supervise_weight,
+        supervise_rows=supervise_rows, diffuse_vis_grad=diffuse_vis_grad)
     if indir_lgt_sgs is not None:
         indirect = render_with_sg(
             draws, points, normal, viewdirs, indir_lgt_sgs, specular_reflectance,

@@ -63,6 +63,9 @@ class Stage2Config:
     coord_scale: float = 2.0
     bgr: bool = False
     vis_compute_dtype: str | None = None
+    # the diffuse visibility sweep in groups of this many lights (0: one
+    # pass); the same values, a smaller peak of activations
+    sweep_light_chunk: int = 0
     use_neus: bool = True
     tracer: str = "grid"
     sphere_tracer: SphereTracerConfig = SphereTracerConfig()
@@ -233,7 +236,8 @@ def default_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
         mat.specular_reflectance, mat.roughness, mat.diffuse_albedo,
         indir_lgt_sgs=indir_lgt_sgs, indir_integral=indir_integral,
         vis_fn=model.vis_logits, vis_outer_fn=model.vis_logits_outer,
-        lin_diff=lin_diff, argmax_vis=argmax_vis)
+        lin_diff=lin_diff, argmax_vis=argmax_vis,
+        diffuse_sweep_chunk=model.cfg.sweep_light_chunk)
     return {
         "normals": normals, "sg_rgb": sg_ret.sg_rgb,
         "sg_specular_rgb": sg_ret.sg_specular_rgb,

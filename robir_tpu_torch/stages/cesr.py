@@ -40,7 +40,7 @@ from ..render.color import as_input, hdr2ldr
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
 from .losses import (InvLossConfig, latent_smooth_loss, masked_spec_kl, rgb_loss,
                      white_loss)
-from .stage2_runner import Stage2RunnerBase, StageOptConfig, make_adam
+from .stage2_runner import MaterialRunner, StageOptConfig
 
 SHADOW_PE = PEConfig(num_freqs=10, input_dims=3)
 
@@ -162,8 +162,8 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
         indir_integral=indir_integral, vis_fn=model.vis_logits,
         vis_outer_fn=model.vis_logits_outer, lin_diff=True,
         diffuse_vis=diffuse_vis, prefit=prefit, argmax_vis=stage_cfg.argmax_vis,
-        supervise_weight=sv_weight, supervise_rows=row_outputs,
-        diffuse_vis_grad=diffuse_vis_grad)
+        diffuse_sweep_chunk=model.cfg.sweep_light_chunk, supervise_weight=sv_weight,
+        supervise_rows=row_outputs, diffuse_vis_grad=diffuse_vis_grad)
 
     albedo = mat.diffuse_albedo / np.pi
     out = {
@@ -263,9 +263,10 @@ def cesr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: CESRStageConfig,
     return total, metrics
 
 
-class CESRRunner(Stage2RunnerBase):
+class CESRRunner(MaterialRunner):
     """The CESR loop on a dataset: ``run(n)`` takes n steps, each in row
-    mode or dense as ``step_config`` picks. With ``tracer="grid"`` call
+    mode or dense as ``step_config`` picks. It starts from the PBR stage's
+    checkpoint (``load_pbr_checkpoint``). With ``tracer="grid"`` call
     ``bake_grid()`` first.
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed."""
@@ -287,33 +288,18 @@ class CESRRunner(Stage2RunnerBase):
         gen = torch.Generator().manual_seed(seed + 77)
         params["shadow_net"] = init_sdf(gen, stage_cfg.shadow_cfg)
         params["normal_net"] = init_sdf(gen, stage_cfg.normal_cfg)
-        super().__init__(cfg, params, seed, device, log_dir)
-        self.stage_cfg = stage_cfg
-        self.dataset = dataset
-        self.optimizer, self.lr_fn = make_adam(self.trainable, stage_cfg.opt)
+        super().__init__(cfg, params, dataset, stage_cfg, seed, device, log_dir)
         self.spec_var = torch.zeros((cfg.envmap.latent_dim,), device=self.device)
-        self.surface_frac = None  # read from the device every guard_every steps
 
-    def _refresh_after_restore(self) -> None:
-        super()._refresh_after_restore()
-        self.optimizer, self.lr_fn = make_adam(self.trainable, self.stage_cfg.opt)
-
-    def step_config(self) -> CESRStageConfig:
-        """The stage config the next step runs with (the JAX runner's
-        ``_pick_step``): the dense step (compact_chunk 0) once the last
-        surface fraction read is above ``compact_max_surface_frac``, since
-        compaction pays only when there are miss rows to skip."""
-        sc = self.stage_cfg
-        if (sc.compact_chunk > 0 and self.surface_frac is not None
-                and self.surface_frac > sc.compact_max_surface_frac):
-            return dataclasses.replace(sc, compact_chunk=0)
-        return sc
-
-    def _batch(self) -> dict:
-        idx = int(self.rng.integers(self.dataset.n_cameras))
-        b = self.dataset.sample_pixels(self.rng, idx, self.stage_cfg.num_pixels)
-        return {k: torch.as_tensor(b[k], device=self.device)
-                for k in ("points", "dirs", "object_mask", "rgb")}
+    def load_pbr_checkpoint(self, path: str) -> None:
+        """Every leaf of the PBR stage's checkpoint but the runner's own
+        ``shadow_net`` and ``normal_net``, and without the spec-BRDF
+        autoencoder unless latent dropout is off (``dropout_iter`` -1;
+        train_cesr.py:136-139); then a fresh Adam."""
+        no_discard = self.stage_cfg.dropout_iter == -1
+        self.restore_surgical(
+            path, keep=lambda p: (not p.startswith(("shadow_net", "normal_net")))
+            and ("spec_brdf" not in p or no_discard))
 
     def step(self, batch: dict, draws: Draws) -> dict:
         """One update at ``cur_iter``; returns the metrics (detached)."""
@@ -323,23 +309,9 @@ class CESRRunner(Stage2RunnerBase):
             prefit=sc.prefit_option(self.cur_iter),
             use_new_normal=self.cur_iter > sc.normal_switch_iter,
             use_rgb_loss=self.cur_iter > sc.warmup_iters, grid_values=self.grid_values)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_fn(self.cur_iter)
-        self.optimizer.step()
-        self.cur_iter += 1
-        if self.cur_iter % sc.guard_every == 0:
-            self.surface_frac = float(metrics["surface_frac"])
+        metrics = self._update(loss, metrics)
         if sc.dropout_iter > 0 and self.cur_iter % sc.dropout_iter == 0:
             # latent dropout resample (train_cesr.py:639-641)
             self.spec_var = (torch.rand(self.spec_var.shape, generator=self.generator,
                                         device=self.device) > 0.8).to(torch.float32)
-        return {k: v.detach() for k, v in metrics.items()}
-
-    def run(self, n_iters: int) -> dict:
-        """Take ``n_iters`` steps; returns the last step's metrics as floats."""
-        metrics = {}
-        for _ in range(n_iters):
-            metrics = self.step(self._batch(), Draws(self.generator, device=self.device))
-        return {k: float(v) for k, v in metrics.items()}
+        return metrics

@@ -7,8 +7,9 @@ checkpoints in the JAX package's format: the runner's own (``save``,
 ``restore_latest``), a path-filtered partial restore across stages
 (``restore_surgical``, the reference's checkpoint surgery,
 ``training/train_pbr.py:122-203``), and stage 1's NeuS as the frozen
-``implicit_network`` (``load_neus_checkpoint``). Not ported yet: the
-chunked ``render_view``.
+``implicit_network`` (``load_neus_checkpoint``); the PBR and CESR runners'
+common loop (``MaterialRunner``); and ``render_view``, the chunked eval
+render of a whole view.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ from ..core import checkpoint as ckpt_lib
 from ..core.params import freeze, from_jax
 from ..fields.envmap_material import init_envmap_material
 from ..fields.neus_model import init_neus
+from ..core.draws import Draws
 from ..fields.visibility import init_indirect, init_visnet
-from ..render.color import init_tonemap
-from ..render.stage2 import Stage2Config, Stage2Model
+from ..render.color import as_input, hdr2ldr, init_tonemap
+from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
 from ..tracing.grid import build_sdf_grid
 
 
@@ -78,12 +80,16 @@ def load_neus_checkpoint(path: str) -> dict:
     return ckpt_lib.load(found)[0]["params"]
 
 
+BATCH_KEYS = ("points", "dirs", "object_mask", "rgb")
+
+
 class Stage2RunnerBase:
     """The parameter tree on its device (``cuda`` unless ``device="cpu"``),
     the trainable subtrees named by ``TRAINABLE`` and every other subtree
     frozen, the host RNG for batches, the device generator for the step's
-    draws, the grid tracer's baked grid (``bake_grid``), and checkpoints
-    under ``log_dir/<stage_name>/checkpoints``."""
+    draws, the grid tracer's baked grid (``bake_grid``), checkpoints
+    under ``log_dir/<stage_name>/checkpoints``, and ``run(n)`` over the
+    subclass's ``step`` and ``_batch``."""
 
     stage_name = "Base"
     TRAINABLE: Sequence[str] = ()
@@ -99,6 +105,10 @@ class Stage2RunnerBase:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.cur_iter = 0
         self.grid_values = None
+
+    def model(self) -> Stage2Model:
+        """The stage-2 model of the runner's parameters and grid."""
+        return Stage2Model(self.params, self.cfg, self.device, self.grid_values)
 
     def bake_grid(self) -> None:
         """Bake the cached-SDF grid from the frozen NeuS (the reference's
@@ -150,3 +160,120 @@ class Stage2RunnerBase:
         over the restored parameters with fresh moments, as the JAX runners
         do (stage-2 checkpoints carry parameters only)."""
         self.trainable = freeze(self.params, self.TRAINABLE)
+
+    def run(self, n_iters: int) -> dict:
+        """Take ``n_iters`` steps (``step`` on ``_batch``, with draws from the
+        runner's generator); returns the last step's metrics as floats."""
+        metrics = {}
+        for _ in range(n_iters):
+            metrics = self.step(self._batch(), Draws(self.generator, device=self.device))
+        return {k: float(v) for k, v in metrics.items()}
+
+
+class MaterialRunner(Stage2RunnerBase):
+    """The PBR and CESR runners' common loop: one Adam over the trainable
+    subtrees (rebuilt with fresh moments after a restore), pixel batches
+    drawn in the JAX runners' order, and their switch between compacted and
+    dense steps (``step_config``) on the surface fraction read every
+    ``guard_every`` steps. Subclasses define ``step``."""
+
+    def __init__(self, cfg: Stage2Config, params: dict, dataset, stage_cfg, seed: int = 0,
+                 device="cuda", log_dir: str | None = None):
+        super().__init__(cfg, params, seed, device, log_dir)
+        self.stage_cfg = stage_cfg
+        self.dataset = dataset
+        self.optimizer, self.lr_fn = make_adam(self.trainable, stage_cfg.opt)
+        self.surface_frac = None  # read from the device every guard_every steps
+
+    def _refresh_after_restore(self) -> None:
+        super()._refresh_after_restore()
+        self.optimizer, self.lr_fn = make_adam(self.trainable, self.stage_cfg.opt)
+
+    def step_config(self):
+        """The stage config the next step runs with (the JAX runners'
+        ``_pick_step``): the dense step (compact_chunk 0) once the surface
+        fraction last read is above ``compact_max_surface_frac``, since
+        compaction pays only when there are miss rows to skip."""
+        sc = self.stage_cfg
+        if (sc.compact_chunk > 0 and self.surface_frac is not None
+                and self.surface_frac > sc.compact_max_surface_frac):
+            return dataclasses.replace(sc, compact_chunk=0)
+        return sc
+
+    def _batch(self) -> dict:
+        """``num_pixels`` pixels of a random camera (``BATCH_KEYS``, on the
+        runner's device), drawn from the numpy RNG in the JAX runners'
+        order."""
+        idx = int(self.rng.integers(self.dataset.n_cameras))
+        b = self.dataset.sample_pixels(self.rng, idx, self.stage_cfg.num_pixels)
+        return {k: torch.as_tensor(b[k], device=self.device) for k in BATCH_KEYS}
+
+    def _update(self, loss: torch.Tensor, metrics: dict) -> dict:
+        """The Adam update of ``loss`` at ``cur_iter``'s learning rate; then
+        ``cur_iter`` + 1, and every ``guard_every`` steps the surface
+        fraction read (a wait for the device). Returns the metrics
+        detached."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_fn(self.cur_iter)
+        self.optimizer.step()
+        self.cur_iter += 1
+        if self.cur_iter % self.stage_cfg.guard_every == 0:
+            self.surface_frac = float(metrics["surface_frac"])
+        return {k: v.detach() for k, v in metrics.items()}
+
+
+def render_view(model: Stage2Model, dataset, idx: int, sg_render_fn=None,
+                draws: Callable[[int], Draws] | None = None, chunk: int = 8000,
+                train_spec: bool = False, lin_diff: bool = False,
+                compact_chunk: int = 512, **sg_kwargs) -> dict:
+    """The chunked eval render of view ``idx`` of ``dataset``
+    (``robir_tpu/stages/stage2_runner.py:render_view``, the reference's
+    ``split_input`` loop, utils/general.py:27-69 and train_pbr.py:240-276).
+
+    The view's rays in chunks of ``chunk``, the last one padded by
+    repeating its last ray (the padding is cut from the output); each
+    chunk one ``stage2_forward(trainstage="Material")`` without a graph,
+    under the learnt shift, compacted at ``compact_chunk`` (on the card:
+    one grid march and, through ``sg_render_fn``'s geometry normals, one
+    K3 launch a chunk). ``draws(c)`` gives chunk c's draws (default: one
+    ``Draws`` a chunk from a generator seeded 0 on the model's device).
+    ``sg_kwargs`` go to the render.
+
+    Returns flat [H * W, .] numpy buffers: ``pred_rgb`` (the tone-mapped
+    sg + indirect colour, ones off the surface), ``sg_rgb``,
+    ``indir_rgb``, ``sg_specular_rgb``, ``diffuse_albedo``, ``roughness``
+    (widened to 3), ``normal_map``, ``normals``, ``vis_shadow`` and
+    ``mask`` (the traced hits)."""
+    params = model.params
+    device = params["gamma"]["adapt_illum"].device
+    if draws is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        draws = lambda _: Draws(gen, device=device)  # noqa: E731
+    dirs, cam_loc = dataset.camera_rays(idx)
+    n = dirs.shape[0]
+    outs = []
+    with torch.no_grad():
+        for c, start in enumerate(range(0, n, chunk)):
+            d = dirs[start:start + chunk]
+            cut = d.shape[0]
+            if cut < chunk:
+                d = np.concatenate([d, np.repeat(d[-1:], chunk - cut, 0)])
+            d = torch.as_tensor(d, device=device)
+            inp = {"points": torch.as_tensor(cam_loc, device=device).expand(chunk, 3),
+                   "dirs": d, "hdr_shift": as_input(params["gamma"]).expand(chunk, 1)}
+            out = stage2_forward(model, draws(c), inp, trainstage="Material",
+                                 sg_render_fn=sg_render_fn, train_spec=train_spec,
+                                 lin_diff=lin_diff, compact_chunk=compact_chunk, **sg_kwargs)
+            pred = hdr2ldr(params["gamma"], model.cfg.tonemap, out["sg_rgb"] + out["indir_rgb"])
+            mask = out["network_object_mask"]
+            res = {"pred_rgb": torch.where(mask[:, None], pred, 1.0),
+                   "sg_rgb": out["sg_rgb"], "indir_rgb": out["indir_rgb"],
+                   "sg_specular_rgb": out["sg_specular_rgb"],
+                   "diffuse_albedo": out["diffuse_albedo"],
+                   "roughness": out["roughness"].expand(pred.shape),
+                   "normal_map": out["normal_map"], "normals": out["normals"],
+                   "vis_shadow": out["vis_shadow"], "mask": mask}
+            outs.append({k: v[:cut].cpu().numpy() for k, v in res.items()})
+    return {k: np.concatenate([o[k] for o in outs], 0) for k in outs[0]}

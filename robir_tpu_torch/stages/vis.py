@@ -182,10 +182,3 @@ class VisRunner(Stage2RunnerBase):
         metrics = self._step(self.params, batch, draws, self.grid_values)
         self.cur_iter += 1
         return metrics
-
-    def run(self, n_iters: int) -> dict:
-        """Take ``n_iters`` steps; returns the last step's metrics as floats."""
-        metrics = {}
-        for _ in range(n_iters):
-            metrics = self.step(self._batch(), Draws(self.generator, device=self.device))
-        return {k: float(v) for k, v in metrics.items()}

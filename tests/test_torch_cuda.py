@@ -325,3 +325,98 @@ def test_borrow_color_matches_plain(dev):
         tfv.vg_forward_cuda = real
     assert float(want.abs().max()) > 1e-3
     _close(got, want)
+
+
+def _two_sphere_sdf(x):
+    """The shadow scene's two spheres in stage-2 coordinates."""
+    return torch.stack([torch.linalg.norm(x - torch.tensor(c, device=x.device), dim=-1) - r
+                        for c, r in (((0.0, 0.0, 0.0), 0.25), ((0.185, 0.11, 0.305), 0.09))]
+                       ).amin(0)
+
+
+def _pbr_runner(dev, num_pixels: int):
+    """A PBRRunner on the card at the full-width NeuS trunk (K3's build) and
+    128 SG lights, narrow other nets, on the shadow scene with a 160^3 grid
+    of its two spheres' analytic sdf."""
+    from robir_tpu_torch.data.syn_dataset import shadow_scene
+    from robir_tpu_torch.fields.visibility import IndirIllumConfig, VisNetConfig
+    from robir_tpu_torch.render.stage2 import Stage2Config
+    from robir_tpu_torch.stages.pbr import PBRRunner, PBRStageConfig
+    from robir_tpu_torch.stages.stage2_runner import init_stage2_params
+
+    cfg = Stage2Config(indirect=IndirIllumConfig(dims=(64, 64)),
+                       visnet=VisNetConfig(dims=(64, 64), storage_dtype="bfloat16"),
+                       grid=tg.GridConfig(resolution=160, storage_dtype="bfloat16"))
+    runner = PBRRunner(cfg, init_stage2_params(torch.Generator().manual_seed(0), cfg),
+                       shadow_scene(n_train=3, h=128, w=128),
+                       PBRStageConfig(num_pixels=num_pixels), device=dev)
+    runner.grid_values = tg.build_sdf_grid(_two_sphere_sdf, cfg.grid, device=dev)
+    return runner
+
+
+def test_pbr_steps_launch_k3_at_their_rows(dev):
+    """Three PBR steps (1,024 pixels, row mode): finite metrics, and per
+    step one grid march at 1,024 rays and one K3 at the step's surface rows,
+    no K1, K2 or K4; K3 at each of those row counts against its plain
+    version at the SDF trunk's full width."""
+    runner = _pbr_runner(dev, 1024)
+    kernels = (tfm.FORWARD, tfm.BACKWARD, tfv.FORWARD, tfv.BACKWARD, tgm.MARCH)
+    for k in kernels:
+        k.reset()
+    rows = []
+    for _ in range(3):
+        metrics = runner.run(1)
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+        rows.append(max(round(metrics["surface_frac"] * 1024), 1))
+    assert [k.launches for k in kernels] == [0, 0, 3, 0, 3]
+    assert sorted(r for (_, r), n in tfv.FORWARD.by_shape.items() for _ in range(n)) == sorted(rows)
+    assert all(16 < r < 1024 for r in rows)
+    plan = tfm.plan_from_sdf_config(SDFConfig())
+    x, ws, bs = trunk_case(plan, 7, max(rows))
+    x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
+    for r in sorted(set(rows)):
+        y, de = tfv.vg_forward_cuda(plan, x[:r], ws, bs)
+        yr, der, *_ = tfv._forward_phases(plan, x[:r], ws, bs)
+        _close(y, yr)
+        _close(de, der)
+
+
+def test_pbr_render_view_matches_plain(dev):
+    """``render_view`` of a 64 x 64 test view in chunks of 1,500 rays (the
+    last padded) on the card: one grid march and one K3 a chunk; against
+    the same call, on the same draws, with the march's and K3's plain
+    versions: the same hits, each buffer within 1e-4 of its largest
+    entry."""
+    import functools
+
+    from robir_tpu_torch.core.draws import Draws
+    from robir_tpu_torch.data.syn_dataset import shadow_scene
+    from robir_tpu_torch.render import stage2 as ts2
+    from robir_tpu_torch.stages.pbr import pbr_sg_render
+    from robir_tpu_torch.stages.stage2_runner import render_view
+
+    runner = _pbr_runner(dev, 64)
+    view = shadow_scene(n_train=3, h=64, w=64, split="test")
+    taken = []
+
+    def recorded(_):
+        taken.append(Draws(runner.generator, device=dev, record=True))
+        return taken[-1]
+
+    kw = dict(sg_render_fn=functools.partial(pbr_sg_render, use_normal_map=True), chunk=1500)
+    march, k3 = tgm.MARCH.launches, tfv.FORWARD.launches
+    got = render_view(runner.model(), view, 0, draws=recorded, **kw)
+    assert (tgm.MARCH.launches - march, tfv.FORWARD.launches - k3) == (3, 3)
+    real_cast, real_k3 = ts2.grid_cast, tfv.vg_forward_cuda
+    try:
+        ts2.grid_cast = lambda g, c, o, d: tg.grid_cast_plain(g, c, o, d)[:3]
+        tfv.vg_forward_cuda = lambda plan, x, ws, bs: tfv._forward_phases(plan, x, ws, bs)[:2]
+        want = render_view(runner.model(), view, 0,
+                           draws=lambda c: Draws(given=taken[c].taken, device=dev), **kw)
+    finally:
+        ts2.grid_cast, tfv.vg_forward_cuda = real_cast, real_k3
+    assert np.array_equal(got["mask"], want["mask"]) and 0 < got["mask"].sum() < 4096
+    for k in want:
+        assert got[k].shape == want[k].shape and np.isfinite(got[k]).all(), k
+        scale = float(np.abs(want[k]).max())
+        assert float(np.abs(got[k].astype(np.float64) - want[k]).max()) <= TOL * max(scale, 1e-3), k

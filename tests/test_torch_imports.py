@@ -35,7 +35,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
     assert len(names) >= 20  # every module was imported
-    assert {"robir_tpu_torch.core.checkpoint", "robir_tpu_torch.stages.vis"} <= names
+    assert {"robir_tpu_torch.core.checkpoint", "robir_tpu_torch.stages.vis",
+            "robir_tpu_torch.stages.pbr"} <= names
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -296,5 +296,8 @@ def test_hotdog_config_matches_jax():
         tconfig.build_stage_config(tcesr.CESRStageConfig, {"no_such_key": 1})
     with pytest.raises(NotImplementedError):  # BGR-ordered images are not ported
         tconfig.build_stage2_config({**raw["model"], "bgr": True})
-    with pytest.raises(KeyError):  # a JAX key the port reads nothing for yet
-        tconfig.build_stage2_config({**raw["model"], "sweep_light_chunk": 0})
+    # the light-chunked diffuse sweep: read as JAX reads it, 0 by default
+    assert got.sweep_light_chunk == want.sweep_light_chunk == 0
+    chunked = {**raw["model"], "sweep_light_chunk": 32}
+    assert (tconfig.build_stage2_config(chunked).sweep_light_chunk
+            == jconfig.build_stage2_config(chunked).sweep_light_chunk == 32)
