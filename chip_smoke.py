@@ -5,7 +5,8 @@
                           [--profile STEPS]
 
 1. Builds the port's CUDA kernels from ``robir_tpu_torch/csrc`` with nvcc
-   for sm_90a (into ``robir_tpu_torch/build/``), prints each kernel's
+   for sm_90a (into ``robir_tpu_torch/build/``), and its host C++ library
+   (mesh, texture and EXR code) with g++, each timed; prints each kernel's
    registers, static shared memory and spill bytes from the ptxas report,
    and fails if any kernel spills.
 2. Holds each kernel to its plain PyTorch version on the same inputs, at the
@@ -64,28 +65,59 @@
    K2 and 1 K3 at the step's rows (its surface rows if compacted, else
    1,024) per step; K1, K2 and K3 are then held to their plain versions at
    the row counts the run logged.
-10. The Vis stage at ``configs/hotdog.json``'s ``vis`` section (256 pixels,
+10. The mesh export (path ``mesh``; it runs right after 4, before stage
+   1's profile steps, so that it meshes the NeuS stage 2 takes):
+   ``NeusTrainer.extract_mesh`` at ``configs/neus_blender.json``'s ``mesh``
+   section (256^3 nodes over +-1.2): exactly 256 K1 launches of 65,536
+   rows (counted), the grid and the host marching tetrahedra each timed
+   inside the call, the vertex and triangle counts, the PLY written
+   and read back equal, K1 held to its plain version on a chunk of the
+   grid.
+11. The texture bake of that mesh at ``configs/hotdog.json``'s
+   ``texture_resolution`` (2,048), all on the host: the atlas, the
+   rasterised maps, their EXR files written and read, the five erode
+   passes, each timed inside ``TexSampler``;
+   of 65,536 samples at least 5% masked in, and the frozen NeuS reads a
+   median |sdf| at them (stage-2 coordinates) below one mesh-grid cell
+   there (1.2/255).
+12. Checks one full-width Norm step (``configs/hotdog.json`` widths, 1,024
+   seeded points on a sphere, seeded weights, one draw: the same inputs in
+   every run) on the card against the CPU in fp32 and fp64, at cur_iter 0
+   and past ``smooth_after``: each metric and decoder gradient against
+   fp64 within 1e-4 (of the largest entry for a gradient) or 8x the CPU
+   fp32 step's own distance. The step runs no kernel of the port, so there
+   is no planted fault.
+13. The Norm run (path ``norm``, no kernel launch allowed): ``NormRunner``
+   at the ``norm`` section (1,024 samples a step) on the TexSampler, 20
+   steps timed with CUDA events and the host batch alone, then on to step
+   500 (the smoothness term starts after 500); ``normal_loss`` must fall
+   from step 1 to 500; the checkpoint saved. The Vis runner's parameters
+   take its decoder as ``robir_tpu/cli.py:cmd_vis`` restores it, and the
+   PBR runner's through ``load_norm_checkpoint``, each leaf bit-checked.
+14. The Vis stage at ``configs/hotdog.json``'s ``vis`` section (256 pixels,
    512 directions, the 4 x 256 bf16 visibility net, indirect 4 x 512 with
    24 SGs, L1, Adam 5e-4, fan_compact_chunk 4,096) through ``VisRunner``
-   with the trained NeuS: the energy prologue (1,000 Adam steps, timed, no
+   with the trained NeuS and the Norm decoder: the energy prologue (1,000 Adam steps, timed, no
    kernel of the port), ``bake_grid`` (timed, counted, its grid bit-equal
    to the CESR runner's, K1 held to its plain version on a chunk).
-11. Holds the grid march to its plain version on a Vis batch's 256 primary
+15. Holds the grid march to its plain version on a Vis batch's 256 primary
    rays and their 131,072-ray fan; ``borrow_color`` on 32,768 rays from
    the cameras' surface hits in uniform directions to its plain version
-   (K3's plain version), timed with K3 on one slice and the peak memory.
-12. Checks one full-width Vis step (24 + 8 pixels x 512 directions) on the
+   (K3's plain version), timed with K3 on one full slice (65,536 rows, a
+   check off the main path) and the peak memory.
+16. Checks one full-width Vis step (24 + 8 pixels x 512 directions) on the
    card against the CPU in fp32 and fp64, on the seeded weights and the
    two-sphere grid, the CPU's primary and fan traces and every draw shared:
    both losses, each trainable gradient; then shows that the bounds reject
    a planted fault (K3 blind to a borrowed-colour launch's first row tile).
-13. Drives 20 Vis steps (counts set to 0 just before: per step 2 grid
+17. Drives 20 Vis steps (counts set to 0 just before: per step 2 grid
    marches, at 256 and 131,072 rays, and K3 once per slice of 4,096 rays
-   that need colour, 16 rows when none does; no K1, K2 or K4), then a
-   checkpoint round trip: ``save``, ``restore_latest`` into a fresh runner
+   that need colour, 16 rows when none does; no K1, K2 or K4); holds K3 to
+   its plain version at each row count the run launched, timed at their
+   median; then a checkpoint round trip: ``save``, ``restore_latest`` into a fresh runner
    (every leaf bit-equal), ``restore_surgical`` of the indirect net; the
    saved file is the PBR stage's start.
-14. Checks one full-width PBR step (48 + 16 pixels, 128 SG lights x 32
+18. Checks one full-width PBR step (48 + 16 pixels, 128 SG lights x 32
    diffuse samples) on the card against the CPU in fp32 and fp64, on the
    seeded weights and the two-sphere grid, the CPU's trace and every draw
    shared, in row mode (compact_chunk 16) and dense, each shading with the
@@ -94,30 +126,34 @@
    the bounds reject a planted fault (K3 blind to the first row tile of
    the step's launch): the normals always, the gradients too on the
    geometry normals.
-15. The PBR stage at ``configs/hotdog.json``'s ``pbr`` section (1,024 pixels,
+19. The PBR stage at ``configs/hotdog.json``'s ``pbr`` section (1,024 pixels,
    the frozen 4 x 256 bf16 visibility net and 4 x 512 indirect net with 24
    SGs, L1, Adam 5e-4, compact_chunk 128 with the guard) through
-   ``PBRRunner``: ``load_vis_checkpoint`` of the Vis phase's file (the
-   indirect and visibility nets bit-equal to the Vis runner's, every other
-   leaf the PBR runner's own), ``bake_grid`` (counted, bit-equal to the CESR
-   runner's grid, K1 held on a chunk), and PBR_STEPS (20) steps (counts set
+   ``PBRRunner``: ``load_norm_checkpoint`` of the Norm phase's file and
+   ``load_vis_checkpoint`` of the Vis phase's (the normal decoder
+   bit-equal to the Norm runner's, the indirect and visibility nets to the
+   Vis runner's, every other leaf the PBR runner's own), ``bake_grid``
+   (counted, bit-equal to the CESR runner's grid, K1 held on a chunk), and
+   PBR_STEPS (20) steps (counts set
    to 0 just before: per step one grid march at 1,024 rays and one K3 at
    the shaded rows; no K1, K2 or K4); K3 then held to its plain version at
    every row count the run shaded, and the march on a PBR batch's rays;
    the diffuse sweep alone timed at the run's median rows.
-16. The eval render: ``PBRRunner.render_view`` of test view 0 of the shadow
+20. The eval render: ``PBRRunner.render_view`` of test view 0 of the shadow
    scene (128 x 128 in 3 chunks of 8,000 rays; counted: one march and one
    K3 a chunk), timed, its PSNR against the view's ground truth; the same
    render on recorded draws against the march's and K3's plain versions
    (identical masks, each buffer within KERNEL_TOL); K3 held to its plain
    version on each chunk's operands and the march on a chunk's rays. Then
    the SG envmap image (``compute_envmap``, 128 x 256), finite.
-17. The hand-over to CESR: ``save`` the PBR runner;
+21. The hand-over to CESR: ``save`` the PBR runner;
    ``CESRRunner.load_pbr_checkpoint`` at the ``cesr`` section (shadow_net,
    normal_net and, at dropout_iter 0, the spec-BRDF autoencoder the CESR
    runner's own; every other leaf bit-equal to the PBR runner's), then
    HANDOVER_STEPS (4) CESR steps with the per-step counts of 9.
-18. With ``--profile STEPS``, profiles that many more steps of each path and
+   The run's wall time, from argument parsing to the kernels line, is
+   printed before the kernels line.
+22. With ``--profile STEPS``, profiles that many more steps of each path and
    prints the device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, the build time, each check, the
@@ -128,6 +164,7 @@ raises and exits non-zero; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -143,8 +180,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from robir_tpu_torch.core.config import (build_stage1_configs, build_stage2_config,
-                                         build_stage_config, load_config)
+from robir_tpu_torch.core import checkpoint as ckpt_lib
+from robir_tpu_torch.core.config import (build_mesh_config, build_stage1_configs,
+                                         build_stage2_config, build_stage_config, load_config,
+                                         texture_resolution)
 from robir_tpu_torch.core.draws import Draws
 from robir_tpu_torch.core.params import to_numpy
 from robir_tpu_torch.core.tree import flatten_with_paths
@@ -164,12 +203,17 @@ from robir_tpu_torch.render.sg import compute_envmap
 from robir_tpu_torch.render.stage2 import Stage2Model, secondary_fan, stage2_forward
 from robir_tpu_torch.stages import pbr as pbr_mod
 from robir_tpu_torch.stages.cesr import SHADOW_PE, CESRRunner, CESRStageConfig, cesr_loss
+from robir_tpu_torch.stages.norm import NormRunner, NormStageConfig, norm_loss
 from robir_tpu_torch.stages.neus_stage import (NeusTrainer, batch_to_rays,
                                                cos_anneal_ratio, neus_loss)
 from robir_tpu_torch.stages.pbr import PBRRunner, PBRStageConfig, pbr_loss, pbr_sg_render
 from robir_tpu_torch.stages.stage2_runner import BATCH_KEYS, init_stage2_params, render_view
 from robir_tpu_torch.stages.vis import BATCH_KEYS as VIS_BATCH_KEYS
 from robir_tpu_torch.stages.vis import VisRunner, VisStageConfig, vis_loss
+from robir_tpu_torch.texture import mesh as tmesh
+from robir_tpu_torch.texture import native
+from robir_tpu_torch.texture.focus_sampler import TexSpaceSampler, focus_sampler_from_dataset
+from robir_tpu_torch.texture import pipeline as tpipe
 from robir_tpu_torch.tracing import grid as tg
 
 ROOT = Path(__file__).resolve().parent
@@ -237,6 +281,14 @@ METRIC_FLOOR = 1e-9
 # the eval render: rays a chunk (render_view's default) and the envmap image
 VIEW_CHUNK = 8000
 ENVMAP_HW = (128, 256)
+# the texture bake's checks: this many samples, at least TEX_MIN_MASKED of
+# them masked in
+TEX_CHECK_SAMPLES = 65536
+TEX_MIN_MASKED = 0.05
+# the Norm run: this many steps timed, then on untimed to NORM_STEPS (the
+# norm section's smooth_after is 500, so the run stays in one loss regime)
+NORM_TIMED_STEPS = 20
+NORM_STEPS = 500
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
@@ -255,6 +307,33 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def timed_calls(module, parts: dict):
+    """While open, each call of ``module.<name>``, for each ``name: label``
+    of ``parts``, adds its host seconds to the yielded dict under
+    ``label``; the module's functions are restored on exit."""
+    real = {name: getattr(module, name) for name in parts}
+    secs = {label: 0.0 for label in parts.values()}
+
+    def timed(fn, label):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                secs[label] += time.perf_counter() - t0
+        return call
+
+    try:
+        for name, label in parts.items():
+            setattr(module, name, timed(real[name], label))
+        yield secs
+    finally:
+        for name, fn in real.items():
+            setattr(module, name, fn)
 
 
 def k1_ms(plan, x, ws, bs, reps: int, packed_once: bool = False) -> float:
@@ -930,10 +1009,10 @@ def profile_steps(run, n_steps: int, what: str = "train") -> None:
 
 
 def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
-                    steps: int, seed: int, profile: int = 0):
+                    steps: int, seed: int):
     """Train ``steps`` steps and render one test view; returns that run's
-    launches by shape and the trained NeuS (numpy, JAX layout). Then, if
-    ``profile``, profile that many more steps."""
+    launches by shape, the trained NeuS (numpy, JAX layout) and the
+    trainer (its prefetch thread stopped)."""
     trainer = NeusTrainer(train_scene, model_cfg, render_cfg, train_cfg,
                           seed=seed, device="cuda")
     per_step = {"K1": render_cfg.up_sample_steps, "K2": 0, "K3": 1, "K4": 1, "march": 0}
@@ -961,8 +1040,6 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
         render_s = time.perf_counter() - t0
         run, run_shapes = counts(), shapes()
         neus = to_numpy(trainer.model.params)
-        if profile:
-            profile_steps(trainer.run, profile)
     finally:
         trainer.close()
 
@@ -988,7 +1065,7 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
           f"{img['psnr']:.3f} dB after {steps} steps, {render_s:.3f} s", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    return run_shapes, neus
+    return run_shapes, neus, trainer
 
 
 def drive_cesr_sphere(cfg, stage, dataset, params, steps: int, seed: int,
@@ -1079,16 +1156,24 @@ def check_bake_kernel(runner, path: str = "bake") -> dict:
     on), with the frozen NeuS's weights, against its plain version, and
     timed as the bake pays for it (weights packed once); returns its
     entry."""
-    sdf_cfg, gcfg = runner.cfg.neus.sdf, runner.cfg.grid
-    plan = fm.plan_from_sdf_config(sdf_cfg)
-    rows = tg.BAKE_CHUNK
+    gcfg = runner.cfg.grid
     start = gcfg.resolution ** 3 // 2
     with torch.no_grad():
-        pts = tg.node_points(gcfg, start, start + rows, "cuda") * runner.cfg.coord_scale
+        pts = tg.node_points(gcfg, start, start + tg.BAKE_CHUNK, "cuda") * runner.cfg.coord_scale
+    return k1_chunk_entry(runner.cfg.neus.sdf, runner.params["implicit_network"]["sdf_network"],
+                          pts, "the grid bake", path)
+
+
+def k1_chunk_entry(sdf_cfg, sdf_params, pts, what: str, path: str) -> dict:
+    """K1 on one chunk of ``pts`` (the SDF trunk's input points), with the
+    trunk's weights, against its plain version, and timed as a frozen
+    trunk's caller pays for it (weights packed once); returns its entry."""
+    plan = fm.plan_from_sdf_config(sdf_cfg)
+    rows = pts.shape[0]
+    with torch.no_grad():
         x = positional_encoding(pts * sdf_cfg.scale, sdf_cfg.pe)
-        ws, bs = fm.fold_weight_norm(runner.params["implicit_network"]["sdf_network"],
-                                     plan.n_layers)
-        err = held_to_plain(f"K1 at the bake's {rows} rows", [
+        ws, bs = fm.fold_weight_norm(sdf_params, plan.n_layers)
+        err = held_to_plain(f"K1 at {what}'s {rows} rows", [
             ("y", fm.fused_mlp_cuda(plan, x, ws, bs), fm._forward_rows(plan, x, ws, bs))])
         ms = k1_ms(plan, x, ws, bs, 10, packed_once=True)
         plain = cuda_ms(lambda: fm._forward_rows(plan, x, ws, bs), 5)
@@ -1096,8 +1181,7 @@ def check_bake_kernel(runner, path: str = "bake") -> dict:
     nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
     bound = bound_ms(2.0 * nw * rows, 4.0 * (rows * (plan.dims[0] + plan.out_dim) + nw + nb))
     entries = {f"K1 {path}": dict(
-        name=f"K1 fused_mlp trunk forward, SDF trunk plan (width 264 build), the grid bake "
-             f"({path})",
+        name=f"K1 fused_mlp trunk forward, SDF trunk plan (width 264 build), {what} ({path})",
         route="cuda", source="robir_tpu_torch/csrc/fused_mlp.cu",
         replaces="robir_tpu/render/pallas/fused_mlp.py:111", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None, rows=rows,
@@ -1316,6 +1400,267 @@ def check_grid_path_kernels(sdf_cfg, normal_cfg, shaded: list, gen) -> dict:
     return entries
 
 
+def drive_mesh(trainer, mesh_cfg, out_dir: str):
+    """The mesh export (path ``mesh``): ``NeusTrainer.extract_mesh`` of the
+    NeuS stage 1 just trained, at ``mesh_cfg`` (the ``mesh`` section of
+    configs/neus_blender.json), with the counts set to 0 just before: one
+    K1 launch per MESH_CHUNK grid nodes and nothing else. Times the whole
+    call and, inside it, the SDF grid (the card) and the host marching
+    tetrahedra (``timed_calls``). Writes the PLY into ``out_dir`` and
+    reads it back equal; holds K1 to its plain version on a chunk from the
+    grid's middle. Returns (the launches by shape, the PLY's path, the
+    kernel entries)."""
+    R, bb = mesh_cfg.resolution, trainer.train_cfg.mesh_bbox
+    box = (tuple(mesh_cfg.bbox_min), tuple(mesh_cfg.bbox_max))
+    if box != ((-bb,) * 3, (bb,) * 3):
+        raise RuntimeError(f"the mesh section's box {box} is not the trainer's +-{bb}")
+    n, chunk = R ** 3, tmesh.MESH_CHUNK
+    want = {k: {} for k in KERNELS}
+    want["K1"] = {(fm.MAX_WIDTH, chunk): -(-n // chunk)}
+    torch.cuda.synchronize()
+    reset_counts()
+    with timed_calls(tmesh, {"sdf_grid": "grid", "marching_tetrahedra": "mt"}) as secs:
+        t0 = time.perf_counter()
+        mesh = trainer.extract_mesh(R)
+        total_s = time.perf_counter() - t0
+    run = shapes()
+    if run != want:
+        raise RuntimeError(f"mesh export launches {run}, expected {want}")
+    if len(mesh.tris) == 0 or not np.isfinite(mesh.verts).all():
+        raise RuntimeError(f"the mesh export gave {len(mesh.tris)} triangles or non-finite "
+                           f"vertices")
+    path = os.path.join(out_dir, "mesh.ply")
+    mesh.export_ply(path)
+    back = tmesh.Mesh.load_ply(path)
+    if not (np.array_equal(back.verts, mesh.verts) and np.array_equal(back.tris, mesh.tris)):
+        raise RuntimeError("the PLY read back differs from the mesh written")
+    lo, hi = mesh.bounds()
+    print(f"mesh export (NeusTrainer.extract_mesh at the mesh section): {R}^3 = {n} nodes over "
+          f"[{box[0][0]}, {box[1][0]}]^3, {total_s:.3f} s wall; in it, the SDF grid "
+          f"{secs['grid']:.3f} s (K1 launches by (build width, rows) {want['K1']}, the grid "
+          f"copied to the host), marching tetrahedra {secs['mt']:.3f} s on the host; "
+          f"{len(mesh.verts)} vertices, "
+          f"{len(mesh.tris)} triangles, bounds ({', '.join(f'{v:.4f}' for v in lo)}) .. "
+          f"({', '.join(f'{v:.4f}' for v in hi)}); PLY {os.path.getsize(path)} bytes, read back "
+          f"equal",
+          flush=True)
+    axes = [np.linspace(np.float32(box[0][i]), np.float32(box[1][i]), R, dtype=np.float32)
+            for i in range(3)]
+    start = max(0, min(n // 2, n - chunk))
+    idx = np.arange(start, min(start + chunk, n))
+    pts = torch.as_tensor(np.stack([axes[0][idx // (R * R)], axes[1][(idx // R) % R],
+                                    axes[2][idx % R]], -1), device="cuda")
+    entries = k1_chunk_entry(trainer.model_cfg.sdf, trainer.model.params["sdf_network"], pts,
+                             "the mesh grid", "mesh")
+    return run, path, entries
+
+
+def bake_texture(mesh_path: str, resolution: int, model, mesh_cfg, seed: int):
+    """The texture bake of ``mesh_path`` at ``resolution``: ``TexSampler``,
+    with its parts timed inside it (``timed_calls`` on the pipeline's
+    calls): the atlas, the vertex, normal and mask maps rasterised, written
+    as EXR into the cache beside the mesh and read back, the five erode
+    passes. Checks TEX_CHECK_SAMPLES samples: at least TEX_MIN_MASKED of
+    them masked in, and ``model`` (the stage-2 model of the frozen NeuS)
+    reads a median |sdf| at the masked ones, in stage-2 coordinates, below
+    one cell of the mesh grid there (a wrong stage-1 -> stage-2 scale puts
+    them off the surface). Returns the TexSampler."""
+    parts = {"atlas_parameterize": "atlas", "rasterize_attributes": "rasterise",
+             "write_exr": "EXR write", "read_exr": "EXR read", "erode_map": "erode x5"}
+    with timed_calls(tpipe, parts) as secs:
+        t0 = time.perf_counter()
+        ts = tpipe.TexSampler(mesh_path, resolution)
+        total_s = time.perf_counter() - t0
+    s = ts.sample(np.random.default_rng(seed), TEX_CHECK_SAMPLES)
+    masked = s["object_mask"]
+    with torch.no_grad():
+        sdf = model.frozen_sdf()(torch.as_tensor(s["x"][masked], dtype=torch.float32,
+                                                 device="cuda"))
+    med = float(sdf.abs().median()) if masked.any() else float("inf")
+    span = np.max(np.subtract(mesh_cfg.bbox_max, mesh_cfg.bbox_min))
+    cell = float(span / (mesh_cfg.resolution - 1) / model.cfg.coord_scale)
+    print(f"texture bake at {resolution}^2 (host): TexSampler {total_s:.3f} s, in it " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in secs.items()) + f"; {float(ts.mask.mean()):.4f} of the "
+        f"texels masked in", flush=True)
+    print(f"texture samples: {int(masked.sum())} of {TEX_CHECK_SAMPLES} masked in "
+          f"({float(masked.mean()):.4f}, at least {TEX_MIN_MASKED}); the frozen NeuS at them "
+          f"(stage-2 coordinates, x {ts.coord_scale}): median |sdf| {med:.6f}, max "
+          f"{float(sdf.abs().max()) if masked.any() else float('inf'):.6f}, bound one mesh-grid "
+          f"cell {cell:.6f}", flush=True)
+    if not masked.mean() >= TEX_MIN_MASKED:
+        raise RuntimeError(f"only {float(masked.mean()):.4f} of the texture samples masked in")
+    if not med < cell:
+        raise RuntimeError(f"the texture samples lie off the frozen NeuS's surface: median "
+                           f"|sdf| {med:.6f} >= {cell:.6f}")
+    return ts
+
+
+def check_norm_step_against_cpu(cfg, stage, params, seed: int) -> None:
+    """One full-width Norm step (``norm_loss`` and its gradients) on the
+    card (fp32) and the CPU (fp32, fp64) on one batch and one draw, at
+    cur_iter 0 and at smooth_after + 1 (the smoothness term on): each
+    metric and each gradient of the normal decoder, against fp64, within
+    LOSS_RTOL (GRAD_TOL of its largest entry for a gradient) or, where fp32
+    itself does worse, CESR_FP32_FACTOR x the CPU fp32 step's own distance.
+    The batch is seeded, not sampled from the exported mesh (whose NeuS
+    stage 1 trained through K4's atomics, in an order that changes between
+    runs): points on the shadow scene's larger sphere with its normals, a
+    third of them masked out. The step runs no kernel of the port (it must
+    launch none), so there is no planted kernel fault."""
+    n = stage.num_pixels
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    center, radius = SHADOW_SPHERES[0]
+    tb = {"points": torch.as_tensor(np.float32(center) + np.float32(radius) * d,
+                                    dtype=torch.float32),
+          "normals": torch.as_tensor(d, dtype=torch.float32),
+          "object_mask": torch.as_tensor(rng.random(n) > 1 / 3)}
+    noise = torch.randn(cfg.envmap.normal_ae.noise_shape(n),
+                        generator=torch.Generator().manual_seed(seed))
+    sides = (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64))
+    runners = {side: NormRunner(cfg, params, None, stage, seed=seed, device=side[0])
+               for side in sides}
+    runners["cpu", torch.float64].params.to(torch.float64)
+    names = [k for k, p in flatten_with_paths(runners["cpu", torch.float32].params).items()
+             if p.requires_grad]
+
+    def step(dev: str, dtype, cur_iter: int) -> tuple:
+        runner = runners[dev, dtype]
+        torch.set_default_dtype(dtype)
+        try:
+            inp = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+                   for k, v in tb.items()}
+            loss, metrics = norm_loss(runner.params, cfg, stage, inp, cur_iter,
+                                      Draws(given={"normal_ae": noise}, device=dev))
+            grads = torch.autograd.grad(loss, runner.trainable)
+        finally:
+            torch.set_default_dtype(torch.float32)
+        return ({k: float(v) for k, v in metrics.items()},
+                [g.to("cpu", torch.float64) for g in grads])
+
+    def rel(a, ref):
+        return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+    for cur_iter in (0, stage.smooth_after + 1):
+        m32, g32 = step("cpu", torch.float32, cur_iter)
+        m64, g64 = step("cpu", torch.float64, cur_iter)
+        torch.cuda.synchronize()
+        reset_counts()
+        m_gpu, g_gpu = step("cuda", torch.float32, cur_iter)
+        if any(counts().values()):
+            raise RuntimeError(f"the Norm step launched {counts()}")
+        over = {}
+        for k in m64:
+            err, own = abs(m_gpu[k] - m64[k]), abs(m32[k] - m64[k])
+            over[k] = err / max(LOSS_RTOL * abs(m64[k]), CESR_FP32_FACTOR * own, 1e-30)
+        errs = {nm: (rel(a, r), rel(c, r)) for nm, a, c, r in zip(names, g_gpu, g32, g64)}
+        for nm, (e, own) in errs.items():
+            over[nm] = e / max(GRAD_TOL, CESR_FP32_FACTOR * own)
+        worst = max(over, key=over.get)
+        print(f"Norm step check at cur_iter {cur_iter} ({n} points on a sphere, "
+              f"{int(tb['object_mask'].sum())} masked in; no kernel of the port runs in the "
+              f"step, so no planted fault): loss card {m_gpu['loss']:.8f}, CPU fp32 "
+              f"{m32['loss']:.8f}, fp64 {m64['loss']:.8f}; normal_loss card "
+              f"{m_gpu['normal_loss']:.8f}, fp64 {m64['normal_loss']:.8f}; smooth_loss card "
+              f"{m_gpu['smooth_loss']:.6e}, CPU fp32 {m32['smooth_loss']:.6e}, fp64 "
+              f"{m64['smooth_loss']:.6e}; {len(errs)} gradient tensors", flush=True)
+        for nm in sorted(errs, key=over.get)[-3:]:
+            print(f"  {nm:60s} card vs fp64 {errs[nm][0]:.3e}, CPU fp32 vs fp64 "
+                  f"{errs[nm][1]:.3e}", flush=True)
+        print(f"Norm step check worst at cur_iter {cur_iter}: {worst} at {over[worst]:.3f} of "
+              f"its bound", flush=True)
+        if not over[worst] <= 1.0:
+            raise RuntimeError(f"Norm step at cur_iter {cur_iter}: {worst} on the card is "
+                               f"{over[worst]:.3f}x its bound")
+
+
+def drive_norm(runner, profile: int = 0):
+    """The Norm run (path ``norm``): NORM_TIMED_STEPS ``NormRunner`` steps
+    on the card, each timed with CUDA events around ``run(1)`` (its host
+    batch included), the host batch timed alone besides; then on, untimed,
+    to NORM_STEPS. The counts are set to 0 just before: the run may launch
+    no kernel of the port. ``normal_loss`` must fall from step 1 to the
+    last. Returns the launches by shape. Then, if ``profile``, profiles
+    that many more steps."""
+    stage = runner.stage_cfg
+    if NORM_STEPS > stage.smooth_after + 1:
+        raise RuntimeError("the Norm run would cross smooth_after")
+    losses, step_ms = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for _ in range(NORM_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = runner.run(1)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses[runner.cur_iter] = m
+    t0 = time.perf_counter()
+    losses[NORM_STEPS] = runner.run(NORM_STEPS - runner.cur_iter)
+    torch.cuda.synchronize()
+    rest_s = time.perf_counter() - t0
+    run = shapes()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(n for by in run.values() for n in by.values()):
+        raise RuntimeError(f"the Norm run launched {run}")
+    batch_ms = []
+    for _ in range(NORM_TIMED_STEPS):
+        t0 = time.perf_counter()
+        runner._batch()
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+    if profile:
+        profile_steps(runner.run, profile, "Norm")
+    for it, m in losses.items():
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"Norm step {it}: non-finite {m}")
+    first, mid, last = losses[1], losses[NORM_TIMED_STEPS], losses[NORM_STEPS]
+    steady = step_ms[2:]
+    print(f"Norm run ({stage.num_pixels} texture samples a step, lr {stage.opt.lr}): "
+          f"normal_loss at step 1 {first['normal_loss']:.6f}, step {NORM_TIMED_STEPS} "
+          f"{mid['normal_loss']:.6f}, step {NORM_STEPS} {last['normal_loss']:.6f} (smooth_loss "
+          f"{last['smooth_loss']:.3e}, in the loss from cur_iter {stage.smooth_after + 1} on); no "
+          f"kernel of the port launched", flush=True)
+    print(f"Norm step: median {float(np.median(steady)):.3f} ms, mean "
+          f"{float(np.mean(steady)):.3f} ms over steps 3-{NORM_TIMED_STEPS} (CUDA events around "
+          f"NormRunner.run(1), its host batch included); first step {step_ms[0]:.3f} ms; the "
+          f"host batch alone (NormRunner._batch: simple_data_batch and the copy to the card) "
+          f"median "
+          f"{float(np.median(batch_ms)):.3f} ms; steps {NORM_TIMED_STEPS + 1}-{NORM_STEPS} "
+          f"{rest_s:.3f} s wall; peak device memory {peak:.3f} GiB", flush=True)
+    if not last["normal_loss"] < first["normal_loss"]:
+        raise RuntimeError(f"normal_loss did not fall: {first['normal_loss']} -> "
+                           f"{last['normal_loss']}")
+    return run
+
+
+def vis_runner_from_norm(cfg, params, dataset, stage, seed: int, norm_runner, norm_path: str):
+    """``VisRunner`` on ``params`` with the Norm checkpoint's normal decoder
+    restored into them before the runner is built, as
+    ``robir_tpu/cli.py:cmd_vis`` does: every leaf must be the Norm
+    runner's, bit for bit (it trained the decoder alone), and the decoder
+    must differ from the init's."""
+    keep = lambda p: "normal_decoder_layer" in p  # noqa: E731
+    vis_params, _ = ckpt_lib.restore_into(params, norm_path, keep=keep)
+    runner = VisRunner(cfg, vis_params, dataset, stage, seed=seed, device="cuda")
+    got, want = flat_leaves(runner), flat_leaves(norm_runner)
+    init = flatten_with_paths(params)
+    wrong = [k for k in got if not torch.equal(got[k], want[k])]
+    same = [k for k in got if keep(k) and np.array_equal(got[k].cpu().numpy(),
+                                                           np.asarray(init[k]))]
+    if wrong or got.keys() != want.keys() or same:
+        raise RuntimeError(f"the Vis parameters from the Norm checkpoint: leaves {wrong[:5]} "
+                           f"differ from the Norm runner's, {same[:5]} are the init's")
+    print(f"VisRunner from the Norm checkpoint {os.path.basename(norm_path)} (cmd_vis's restore "
+          f"before the runner): {sum(keep(k) for k in got)} normal_decoder_layer leaves and the "
+          f"other {sum(not keep(k) for k in got)} bit-equal to the Norm runner's", flush=True)
+    return runner
+
+
 def seeded_neus(model_cfg, seed: int) -> dict:
     """A NeuS that no kernel with a run-dependent summation order produced:
     the seeded init, carried through the weights bridge (numpy, JAX
@@ -1377,7 +1722,9 @@ def check_borrow_color(runner, gen) -> dict:
     directions, in slices of ``fan_compact_chunk`` rays as the step runs it.
     The card's colour (K3) against the same call with K3's plain version,
     within KERNEL_TOL of its largest entry; the whole call and K3 on one
-    slice timed, the peak memory of the call. Returns K3's Vis entry."""
+    full slice timed, the peak memory of the call. A check off the main
+    path: the driven Vis steps need far fewer rays (``check_vis_path_kernels``
+    holds K3 at their shapes). Returns K3's entry at that slice."""
     ds, chunk = runner.dataset, runner.stage_cfg.fan_compact_chunk
     model = Stage2Model(runner.params, runner.cfg, "cuda", runner.grid_values)
     hits = []
@@ -1439,13 +1786,34 @@ def check_borrow_color(runner, gen) -> dict:
           f"{(peak - base) / 2**30:.2f} GiB above what was held before the call", flush=True)
     if len(slices) != -(-VIS_BORROW_RAYS // chunk):
         raise RuntimeError(f"borrow_color launched K3 {len(slices)} times")
-    return {"K3 vis": dict(
-        name=f"K3 fused_value_grad forward (value + d sdf/dx), the Vis borrowed colour, no "
-             f"graph (timed on a slice of {chunk} rays; counts every slice)",
+    return {"K3 vis borrow check": dict(
+        name=f"K3 fused_value_grad forward (value + d sdf/dx), borrow_color on a full slice "
+             f"of {chunk} rays, no graph (a check off the main path)",
         route="cuda", source="robir_tpu_torch/csrc/fused_value_grad.cu",
         replaces="robir_tpu/render/pallas/fused_value_grad.py:131", max_abs_err=err, ms=ms,
         plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None, rows=rows,
-        kernel="K3", path="vis", shape=None)}
+        kernel="K3", path=None, shape=None)}
+
+
+def check_vis_path_kernels(runner, run: dict, gen) -> dict:
+    """K3 at the SDF trunk's plan against its plain version at every row
+    count the driven Vis run launched it at (``run``: its launches by
+    shape), timed at the launches' median (the lower one, a row count the
+    run launched); returns its entry, which counts the run's K3 launches
+    at every row count."""
+    plan = fm.plan_from_sdf_config(runner.cfg.neus.sdf)
+    launched = sorted(r for (_, r), k in run["K3"].items() for _ in range(k))
+    counts_run = sorted(set(launched))
+    median = launched[(len(launched) - 1) // 2]
+    x, ws, bs = trunk_inputs(plan, runner.cfg.neus.sdf.pe, counts_run[-1], gen)
+    slices = [(plan, x[:r], ws, bs) for r in counts_run]
+    entries = {"K3 vis rows": k3_entry(
+        f"the Vis borrowed colour at the run's rows ({counts_run[0]}-{counts_run[-1]}; timed "
+        f"at the median)", slices, "vis", counts_run.index(median))}
+    print(f"Vis run's K3 row counts (16 a needed ray; held to its plain version at each): "
+          f"{counts_run}", flush=True)
+    report(entries)
+    return entries
 
 
 def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> None:
@@ -1834,11 +2202,20 @@ def check_pbr_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> 
 
 
 def load_pbr_runner(cfg, params, dataset, stage, seed: int, vis_runner, vis_path: str,
-                    log_dir: str):
-    """``PBRRunner`` at ``stage`` from the Vis stage's checkpoint
-    (``load_vis_checkpoint``): the indirect and visibility nets must be the
-    Vis runner's, bit for bit, every other leaf the PBR runner's own."""
+                    norm_runner, norm_path: str, log_dir: str):
+    """``PBRRunner`` at ``stage`` from the Norm and Vis stages' checkpoints,
+    in ``robir_tpu/cli.py:cmd_pbr``'s order: ``load_norm_checkpoint`` (the
+    normal decoder must be the Norm runner's, bit for bit, every other leaf
+    the PBR runner's own), then ``load_vis_checkpoint`` (the indirect and
+    visibility nets the Vis runner's, every other leaf as it was)."""
     runner = PBRRunner(cfg, params, dataset, stage, seed=seed, device="cuda", log_dir=log_dir)
+    before = flat_leaves(runner)
+    runner.load_norm_checkpoint(norm_path)
+    kept = check_surgery("load_norm_checkpoint", before, flat_leaves(runner),
+                         flat_leaves(norm_runner), lambda p: "normal_decoder_layer" in p)
+    print(f"PBRRunner.load_norm_checkpoint {os.path.basename(norm_path)}: {kept} "
+          f"normal_decoder_layer leaves bit-equal to the Norm runner's, the other "
+          f"{len(before) - kept} the PBR runner's own", flush=True)
     before = flat_leaves(runner)
     runner.load_vis_checkpoint(vis_path)
     kept = check_surgery("load_vis_checkpoint", before, flat_leaves(runner),
@@ -2125,6 +2502,7 @@ def main() -> None:
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after each main path, profile this many more of its steps")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if min(args.steps, args.cesr_steps) < 1:
         ap.error("--steps and --cesr-steps must be at least 1")
     if not torch.cuda.is_available():
@@ -2144,6 +2522,11 @@ def main() -> None:
 
     print(f"build: {build.build_all():.2f} s, nvcc {' '.join(build.NVCC_FLAGS)} for "
           f"{', '.join(build.SOURCES)} (and {build.SOURCE_FLAGS} for those sources)", flush=True)
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s, g++ {' '.join(native.CXX_FLAGS)} for the host "
+          f"library {native.SOURCE.name} (marching tetrahedra, rasteriser, atlas, EXR PIZ) into "
+          f"{lib.relative_to(ROOT)}", flush=True)
     ptxas_report()
 
     model_cfg, render_cfg, train_cfg, dataset_cfg, cesr_cfg, stage_cfg = load_configs()
@@ -2158,76 +2541,109 @@ def main() -> None:
     train_scene = make_sphere_scene("train", h=64, w=64, seed=args.seed, cfg=dataset_cfg)
     test_scene = make_sphere_scene("test", h=64, w=64, seed=args.seed, cfg=dataset_cfg)
     check_step_against_cpu(model_cfg, render_cfg, train_cfg, train_scene, args.seed)
-    stage1, neus = drive_main_path(model_cfg, render_cfg, train_cfg, train_scene,
-                                   test_scene, args.steps, args.seed, args.profile)
-
-    dataset = shadow_scene(n_train=20, h=128, w=128, seed=args.seed)
-    params = cesr_params(cesr_cfg, neus, args.seed)
-    # the step checks: the seeded NeuS, not the one stage 1 just trained
-    # (its K4 sums dW with atomics in an order that changes between runs)
-    check_params = cesr_params(cesr_cfg, seeded_neus(model_cfg, args.seed), args.seed)
-    sphere_cfg = dataclasses.replace(cesr_cfg, tracer="sphere")
-    sphere_stage = dataclasses.replace(stage_cfg, compact_chunk=0)
-    check_cesr_step_against_cpu(sphere_cfg, sphere_stage, dataset, check_params, args.seed)
-    cesr_sphere = drive_cesr_sphere(sphere_cfg, sphere_stage, dataset, params,
-                                    SPHERE_STEPS, args.seed, args.profile)
-
-    # the CESR path at the JAX package's defaults: grid tracer, compaction
-    runner = CESRRunner(cesr_cfg, params, dataset, stage_cfg, seed=args.seed, device="cuda")
-    bake = bake_grid(runner)
-    entries.update(check_bake_kernel(runner))
-    entries.update(check_march(cesr_cfg.grid, runner.grid_values, dataset, stage_cfg.num_pixels,
-                               4096, args.seed, gen))
-    two_spheres = tg.build_sdf_grid(two_sphere_sdf, cesr_cfg.grid, device="cuda")
-    check_cesr_step_against_cpu(cesr_cfg, dataclasses.replace(stage_cfg, compact_chunk=16),
-                                dataset, check_params, args.seed, grid=two_spheres)
-    cesr, shaded = drive_cesr_grid(runner, args.cesr_steps, args.profile)
-    entries.update(check_grid_path_kernels(model_cfg.sdf, stage_cfg.normal_cfg, shaded, gen))
-
-    # the Vis stage at configs/hotdog.json's vis section: the energy
-    # prologue, the bake, then the steps
-    vis_stage = build_stage_config(VisStageConfig, load_config(str(STAGE2_CONFIG))["vis"])
-    vis_runner = VisRunner(cesr_cfg, params, dataset, vis_stage, seed=args.seed, device="cuda")
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    vis_runner.fit_energy_prologue()
-    torch.cuda.synchronize()
-    prologue_s = time.perf_counter() - t0
-    if any(counts().values()):
-        raise RuntimeError(f"the energy prologue launched {counts()}")
-    energy = to_numpy(vis_runner.params["gamma"]["energy"])
-    if not all(np.isfinite(v).all() for v in flatten_with_paths(energy).values()):
-        raise RuntimeError("the fitted energy net is not finite")
-    print(f"Vis energy prologue: 1000 Adam steps (8,192 pixels x 512 shifts each) on "
-          f"{len(dataset.masked_pixels())} masked pixels, {prologue_s:.3f} s wall to a "
-          f"synchronize; no kernel of the port launched", flush=True)
-    vis_bake = bake_grid(vis_runner)
-    if not torch.equal(vis_runner.grid_values, runner.grid_values):
-        raise RuntimeError("the Vis runner's grid differs from the CESR runner's of that NeuS")
-    print("Vis grid bit-equal to the CESR runner's grid of the same NeuS", flush=True)
-    entries.update(check_bake_kernel(vis_runner, "vis_bake"))
-    entries.update(check_vis_march(vis_runner, args.seed))
-    entries.update(check_borrow_color(vis_runner, gen))
-    check_vis_step_against_cpu(cesr_cfg, vis_stage, dataset, check_params, args.seed,
-                               two_spheres)
-    vis = drive_vis(vis_runner, VIS_STEPS, args.profile)
+    stage1, neus, trainer = drive_main_path(model_cfg, render_cfg, train_cfg, train_scene,
+                                            test_scene, args.steps, args.seed)
     raw = load_config(str(STAGE2_CONFIG))
     with tempfile.TemporaryDirectory() as log_dir:
+        # the mesh export of the NeuS stage 1 just trained, before its
+        # profile steps move the trainer's NeuS off the one stage 2 takes
+        mesh_cfg = build_mesh_config(load_config(str(CONFIG)))
+        mesh, mesh_path, mesh_entries = drive_mesh(trainer, mesh_cfg, log_dir)
+        entries.update(mesh_entries)
+        if args.profile:
+            try:
+                profile_steps(trainer.run, args.profile)
+            finally:
+                trainer.close()
+
+        dataset = shadow_scene(n_train=20, h=128, w=128, seed=args.seed)
+        params = cesr_params(cesr_cfg, neus, args.seed)
+        # the step checks: the seeded NeuS, not the one stage 1 just trained
+        # (its K4 sums dW with atomics in an order that changes between runs)
+        check_params = cesr_params(cesr_cfg, seeded_neus(model_cfg, args.seed), args.seed)
+        sphere_cfg = dataclasses.replace(cesr_cfg, tracer="sphere")
+        sphere_stage = dataclasses.replace(stage_cfg, compact_chunk=0)
+        check_cesr_step_against_cpu(sphere_cfg, sphere_stage, dataset, check_params, args.seed)
+        cesr_sphere = drive_cesr_sphere(sphere_cfg, sphere_stage, dataset, params,
+                                        SPHERE_STEPS, args.seed, args.profile)
+
+        # the CESR path at the JAX package's defaults: grid tracer, compaction
+        runner = CESRRunner(cesr_cfg, params, dataset, stage_cfg, seed=args.seed, device="cuda")
+        bake = bake_grid(runner)
+        entries.update(check_bake_kernel(runner))
+        entries.update(check_march(cesr_cfg.grid, runner.grid_values, dataset,
+                                   stage_cfg.num_pixels, 4096, args.seed, gen))
+        two_spheres = tg.build_sdf_grid(two_sphere_sdf, cesr_cfg.grid, device="cuda")
+        check_cesr_step_against_cpu(cesr_cfg, dataclasses.replace(stage_cfg, compact_chunk=16),
+                                    dataset, check_params, args.seed, grid=two_spheres)
+        cesr, shaded = drive_cesr_grid(runner, args.cesr_steps, args.profile)
+        entries.update(check_grid_path_kernels(model_cfg.sdf, stage_cfg.normal_cfg, shaded, gen))
+
+        # the texture bake at configs/hotdog.json's texture_resolution and
+        # the Norm stage at its norm section, on the exported mesh; Vis and
+        # PBR then start from the trained decoder
+        tex = bake_texture(mesh_path, texture_resolution(raw),
+                           Stage2Model(params, cesr_cfg, "cuda"), mesh_cfg, args.seed)
+        norm_stage = build_stage_config(NormStageConfig, raw["norm"])
+        check_norm_step_against_cpu(cesr_cfg, norm_stage, check_params, args.seed)
+        grid_values = runner.grid_values
+        sampler = TexSpaceSampler(
+            tex, focus_sampler_from_dataset(dataset),
+            lambda o, d: tg.grid_cast(grid_values, cesr_cfg.grid, o, d),
+            offset=TexSpaceSampler.offset_for_grid(cesr_cfg.grid), device="cuda")
+        norm_runner = NormRunner(cesr_cfg, params, sampler, norm_stage, seed=args.seed,
+                                 device="cuda", log_dir=log_dir)
+        norm = drive_norm(norm_runner, args.profile)
+        norm_runner.save()
+        norm_path = os.path.join(norm_runner.ckpt_dir(), "latest.npz")
+
+        # the Vis stage at configs/hotdog.json's vis section, its params
+        # with the Norm decoder: the energy prologue, the bake, then the steps
+        vis_stage = build_stage_config(VisStageConfig, raw["vis"])
+        vis_runner = vis_runner_from_norm(cesr_cfg, params, dataset, vis_stage, args.seed,
+                                          norm_runner, norm_path)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        vis_runner.fit_energy_prologue()
+        torch.cuda.synchronize()
+        prologue_s = time.perf_counter() - t0
+        if any(counts().values()):
+            raise RuntimeError(f"the energy prologue launched {counts()}")
+        energy = to_numpy(vis_runner.params["gamma"]["energy"])
+        if not all(np.isfinite(v).all() for v in flatten_with_paths(energy).values()):
+            raise RuntimeError("the fitted energy net is not finite")
+        print(f"Vis energy prologue: 1000 Adam steps (8,192 pixels x 512 shifts each) on "
+              f"{len(dataset.masked_pixels())} masked pixels, {prologue_s:.3f} s wall to a "
+              f"synchronize; no kernel of the port launched", flush=True)
+        vis_bake = bake_grid(vis_runner)
+        if not torch.equal(vis_runner.grid_values, runner.grid_values):
+            raise RuntimeError("the Vis runner's grid differs from the CESR runner's of that "
+                               "NeuS")
+        print("Vis grid bit-equal to the CESR runner's grid of the same NeuS", flush=True)
+        entries.update(check_bake_kernel(vis_runner, "vis_bake"))
+        entries.update(check_vis_march(vis_runner, args.seed))
+        entries.update(check_borrow_color(vis_runner, gen))
+        check_vis_step_against_cpu(cesr_cfg, vis_stage, dataset, check_params, args.seed,
+                                   two_spheres)
+        vis = drive_vis(vis_runner, VIS_STEPS, args.profile)
+        entries.update(check_vis_path_kernels(vis_runner, vis, gen))
         vis_path = check_vis_checkpoint(vis_runner, cesr_cfg, params, vis_stage, args.seed,
                                         log_dir)
 
-        # the PBR stage at configs/hotdog.json's pbr section, from the Vis
-        # checkpoint: the step check, the bake, the steps, the eval render
-        # and the envmap; then the hand-over to CESR at its cesr section
+        # the PBR stage at configs/hotdog.json's pbr section, from the Norm
+        # and Vis checkpoints: the step check, the bake, the steps, the eval
+        # render and the envmap; then the hand-over to CESR at its cesr
+        # section
         pbr_stage = build_stage_config(PBRStageConfig, raw["pbr"])
         check_pbr_step_against_cpu(cesr_cfg, pbr_stage, dataset, check_params, args.seed,
                                    two_spheres)
         pbr_runner = load_pbr_runner(cesr_cfg, params, dataset, pbr_stage, args.seed,
-                                     vis_runner, vis_path, log_dir)
+                                     vis_runner, vis_path, norm_runner, norm_path, log_dir)
         pbr_bake = bake_grid(pbr_runner)
         if not torch.equal(pbr_runner.grid_values, runner.grid_values):
-            raise RuntimeError("the PBR runner's grid differs from the CESR runner's of that NeuS")
+            raise RuntimeError("the PBR runner's grid differs from the CESR runner's of that "
+                               "NeuS")
         entries.update(check_bake_kernel(pbr_runner, "pbr_bake"))
         pbr, pbr_shaded = drive_pbr(pbr_runner, PBR_STEPS, args.profile)
         time_pbr_sweep(pbr_runner, int(np.median(pbr_shaded)), gen)
@@ -2243,8 +2659,8 @@ def main() -> None:
     # the CESR and PBR runs' trunk kernels at their shaded rows); the check
     # shapes off the main paths count none
     paths = {"neus_stage1": stage1, "cesr_sphere": cesr_sphere, "bake": bake, "cesr": cesr,
-             "vis_bake": vis_bake, "vis": vis, "pbr_bake": pbr_bake, "pbr": pbr,
-             "pbr_view": pbr_view}
+             "mesh": mesh, "norm": norm, "vis_bake": vis_bake, "vis": vis,
+             "pbr_bake": pbr_bake, "pbr": pbr, "pbr_view": pbr_view}
     for name, e in entries.items():
         if e["path"] is None:
             e["launches"] = 0
@@ -2261,6 +2677,8 @@ def main() -> None:
                 raise RuntimeError(f"{kernel} on the {path} path: {by_shape} launches, "
                                    f"{listed} in the kernels line")
 
+    print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s (from argument parsing "
+          f"to the kernels line, the build included)", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "rows", "path", "cluster", "ctas")
     print(json.dumps({"kernels": [{k: e.get(k) for k in keys} for e in entries.values()]}))

@@ -7,8 +7,9 @@ missing keys and rejecting unknown ones. Covered sections: stage 1's
 ``model``, ``render``, ``train`` and ``dataset``; stage 2's ``model``
 (``neus``, ``envmap_material_network``, ``indirect_illum_network``,
 ``visibility_network``, ``tonemap``, ``grid``, ``coord_scale``,
-``sweep_light_chunk`` and the tracer keys), the ``vis``, ``pbr`` and
-``cesr`` stage sections. Other sections (``mesh``, ``norm``) are not read.
+``sweep_light_chunk`` and the tracer keys), ``texture_resolution``, and
+the ``norm``, ``vis``, ``pbr`` and ``cesr`` stage sections; stage 1's
+``mesh`` section (``build_mesh_config``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..stages.losses import IllumLossConfig, InvLossConfig
 from ..stages.neus_stage import NeusTrainConfig
 from ..stages.stage2_runner import StageOptConfig
 from ..stages.vis import VisStageConfig
+from ..texture.mesh import MeshConfig
 from ..tracing.grid import GridConfig
 from ..tracing.sphere import SphereTracerConfig
 
@@ -67,6 +69,18 @@ def build_neus_config(d: dict) -> NeuSConfig:
                       variance=_build(VarianceConfig, d.get("variance")),
                       background=d.get("background"),
                       radius=d.get("radius", 2.0))
+
+
+def build_mesh_config(cfg: dict) -> MeshConfig:
+    """The mesh export's grid of a stage-1 config dict (its ``mesh``
+    section; ``robir_tpu/cli.py:cmd_mesh``'s defaults where it is absent)."""
+    return _build(MeshConfig, cfg.get("mesh"))
+
+
+def texture_resolution(cfg: dict) -> int:
+    """The texture maps' side of a stage-2 config dict (default 2048, as
+    ``robir_tpu/cli.py:cmd_norm``)."""
+    return int(cfg.get("texture_resolution", 2048))
 
 
 def build_neus_render_config(d: dict) -> NeusRenderConfig:
@@ -114,9 +128,9 @@ def build_stage2_config(d: dict, **overrides) -> Stage2Config:
 
 
 def build_stage_config(dc_type, d: dict | None, **overrides):
-    """A stage config (``VisStageConfig``, ``PBRStageConfig``,
-    ``CESRStageConfig``) from its section, with the nested ``opt`` and
-    ``loss`` sections built from plain dicts (the Vis stage's loss is an
+    """A stage config (``NormStageConfig``, ``VisStageConfig``,
+    ``PBRStageConfig``, ``CESRStageConfig``) from its section, with the
+    nested ``opt`` and ``loss`` sections built from plain dicts (the Vis stage's loss is an
     ``IllumLossConfig``). Unknown keys raise KeyError; ``VisStageConfig``
     refuses ``shard_fan: true``."""
     d = {**(d or {}), **overrides}

@@ -88,13 +88,22 @@ def to_numpy(tree) -> dict:
 
 
 def freeze(tree: ParamTree, trainable: Sequence[str]) -> list[nn.Parameter]:
-    """``requires_grad=False`` on every top-level subtree or leaf not named
-    in ``trainable``; returns the trainable parameters, in tree order."""
-    unknown = set(trainable) - set(tree.keys())
+    """``requires_grad=False`` on every subtree or leaf not named in
+    ``trainable`` (top-level keys, or ``/``-joined paths into a subtree,
+    e.g. ``envmap_material_network/normal_decoder_layer``); returns the
+    trainable parameters, in tree order."""
+    heads = {p.split("/", 1)[0] for p in trainable}
+    unknown = heads - set(tree.keys())
     if unknown:
         raise KeyError(f"no such subtrees: {sorted(unknown)}")
     out = []
     for k, v in tree.items():
+        inner = [p.split("/", 1)[1] for p in trainable if p.startswith(k + "/")]
+        if k not in trainable and inner:
+            if isinstance(v, nn.Parameter):
+                raise KeyError(f"{k} is a leaf, not a subtree: {inner}")
+            out += freeze(v, inner)
+            continue
         params = [v] if isinstance(v, nn.Parameter) else list(v.parameters())
         for p in params:
             p.requires_grad_(k in trainable)

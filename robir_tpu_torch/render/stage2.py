@@ -127,11 +127,16 @@ class Stage2Model:
                                self.cfg.neus.color, points * self.cfg.coord_scale, normals,
                                view_dirs, feature_vectors)
 
+    def inv_s(self) -> torch.Tensor:
+        """The frozen NeuS's inverse deviation, exp(10 v) clipped to
+        [1e-6, 1e6]."""
+        return torch.clamp(variance_apply(self.params["implicit_network"]["deviation_network"]),
+                           1e-6, 1e6)
+
     def volume_render_color(self, sdf: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
         """NeuS alpha compositing of precomputed samples (neus_model.py:828-854):
         sdf [B, S, 1], color [B, S, 3] -> [B, 3]."""
-        inv_s = torch.clamp(variance_apply(self.params["implicit_network"]["deviation_network"]),
-                            1e-6, 1e6)
+        inv_s = self.inv_s()
         next_sdf = torch.cat([sdf[:, 1:], sdf[:, -1:]], 1)
         prev_sdf = torch.cat([sdf[:, :-1], sdf[:, -1:]], 1)
         prev_cdf = torch.sigmoid(prev_sdf * inv_s)

@@ -8,9 +8,13 @@ with ``lr = log_lerp_lr(step)`` set before the update. The step counter
 starts at 0, as optax counts the first update. ``NeusTrainer`` runs the
 loop on a scene and renders test views in chunks.
 
-Not ported yet: checkpoints, in-train eval and mesh export, ``throughput``
-and the CLI (``ckpt_every``, ``eval_every``, ``mesh_resolution`` and
-``mesh_bbox`` stay accepted config keys).
+``NeusTrainer.extract_mesh`` meshes the current SDF (``texture/mesh.py``:
+on the card, K1 launches of 65,536 grid points, then the host marching
+tetrahedra).
+
+Not ported yet: the in-train eval and mesh (they need
+``tools/logger.py``), ``throughput`` and the CLI (``ckpt_every`` and
+``eval_every`` stay accepted config keys).
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from ..core import checkpoint as ckpt_lib
 from ..core.schedule import log_lerp_lr
 from ..data.blender import BlenderScene, Prefetcher, RayBatch
 from ..fields.neus_model import NeuS, NeuSConfig, init_neus
+from ..fields.sdf import frozen_sdf
 from ..render.neus import NeusRenderConfig, Rays, render_neus
+from ..texture.mesh import Mesh, extract_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +195,17 @@ class NeusTrainer:
         path = ckpt_lib.step_path(self.log_dir, self.step)
         ckpt_lib.save(path, {"params": self.model.params}, step=self.step)
         return path
+
+    def extract_mesh(self, resolution: int | None = None) -> Mesh:
+        """The marching-tetrahedra mesh of the current SDF over
+        ``[-mesh_bbox, mesh_bbox]^3`` at ``resolution`` (default
+        ``mesh_resolution``) nodes per axis. The SDF trunk's weights are
+        folded, and on the card packed, once for all the grid's chunks."""
+        bb = self.train_cfg.mesh_bbox
+        sdf = frozen_sdf(self.model.params["sdf_network"], self.model_cfg.sdf, out_cols=1)
+        return extract_mesh(sdf, bbox_min=(-bb,) * 3, bbox_max=(bb,) * 3,
+                            resolution=resolution or self.train_cfg.mesh_resolution,
+                            device=self.device)
 
     def close(self) -> None:
         """Stop the prefetch thread."""

@@ -1,0 +1,155 @@
+"""Stage Norm: distil the mesh's geometry normals into the AE normal map
+(counterpart of ``robir_tpu/stages/norm.py``, the reference's
+``training/train_normal.py``, NormalTrainRunner on its minimum_mem path).
+
+Each step samples texture-space surface points with their mesh normals
+(``TexSpaceSampler.simple_data_batch``) and trains the
+``normal_decoder_layer`` sparse autoencoder alone: the MSE of its
+normalised output against the mesh normals, plus, after ``smooth_after``
+steps, the L1 distance to its smoothness twin (the output from a perturbed
+input, pbr_step:302-345). Every other subtree is frozen. The step is a
+small MLP in plain PyTorch: no kernel of the port runs in it (the JAX
+package's step reaches no Pallas kernel either).
+
+``get_neus_surface`` is the short-segment NeuS integration of a surface
+point and its normal, through the frozen NeuS's sdf and its K3 gradient.
+Not ported yet: ``norm_plot_to_disk`` (it needs ``tools/plots.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.draws import Draws
+from ..core.params import ParamTree
+from ..fields.encoding import integrated_pos_enc
+from ..fields.sparse_ae import sparse_ae_apply
+from ..render.stage2 import Stage2Config, Stage2Model
+from ..texture.focus_sampler import TexSpaceSampler
+from .stage2_runner import Stage2RunnerBase, StageOptConfig, make_adam
+
+
+@dataclasses.dataclass(frozen=True)
+class NormStageConfig:
+    num_pixels: int = 1024
+    max_iters: int = 200_001
+    smooth_after: int = 500
+    opt: StageOptConfig = StageOptConfig(lr=5e-4)
+
+
+BATCH_KEYS = ("points", "normals", "object_mask")
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-4)
+
+
+def norm_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: NormStageConfig, batch: dict,
+              cur_iter: int, draws: Draws):
+    """The Norm step's loss (``make_norm_step``'s ``loss_fn``) on ``batch``
+    (``BATCH_KEYS``) at step ``cur_iter`` -> (total, metrics): ``loss``,
+    ``normal_loss`` and ``smooth_loss``. The smoothness term counts from
+    ``cur_iter > smooth_after``; its noise is the draw ``normal_ae``."""
+    env = cfg.envmap
+    points = batch["points"]
+    mask = batch["object_mask"].to(points.dtype)[:, None]
+    pts_ipe = integrated_pos_enc(points, torch.full_like(points, 1e-5), env.ipe)
+    noise = draws.normal("normal_ae", env.normal_ae.noise_shape(points.shape[0]))
+    normal, xi_normal = sparse_ae_apply(
+        params["envmap_material_network"]["normal_decoder_layer"], env.normal_ae, pts_ipe, noise)
+    normal, xi_normal = _unit(normal), _unit(xi_normal)
+    denom = torch.clamp(torch.sum(mask) * 3, min=1.0)
+    normal_loss = torch.sum(mask * (normal - batch["normals"]) ** 2) / denom
+    smooth_loss = torch.sum(mask * torch.abs(normal - xi_normal)) / denom
+    use_smooth = float(cur_iter > stage_cfg.smooth_after)
+    loss = normal_loss + use_smooth * smooth_loss
+    return loss, {"loss": loss.detach(), "normal_loss": normal_loss.detach(),
+                  "smooth_loss": smooth_loss.detach()}
+
+
+class NormRunner(Stage2RunnerBase):
+    """The Norm loop: ``run(n)`` over batches of ``tex_space_sampler``
+    (which may be set later, as ``sampler``, once the grid it traces is
+    baked). ``save`` writes ``log_dir/Norm/checkpoints``, which the Vis
+    stage's parameters (as ``robir_tpu/cli.py:cmd_vis`` restores them) and
+    ``PBRRunner.load_norm_checkpoint`` read.
+
+    Runs on ``cuda`` unless ``device="cpu"`` is passed."""
+
+    stage_name = "Norm"
+    TRAINABLE = ("envmap_material_network/normal_decoder_layer",)
+
+    def __init__(self, cfg: Stage2Config, params: dict,
+                 tex_space_sampler: TexSpaceSampler | None,
+                 stage_cfg: NormStageConfig = NormStageConfig(), seed: int = 0, device="cuda",
+                 log_dir: str | None = None):
+        super().__init__(cfg, params, seed, device, log_dir)
+        self.stage_cfg = stage_cfg
+        self.sampler = tex_space_sampler
+        self.optimizer, self.lr_fn = make_adam(self.trainable, stage_cfg.opt)
+
+    def _refresh_after_restore(self) -> None:
+        super()._refresh_after_restore()
+        self.optimizer, self.lr_fn = make_adam(self.trainable, self.stage_cfg.opt)
+
+    def _batch(self) -> dict:
+        """``num_pixels`` texture-space samples from the numpy RNG, on the
+        runner's device; the points and normals in float32, as the JAX
+        runner puts them on its device (the samples are float64 numpy)."""
+        b = self.sampler.simple_data_batch(self.rng, self.stage_cfg.num_pixels)
+        return {k: torch.as_tensor(b[k], device=self.device,
+                                   dtype=torch.bool if k == "object_mask" else torch.float32)
+                for k in BATCH_KEYS}
+
+    def step(self, batch: dict, draws: Draws) -> dict:
+        """One Adam update at ``cur_iter``'s learning rate; then
+        ``cur_iter`` + 1. Returns the metrics (detached)."""
+        loss, metrics = norm_loss(self.params, self.cfg, self.stage_cfg, batch, self.cur_iter,
+                                  draws)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_fn(self.cur_iter)
+        self.optimizer.step()
+        self.cur_iter += 1
+        return metrics
+
+
+def get_neus_surface(model: Stage2Model, points: torch.Tensor, view_dirs: torch.Tensor,
+                     pred_normals: torch.Tensor, n_samp: int = 32, dist: float = 0.05):
+    """Short-segment NeuS integration of the surface position and normal
+    (NormalTrainRunner.get_neus_surface, train_normal.py:239-286): march
+    ``dist`` back along each view ray from its surface point in ``n_samp``
+    samples, composite the positions and the sdf gradients (K3 on the card)
+    with the NeuS alpha weights (alpha clipped to [0.01, 0.99]), and give
+    the residual weight to (points, pred_normals). ``model`` is the
+    stage-2 model of the frozen NeuS. Returns (final_x [N, 3],
+    final_normal [N, 3], gradient_error scalar)."""
+    t = torch.linspace(0.0, dist, n_samp, dtype=points.dtype, device=points.device)[:, None]
+    xs = points[:, None, :] - t[None, :, :] * view_dirs[:, None, :]
+    flat = xs.reshape(-1, 3)
+    sdfs = model.sdf(flat).reshape(-1, n_samp, 1)
+    normals = model.sdf_gradient(flat).reshape(-1, n_samp, 3)
+
+    next_sdf = torch.cat([sdfs[:, 1:], sdfs[:, -1:]], 1).reshape(-1, 1)
+    prev_sdf = torch.cat([sdfs[:, :-1], sdfs[:, -1:]], 1).reshape(-1, 1)
+    inv_s = model.inv_s()
+    prev_cdf = torch.sigmoid(prev_sdf * inv_s)
+    next_cdf = torch.sigmoid(next_sdf * inv_s)
+    alpha = torch.clamp(((prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)).reshape(-1, n_samp),
+                        0.01, 0.99)
+    ones = torch.ones_like(alpha[:, :1])
+    trans = torch.cumprod(torch.cat([ones, 1.0 - alpha + 1e-10], -1), -1)
+    weight = (alpha * trans[:, :-1])[..., None]
+    res = 1 - torch.sum(weight, dim=-2)
+
+    final_x = torch.sum(xs * weight, dim=-2) + res * points
+    final_normal = torch.sum(normals * weight, dim=-2) + res * pred_normals
+
+    pts_norm = torch.linalg.norm(flat, dim=-1).reshape(-1, n_samp)
+    relax = (pts_norm < 1.2).to(points.dtype)
+    grad_err = torch.sum(relax * (torch.linalg.norm(normals, dim=-1) - 1.0) ** 2) / (
+        torch.sum(relax) + 1e-5)
+    return final_x, final_normal, grad_err

@@ -420,3 +420,74 @@ def test_pbr_render_view_matches_plain(dev):
         assert got[k].shape == want[k].shape and np.isfinite(got[k]).all(), k
         scale = float(np.abs(want[k]).max())
         assert float(np.abs(got[k].astype(np.float64) - want[k]).max()) <= TOL * max(scale, 1e-3), k
+
+
+def test_extract_mesh_matches_plain(dev, monkeypatch):
+    """The mesh export's SDF grid at the stage-1 trunk's default widths,
+    48^3 nodes in two chunks of 65,536 (the second padded): two K1
+    launches, the grid within 1e-4 of the same export on K1's plain
+    version, and NeusTrainer.extract_mesh meshes that grid."""
+    from robir_tpu_torch.core.params import from_jax
+    from robir_tpu_torch.fields.neus_model import init_neus
+    from robir_tpu_torch.fields.sdf import frozen_sdf
+    from robir_tpu_torch.texture import mesh as tmesh
+    from robir_tpu_torch.texture.native import marching_tetrahedra
+
+    model = NeuSConfig()
+    trainer = NeusTrainer(make_sphere_scene("train", n_train=2, h=8, w=8), model,
+                          NeusRenderConfig(), NeusTrainConfig(mesh_resolution=48), device="cuda")
+    box = ((-1.2,) * 3, (1.2,) * 3)
+    params = from_jax(init_neus(torch.Generator().manual_seed(0), model), dev)["sdf_network"]
+    sdf = frozen_sdf(params, model.sdf, out_cols=1)
+    tfm.FORWARD.reset()
+    grid = tmesh.sdf_grid(sdf, *box, 48, device=dev)
+    assert tfm.FORWARD.by_shape == {(tfm.MAX_WIDTH, 65536): 2}
+    mesh = trainer.extract_mesh()
+    assert tfm.FORWARD.launches == 4
+    monkeypatch.setattr(tfm, "fused_mlp_cuda",
+                        lambda plan, x, ws, bs, packed=None: tfm._forward_rows(plan, x, ws, bs))
+    want = tmesh.sdf_grid(sdf, *box, 48, device=dev)
+    assert tfm.FORWARD.launches == 4
+    _close(torch.as_tensor(grid), torch.as_tensor(want))
+    assert want.min() < 0 < want.max()
+    verts, tris = marching_tetrahedra(grid, *box)
+    assert np.array_equal(mesh.tris, tris) and np.array_equal(mesh.verts, verts)
+
+
+def test_norm_step_matches_the_cpu(dev):
+    """One Norm step at the default normal-decoder widths on the card and on
+    the CPU (fp32 and fp64), from one batch and one draw: the metrics to
+    1e-4 relative of the fp64 ones, each gradient within 1e-4 of its
+    largest fp64 entry or 8x the CPU fp32 step's own distance."""
+    from robir_tpu_torch.core.draws import Draws
+    from robir_tpu_torch.render.stage2 import Stage2Config
+    from robir_tpu_torch.stages.norm import NormRunner, NormStageConfig
+    from robir_tpu_torch.stages.stage2_runner import init_stage2_params
+
+    cfg = Stage2Config()
+    params = init_stage2_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal((512, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    batch = {"points": to_t(0.25 * d), "normals": to_t(d),
+             "object_mask": torch.as_tensor(rng.random(512) > 0.2)}
+    noise = torch.randn(cfg.envmap.normal_ae.noise_shape(512), generator=torch.Generator())
+    out = {}
+    for side, dtype in (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64)):
+        runner = NormRunner(cfg, params, None, NormStageConfig(smooth_after=-1), device=side)
+        runner.params.to(dtype)
+        torch.set_default_dtype(dtype)
+        try:
+            metrics = runner.step({k: v.to(side, dtype) if v.is_floating_point() else v.to(side)
+                                   for k, v in batch.items()},
+                                  Draws(given={"normal_ae": noise}, device=side))
+        finally:
+            torch.set_default_dtype(torch.float32)
+        out[side, dtype] = ({k: float(v) for k, v in metrics.items()},
+                            [p.grad.to("cpu", torch.float64) for p in runner.trainable])
+    (m32, g32), (mgpu, ggpu), (m64, g64) = out.values()
+    for k in m64:
+        assert abs(mgpu[k] - m64[k]) <= 1e-4 * abs(m64[k]), k
+    for a, c, r in zip(ggpu, g32, g64):
+        scale = float(r.abs().max())
+        assert float((a - r).abs().max()) <= max(1e-4 * scale, 8 * float((c - r).abs().max()))

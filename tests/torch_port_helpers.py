@@ -188,3 +188,38 @@ def two_sphere_grid(grid_cfg):
     if grid_cfg.storage_dtype == "bfloat16":
         tgrid = tgrid.to(torch.bfloat16)
     return jgrid, tgrid
+
+
+def grid_atlas(n_tris: int) -> np.ndarray:
+    """A trivial UV atlas for ``n_tris`` triangles: triangle t in cell t of
+    a square grid of cells, its corners inset at three corners of the cell
+    (uv [3 n_tris, 2], corner-major as ``atlas_parameterize`` returns it).
+    Written as a mesh cache's ``uv.npz``, it spares a test the atlas's
+    packing, which takes seconds whatever the mesh."""
+    side = int(np.ceil(np.sqrt(n_tris)))
+    t = np.arange(n_tris)
+    base = np.stack([t % side, t // side], -1).astype(np.float32)
+    corners = np.array([[0.1, 0.1], [0.9, 0.1], [0.1, 0.9]], np.float32)
+    return ((base[:, None, :] + corners[None]) / side).reshape(-1, 2)
+
+
+def two_sphere_tex_sampler(root, resolution: int = 256, mesh_res: int = 48):
+    """The port's ``TexSampler`` at ``resolution`` on a marching-tetrahedra
+    mesh of the shadow scene's two spheres in stage-1 coordinates (x 2),
+    written to ``root/mesh.ply`` with ``grid_atlas`` in its cache."""
+    import os
+
+    from robir_tpu_torch.texture import mesh as tmesh
+    from robir_tpu_torch.texture import native as tnative
+    from robir_tpu_torch.texture import pipeline as tpipe
+
+    axes = [np.linspace(-1.2, 1.2, mesh_res, dtype=np.float32)] * 3
+    p = np.stack(np.meshgrid(*axes, indexing="ij"), -1)
+    sdf = np.min([np.linalg.norm(p - 2 * np.float32(c), axis=-1) - 2 * np.float32(r)
+                  for c, r in SHADOW_SPHERES], axis=0).astype(np.float32)
+    mesh = tmesh.Mesh(*tnative.marching_tetrahedra(sdf, (-1.2,) * 3, (1.2,) * 3))
+    mesh.export_ply(os.path.join(root, "mesh.ply"))
+    os.makedirs(os.path.join(root, "mesh.cache"), exist_ok=True)
+    np.savez(os.path.join(root, "mesh.cache", "uv.npz"), uv=grid_atlas(len(mesh.tris)),
+             idx=mesh.tris.reshape(-1).astype(np.int32))
+    return tpipe.TexSampler(os.path.join(root, "mesh.ply"), resolution)
