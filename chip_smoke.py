@@ -153,7 +153,23 @@
    HANDOVER_STEPS (4) CESR steps with the per-step counts of 9.
    The run's wall time, from argument parsing to the kernels line, is
    printed before the kernels line.
-22. With ``--profile STEPS``, profiles that many more steps of each path and
+22. The command line's chain (``robir_tpu_torch/cli.py``), in process,
+   from the checkpoint of 4's NeuS (saved right after 10) and 10's mesh:
+   ``neus`` at configs/neus_blender.json on a sphere scene written to disk
+   (64 x 64, 20 train and 2 test views) for CLI_NEUS_STEPS steps with an
+   in-train eval and a checkpoint every CLI_EVERY and the test pass, then
+   ``--is_continue`` for CLI_RESUME_STEPS more (the restored parameters,
+   Adam moments and step bit-equal to the file); ``mesh`` (its PLY equal
+   to 10's); then at configs/hotdog.json, with its NeuS at stage 1's PE,
+   on the shadow scene written to disk (128 x 128, 20 train and 3 test
+   views): ``norm`` on 10's mesh (its texture cache there: no atlas runs),
+   ``vis`` (the prologue at its 1,000 steps), ``pbr`` and ``cesr``, each
+   plotting twice; each grid bit-equal to 6's, Vis's decoder the Norm
+   checkpoint's, every plot and envmap from finite buffers. Paths
+   ``cli_neus`` ... ``cli_cesr``: the counts set to 0 before each call and
+   read after; every (kernel, shape) they launched held to its plain
+   version. Prints each subcommand's wall time.
+23. With ``--profile STEPS``, profiles that many more steps of each path and
    prints the device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, the build time, each check, the
@@ -180,6 +196,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from robir_tpu_torch import cli
 from robir_tpu_torch.core import checkpoint as ckpt_lib
 from robir_tpu_torch.core.config import (build_mesh_config, build_stage1_configs,
                                          build_stage2_config, build_stage_config, load_config,
@@ -189,7 +206,8 @@ from robir_tpu_torch.core.params import to_numpy
 from robir_tpu_torch.core.tree import flatten_with_paths
 from robir_tpu_torch.data.blender import RayBatch
 from robir_tpu_torch.data.syn_dataset import shadow_scene
-from robir_tpu_torch.data.synthetic import make_sphere_scene
+from robir_tpu_torch.data.synthetic import (make_shadow_dataset, make_sphere_dataset,
+                                            make_sphere_scene)
 from robir_tpu_torch.fields.encoding import positional_encoding
 from robir_tpu_torch.fields.neus_model import NeuS, init_neus
 from robir_tpu_torch.render.cuda import build
@@ -214,6 +232,7 @@ from robir_tpu_torch.texture import mesh as tmesh
 from robir_tpu_torch.texture import native
 from robir_tpu_torch.texture.focus_sampler import TexSpaceSampler, focus_sampler_from_dataset
 from robir_tpu_torch.texture import pipeline as tpipe
+from robir_tpu_torch.tools import plots as tplots
 from robir_tpu_torch.tracing import grid as tg
 
 ROOT = Path(__file__).resolve().parent
@@ -289,6 +308,11 @@ TEX_MIN_MASKED = 0.05
 # norm section's smooth_after is 500, so the run stays in one loss regime)
 NORM_TIMED_STEPS = 20
 NORM_STEPS = 500
+# the CLI chain: stage 1's steps, its resume's, and its eval and checkpoint
+# interval; Norm's steps and plot interval; Vis, PBR and CESR's
+CLI_NEUS_STEPS, CLI_RESUME_STEPS, CLI_EVERY = 20, 10, 10
+CLI_NORM_STEPS, CLI_NORM_PLOT = 100, 50
+CLI_STAGE_STEPS, CLI_STAGE_PLOT = 10, 5
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
@@ -2494,6 +2518,318 @@ def check_pbr_handover(pbr_runner, cfg, params, dataset, stage, seed: int, log_d
     drive_cesr_grid(cesr, HANDOVER_STEPS)
 
 
+@contextlib.contextmanager
+def observed(owner, name: str, seen: list, record):
+    """While open, each call of ``owner.<name>`` appends
+    ``record(args, kwargs, result)`` to ``seen``; the attribute is restored
+    on exit."""
+    real = getattr(owner, name)
+
+    @functools.wraps(real)
+    def call(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(record(args, kwargs, out))
+        return out
+
+    setattr(owner, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(owner, name, real)
+
+
+def march_rays(grid, gcfg, dataset, n: int, gen):
+    """``n`` rays on ``grid`` for holding the march: the first half camera
+    rays evenly spaced over all the dataset's views and pixels; the rest
+    from their surface hits (pushed off along the grid normal as
+    trace_radiance does) in uniformly random directions, as the Vis fan's
+    are."""
+    n_sec = n // 2
+    rays = [dataset.camera_rays(v) for v in range(dataset.n_cameras)]
+    d = np.concatenate([dirs for dirs, _ in rays])
+    o = np.concatenate([np.broadcast_to(loc, dirs.shape) for dirs, loc in rays])
+    pick = np.linspace(0, len(d) - 1, n - n_sec).astype(np.int64)
+    o1 = torch.as_tensor(o[pick], device="cuda")
+    d1 = torch.as_tensor(d[pick], device="cuda")
+    if n_sec == 0:
+        return o1, d1
+    with torch.no_grad():
+        _, hit, x, _ = tg.grid_cast_plain(grid, gcfg, o1, d1)
+        pts = x[hit]
+        if pts.shape[0] == 0:
+            raise RuntimeError("no camera ray hit the grid's surface")
+        normals = tg.grid_normal(grid, gcfg, pts)
+        sel = torch.randint(pts.shape[0], (n_sec,), generator=gen, device="cuda")
+        o2 = pts[sel] + normals[sel] * max(0.005, 2.0 * gcfg.hit_eps_cells * gcfg.cell)
+        d2 = torch.randn(n_sec, 3, generator=gen, device="cuda")
+        d2 = d2 / torch.linalg.norm(d2, dim=-1, keepdim=True)
+    return torch.cat([o1, o2]), torch.cat([d1, d2])
+
+
+TRUNK_KERNELS = {
+    "K1": ("fused_mlp trunk forward", "fused_mlp.cu", "render/pallas/fused_mlp.py:111"),
+    "K2": ("fused_mlp recompute backward (dW, db)", "fused_mlp.cu",
+           "render/pallas/fused_mlp.py:157"),
+    "K3": ("fused_value_grad forward (value + d sdf/dx)", "fused_value_grad.cu",
+           "render/pallas/fused_value_grad.py:131"),
+    "K4": ("fused_value_grad backward (hand VJP)", "fused_value_grad.cu",
+           "render/pallas/fused_value_grad.py:142")}
+
+
+def trunk_calls(kernel: str, plan, x, ws, bs, gen):
+    """(kernel call, plain call) of a trunk kernel on (x, ws, bs): K2 without
+    dx, as the CESR normal net needs none; K2 and K4 on seeded
+    cotangents."""
+    n, d0, dout = x.shape[0], plan.dims[0], plan.out_dim
+    if kernel == "K1":
+        return (lambda: fm.fused_mlp_cuda(plan, x, ws, bs),
+                lambda: fm._forward_rows(plan, x, ws, bs))
+    if kernel == "K3":
+        return (lambda: fv.vg_forward_cuda(plan, x, ws, bs),
+                lambda: fv._forward_phases(plan, x, ws, bs)[:2])
+    dy = 1e-3 * torch.randn(n, dout, generator=gen, device="cuda")
+    if kernel == "K2":
+        return (lambda: fm.mlp_backward_cuda(plan, x, ws, bs, dy, False)[1:],
+                lambda: fm._backward_rows(plan, x, ws, bs, dy, False)[1:])
+    dde = 1e-3 * torch.randn(n, d0, generator=gen, device="cuda")
+    return (lambda: fv.vg_backward_cuda(plan, x, ws, bs, dy, dde),
+            lambda: fv._backward_phases(plan, x, ws, bs, dy, dde))
+
+
+def trunk_bound(kernel: str, plan, rows: int) -> tuple[float, str]:
+    nw = plan.n_weights()
+    nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
+    d0, dout = plan.dims[0], plan.out_dim
+    if kernel == "K1":
+        return bound_ms(2.0 * nw * rows, 4.0 * (rows * (d0 + dout) + nw + nb))
+    if kernel == "K2":
+        return k2_bound(plan, rows, False)
+    if kernel == "K3":
+        return bound_ms(4.0 * nw * rows, 4.0 * (rows * (2 * d0 + dout) + nw + nb))
+    return bound_ms(12.0 * nw * rows, 4.0 * (rows * (3 * d0 + dout) + 2 * (nw + nb)))
+
+
+def flat_outputs(out) -> list:
+    return [t for x in (out if isinstance(out, (tuple, list)) else [out])
+            for t in (x if isinstance(x, (tuple, list)) else [x])]
+
+
+def hold_path_kernels(path: str, run: dict, plans: dict, march_on, frozen: bool, gen) -> dict:
+    """The kernels line's entries of a CLI path from its launches by shape
+    (``run``): one per trunk kernel and build width (shape (width, None):
+    it counts the path's launches at every row count of that build) and one
+    for the march (shape (grid resolution, None)). Each is held to its
+    plain version at every row count the path launched it at, on seeded
+    inputs (``trunk_inputs`` of ``plans[width]``, a (plan, PE config); the
+    march on ``march_rays`` of ``march_on`` = (grid, GridConfig,
+    dataset)), and timed at the row count it was launched at most (K1
+    with its weights packed once where ``frozen``)."""
+    entries = {}
+    for kernel, by_shape in run.items():
+        for width in sorted({w for w, _ in by_shape}):
+            launched = {r: k for (w, r), k in by_shape.items() if w == width}
+            top = max(launched, key=lambda r: (launched[r], r))
+            rows = sorted(launched)
+            what = f"the {path} path ({rows[0]}-{rows[-1]} rows; timed at {top}, its most " \
+                   f"launched)"
+            if kernel == "march":
+                grid, gcfg, dataset = march_on
+                held = {r: hold_march(grid, gcfg, *march_rays(grid, gcfg, dataset, r, gen),
+                                      f"{path} at {r} rays") for r in rows}
+                entries[f"march {path}"] = dict(
+                    held[top], max_abs_err=max(e["max_abs_err"] for e in held.values()),
+                    name=f"grid march (march + refine, one thread a ray), {what}", path=path,
+                    shape=(width, None))
+                continue
+            plan, pe = plans[width]
+            x, ws, bs = trunk_inputs(plan, pe, rows[-1], gen)
+            err = 0.0
+            with torch.no_grad():
+                for r in rows:
+                    got, want = trunk_calls(kernel, plan, x[:r], ws, bs, gen)
+                    err = max(err, held_to_plain(f"{kernel} on the {path} path at {r} rows", [
+                        (f"output {i}", a, b) for i, (a, b) in
+                        enumerate(zip(flat_outputs(got()), flat_outputs(want())))]))
+                    del got, want
+                xt = x[:top]
+                call, plain = trunk_calls(kernel, plan, xt, ws, bs, gen)
+                ms = (k1_ms(plan, xt, ws, bs, 5, packed_once=frozen) if kernel == "K1"
+                      else cuda_ms(call, 5))
+                plain_ms = cuda_ms(plain, 3)
+            bound = trunk_bound(kernel, plan, top)
+            name, src, tpu = TRUNK_KERNELS[kernel]
+            entries[f"{kernel} {path} {width}"] = dict(
+                name=f"{kernel} {name}, width {width} build, {what}", route="cuda",
+                source=f"robir_tpu_torch/csrc/{src}", replaces=f"robir_tpu/{tpu}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None, rows=top, kernel=kernel, path=path,
+                shape=(width, None))
+            del x, ws, bs
+    report({k: v for k, v in entries.items() if v["kernel"] != "march"})
+    return entries
+
+
+def check_images(paths: list) -> None:
+    """Each PNG exists and is not one flat colour."""
+    from PIL import Image
+    for p in paths:
+        if not os.path.exists(p):
+            raise RuntimeError(f"{p} was not written")
+        img = np.asarray(Image.open(p), np.float32)
+        if not img.reshape(-1, img.shape[-1]).std(0).max() > 0:
+            raise RuntimeError(f"{p} is one flat colour")
+
+
+def drive_cli_chain(root: str, seed: int, ckpt: str, mesh_path: str, grid, plans1: dict,
+                    plans2: dict, neus_sets: list, gen):
+    """The command line's chain on the card, in process (``cli.main``), into
+    one log dir under ``root``: stage 1 at configs/neus_blender.json on a
+    sphere scene written by ``make_sphere_dataset`` (64 x 64, 20 train and
+    2 test views), stage 2 at configs/hotdog.json on the shadow scene
+    written by ``make_shadow_dataset`` (128 x 128, 20 train and 3 test
+    views), each from ``seed``. Paths ``cli_neus`` (CLI_NEUS_STEPS steps
+    with an eval and a checkpoint every CLI_EVERY and the test pass, then
+    ``--is_continue`` for CLI_RESUME_STEPS more, its restored state held
+    bit-equal to the file), ``cli_mesh`` (``ckpt``, the main path's stage
+    1, whose PLY must equal ``mesh_path``'s), ``cli_norm`` (on
+    ``mesh_path``, whose texture cache is there already: no atlas may
+    run), ``cli_vis``, ``cli_pbr`` and ``cli_cesr`` (each from ``ckpt``'s
+    NeuS, its grid bit-equal to ``grid``; ``neus_sets``, the ``--set``
+    overrides that give configs/hotdog.json's ``model.neus`` stage 1's
+    widths); the counts set to 0 just before each call and read just
+    after. Checks the files each stage writes and
+    that Vis kept Norm's decoder; prints each subcommand's wall time.
+    Returns (the launches by path and shape, their kernels-line entries)."""
+    sphere = make_sphere_dataset(os.path.join(root, "sphere"), n_train=20, n_test=2, h=64, w=64,
+                                 seed=seed)
+    shadow = make_shadow_dataset(os.path.join(root, "shadow"), n_train=20, n_test=3, h=128,
+                                 w=128, seed=seed)
+    L = os.path.join(root, "logs")
+    runs, walls = {}, {}
+
+    def call(path, argv):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        walls[path] = walls.get(path, 0.0) + secs
+        for kernel, by_shape in shapes().items():
+            acc = runs.setdefault(path, {}).setdefault(kernel, {})
+            for shape, k in by_shape.items():
+                acc[shape] = acc.get(shape, 0) + k
+        print(f"cli {' '.join(argv[:1] + argv[-4:])}: {secs:.1f} s wall (cli.main to a "
+              f"synchronize)", flush=True)
+        return out
+
+    # stage 1, and its resume from the step-20 file
+    s1 = ["--conf", str(CONFIG), "--data", sphere, "--log_dir", L, "--seed", str(seed),
+          "--set", f"train.eval_every={CLI_EVERY}", "--set", f"train.ckpt_every={CLI_EVERY}"]
+    finals, restored = [], []
+    with observed(NeusTrainer, "run", finals, lambda a, k, out: out), \
+            observed(NeusTrainer, "restore", restored, lambda a, k, out: a[0].state()):
+        call("cli_neus", ["neus", *s1, "--n_iters", str(CLI_NEUS_STEPS)])
+        run_dir = os.path.join(L, "NeuS", "neus")
+        with open(os.path.join(run_dir, "description.json")) as f:
+            first = json.load(f)
+        trainer = call("cli_neus", ["neus", *s1, "--is_continue", "--n_iters",
+                                    str(CLI_RESUME_STEPS)])
+    file = ckpt_lib.step_path(os.path.join(L, "NeuS"), CLI_NEUS_STEPS)
+    saved = flatten_with_paths(ckpt_lib.load(file)[0])
+    got = restored[0]
+    if sorted(got) != sorted(saved) or not all(np.array_equal(got[k], saved[k]) for k in saved):
+        raise RuntimeError(f"the resumed trainer differs from {os.path.basename(file)}")
+    last = CLI_NEUS_STEPS + CLI_RESUME_STEPS
+    evals = range(CLI_EVERY, last + 1, CLI_EVERY)
+    if trainer.step != last:
+        raise RuntimeError(f"the resumed run ended at step {trainer.step}, not {last}")
+    with open(os.path.join(run_dir, "description.json")) as f:
+        desc = json.load(f)
+    check_images([os.path.join(run_dir, "plots", f"test_rgb_{s}.png") for s in evals])
+    for p in ([ckpt_lib.step_path(os.path.join(L, "NeuS"), s) for s in evals]
+              + [os.path.join(run_dir, "meshes", f"mesh_{s:06d}.ply") for s in evals]):
+        if not os.path.exists(p):
+            raise RuntimeError(f"{p} was not written")
+    if not (np.isfinite(desc["mean_psnr"]) and desc["rays_per_sec"] > 0
+            and all(np.isfinite(m["loss"]) for m in finals)):
+        raise RuntimeError(f"stage 1 from the command line: {finals}, {desc}")
+    print(f"cli neus: {CLI_NEUS_STEPS} steps, loss {finals[0]['loss']:.5f}, test PSNR "
+          f"{first['mean_psnr']:.3f} dB, rays_per_sec {first['rays_per_sec']:.1f}; resumed at "
+          f"step {CLI_NEUS_STEPS} ({len(saved)} leaves: parameters, Adam moments and counts "
+          f"bit-equal to {os.path.basename(file)}), {CLI_RESUME_STEPS} more steps, loss "
+          f"{finals[1]['loss']:.5f}, test PSNR {desc['mean_psnr']:.3f} dB, rays_per_sec "
+          f"{desc['rays_per_sec']:.1f} (description.json); evals, meshes and checkpoints at "
+          f"steps {list(evals)}", flush=True)
+
+    cli_mesh = os.path.join(L, "mesh.ply")
+    call("cli_mesh", ["mesh", "--conf", str(CONFIG), "--log_dir", L, "--ckpt", ckpt,
+                      "--out", cli_mesh])
+    got, want = tmesh.Mesh.load_ply(cli_mesh), tmesh.Mesh.load_ply(mesh_path)
+    if not (np.array_equal(got.tris, want.tris) and np.array_equal(got.verts, want.verts)):
+        raise RuntimeError("cli mesh differs from the driven mesh export")
+    print(f"cli mesh of {os.path.basename(ckpt)}: {len(got.verts)} vertices, {len(got.tris)} "
+          f"triangles, bit-equal to the driven mesh export's PLY", flush=True)
+
+    s2 = ["--conf", str(STAGE2_CONFIG), "--data", shadow, "--log_dir", L, "--seed", str(seed),
+          "--set", f"neus_checkpoint={ckpt}", *neus_sets]
+    bad = []
+
+    def finite_plot(args, kwargs, out):
+        if not all(np.isfinite(np.asarray(v)).all() for v in args[0].values()):
+            bad.append(out)
+        return out
+
+    plot_names = ("plot_norm", "plot_illum", "plot_mat", "plot_cesr")
+    with contextlib.ExitStack() as stack:
+        atlas = stack.enter_context(timed_calls(tpipe, {"atlas_parameterize": "atlas"}))
+        for name in plot_names:
+            stack.enter_context(observed(tplots, name, [], finite_plot))
+        stack.enter_context(observed(sg_lib, "compute_envmap", [], lambda a, k, out: bad.append(
+            "envmap") if not bool(torch.isfinite(out).all()) else None))
+        runners = {"cli_norm": call("cli_norm", ["norm", *s2, "--mesh", mesh_path, "--plot_freq",
+                                                 str(CLI_NORM_PLOT), "--n_iters",
+                                                 str(CLI_NORM_STEPS)])}
+        for stage in ("vis", "pbr", "cesr"):
+            runners[f"cli_{stage}"] = call(f"cli_{stage}", [
+                stage, *s2, "--plot_freq", str(CLI_STAGE_PLOT), "--n_iters",
+                str(CLI_STAGE_STEPS)])
+    if atlas["atlas"] or bad:
+        raise RuntimeError(f"the chain ran the atlas ({atlas['atlas']:.1f} s) or plotted "
+                           f"non-finite buffers {bad}")
+    for path, r in runners.items():
+        if not torch.equal(r.grid_values, grid):
+            raise RuntimeError(f"{path}: the grid differs from the main path's of that NeuS")
+    plot_files = {"Norm": [f"norm_{s}.png" for s in (CLI_NORM_PLOT, CLI_NORM_STEPS)]}
+    stage_plots = (CLI_STAGE_PLOT, CLI_STAGE_STEPS)
+    plot_files["Vis"] = [f"illum_{s}.png" for s in stage_plots]
+    for stage, tag in (("PBR", "mat"), ("CESR", "cesr")):
+        plot_files[stage] = [f"{tag}_{s}_0.png" for s in stage_plots] + [
+            f"envmap_{s}.png" for s in stage_plots]
+    check_images([os.path.join(L, st, "plots", f) for st, fs in plot_files.items() for f in fs])
+    norm_ck, vis_ck = (flatten_with_paths(ckpt_lib.load(os.path.join(
+        L, stage, "checkpoints", "latest.npz"))[0]) for stage in ("Norm", "Vis"))
+    decoder = [k for k in norm_ck if "normal_decoder_layer" in k]
+    if not decoder or not all(np.array_equal(vis_ck[k], norm_ck[k]) for k in decoder):
+        raise RuntimeError("the Vis checkpoint's normal decoder is not the Norm checkpoint's")
+    print(f"cli norm, vis, pbr, cesr: grids bit-equal to the main path's; no atlas ran (the "
+          f"texture cache beside the mesh); the Vis checkpoint's {len(decoder)} "
+          f"normal_decoder_layer leaves bit-equal to the Norm checkpoint's; plots and envmaps "
+          f"written from finite buffers, none flat: "
+          f"{sum(len(v) for v in plot_files.values())} PNGs", flush=True)
+    print("cli wall time by subcommand: " + ", ".join(f"{p[4:]} {s:.1f} s"
+                                                      for p, s in walls.items())
+          + f"; the chain {sum(walls.values()):.1f} s", flush=True)
+
+    march_on = (grid, runners["cli_vis"].cfg.grid, runners["cli_vis"].dataset)
+    entries = {}
+    for path, run in runs.items():
+        stage1 = path in ("cli_neus", "cli_mesh")
+        entries.update(hold_path_kernels(path, run, plans1 if stage1 else plans2, march_on,
+                                         frozen=path != "cli_neus", gen=gen))
+    return runs, entries
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -2550,6 +2886,9 @@ def main() -> None:
         mesh_cfg = build_mesh_config(load_config(str(CONFIG)))
         mesh, mesh_path, mesh_entries = drive_mesh(trainer, mesh_cfg, log_dir)
         entries.update(mesh_entries)
+        # the checkpoint of that NeuS, the CLI chain's stage 1
+        trainer.log_dir = os.path.join(log_dir, "stage1")
+        cli_ckpt = trainer.save()
         if args.profile:
             try:
                 profile_steps(trainer.run, args.profile)
@@ -2654,19 +2993,32 @@ def main() -> None:
         check_pbr_handover(pbr_runner, cesr_cfg, params, dataset,
                            build_stage_config(CESRStageConfig, raw["cesr"]), args.seed, log_dir)
 
+        # the command line's chain from that checkpoint and mesh; stage 2 at
+        # configs/hotdog.json with its NeuS at stage 1's PE (multires)
+        plan1 = {fm.MAX_WIDTH: (fm.plan_from_sdf_config(model_cfg.sdf), model_cfg.sdf.pe)}
+        plan2 = {fm.MAX_WIDTH: (fm.plan_from_sdf_config(cesr_cfg.neus.sdf), cesr_cfg.neus.sdf.pe),
+                 fm.MAX_WIDTH_WIDE: (fm.plan_from_sdf_config(stage_cfg.normal_cfg), SHADOW_PE)}
+        cli_runs, cli_entries = drive_cli_chain(
+            os.path.join(log_dir, "cli"), args.seed, cli_ckpt, mesh_path, runner.grid_values,
+            plan1, plan2, ["--set", f"model.neus.sdf.multires={model_cfg.sdf.multires}"], gen)
+        entries.update(cli_entries)
+
     # each entry counts its kernel's launches on its path, at its shape (or
     # at every shape: stage 1's entries, timed at the path's largest rows;
     # the CESR and PBR runs' trunk kernels at their shaded rows); the check
     # shapes off the main paths count none
     paths = {"neus_stage1": stage1, "cesr_sphere": cesr_sphere, "bake": bake, "cesr": cesr,
              "mesh": mesh, "norm": norm, "vis_bake": vis_bake, "vis": vis,
-             "pbr_bake": pbr_bake, "pbr": pbr, "pbr_view": pbr_view}
+             "pbr_bake": pbr_bake, "pbr": pbr, "pbr_view": pbr_view, **cli_runs}
     for name, e in entries.items():
         if e["path"] is None:
             e["launches"] = 0
             continue
-        e["launches"] = sum(n for shape, n in paths[e["path"]][e["kernel"]].items()
-                            if e["shape"] is None or shape == e["shape"])
+        # an entry's shape: None (every shape), or a (width, rows) pattern
+        # whose None matches any value
+        e["launches"] = sum(n for shape, n in paths[e["path"]].get(e["kernel"], {}).items()
+                            if e["shape"] is None or all(
+                                p is None or p == v for p, v in zip(e["shape"], shape)))
         if e["launches"] == 0:
             raise RuntimeError(f"{name} was not launched on the {e['path']} path")
     for path, run in paths.items():

@@ -76,16 +76,32 @@ def restore_into(base: Params, path: str, keep: Callable[[str], bool] | None = N
     if ignore_unknown:
         flat = {k: v for k, v in flat.items() if k in known}
     merged = merge_trees(base, unflatten_paths(flat))  # raises on unknown paths
+    _check_shapes(known, flat)
+    if not isinstance(base, ParamTree):
+        return merged, meta
+    copy_into(base, flat)
+    return base, meta
+
+
+def _check_shapes(known: dict, flat: dict) -> None:
     for k, v in flat.items():
         if tuple(np.shape(known[k])) != v.shape:
             raise ValueError(f"{k}: the checkpoint's {v.shape}, the tree's "
                              f"{tuple(np.shape(known[k]))}")
-    if not isinstance(base, ParamTree):
-        return merged, meta
+
+
+def copy_into(tree: ParamTree, flat: dict) -> None:
+    """Copy each ``{path: array}`` of ``flat`` into the leaf of ``tree`` at
+    that path, in place; KeyError on a path ``tree`` lacks, ValueError on a
+    shape that differs."""
+    known = flatten_with_paths(tree)
+    unknown = sorted(set(flat) - set(known))
+    if unknown:
+        raise KeyError(f"paths not in the tree: {unknown[:5]}")
+    _check_shapes(known, flat)
     with torch.no_grad():
         for k, v in flat.items():
             known[k].copy_(torch.from_numpy(np.array(v)))
-    return base, meta
 
 
 _STEP_RE = re.compile(r"^ckpt_(\d+)\.npz$")

@@ -9,7 +9,9 @@ missing keys and rejecting unknown ones. Covered sections: stage 1's
 ``visibility_network``, ``tonemap``, ``grid``, ``coord_scale``,
 ``sweep_light_chunk`` and the tracer keys), ``texture_resolution``, and
 the ``norm``, ``vis``, ``pbr`` and ``cesr`` stage sections; stage 1's
-``mesh`` section (``build_mesh_config``).
+``mesh`` section (``build_mesh_config``). ``apply_overrides`` applies the
+command line's dotted ``--set`` overrides; ``config_to_dict`` turns a
+dataclass tree back into plain dicts.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+from typing import Any
 
 from ..data.blender import BlenderConfig
 from ..fields.envmap_material import EnvmapMaterialConfig
@@ -42,6 +45,33 @@ def load_config(path: str) -> dict:
         text = f.read()
     text = re.sub(r"^\s*//.*$", "", text, flags=re.M)
     return json.loads(text)
+
+
+def apply_overrides(cfg: dict, overrides: list[str]) -> dict:
+    """Apply 'a.b.c=value' overrides in place (each value parsed as JSON,
+    else kept as the string); returns ``cfg``."""
+    for ov in overrides:
+        path, _, raw = ov.partition("=")
+        try:
+            value = json.loads(raw)
+        except json.JSONDecodeError:
+            value = raw
+        node = cfg
+        keys = path.strip().split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = value
+    return cfg
+
+
+def config_to_dict(obj: Any) -> Any:
+    """Dataclass tree -> plain dicts and lists (a run directory's snapshot
+    of its configs)."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: config_to_dict(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [config_to_dict(x) for x in obj]
+    return obj
 
 
 def _build(dc_type, d: dict | None, **extra):

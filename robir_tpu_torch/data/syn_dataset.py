@@ -1,29 +1,113 @@
-"""Stage-2 posed-image dataset (the port's copy of the camera model and
-pixel sampling of ``robir_tpu/data/syn_dataset.py``, the reference's
-``datasets/syn_dataset.py``), built in memory.
+"""Stage-2 posed-image dataset (the port's copy of
+``robir_tpu/data/syn_dataset.py``, the reference's
+``datasets/syn_dataset.py``).
 
-``SynDataset`` holds linear-radiance images, object masks, intrinsics and
-poses (translations already / pose_scale into stage-2 coordinates);
+``SynDataset(cfg)`` reads a split of a blender-format scene from disk:
+``transforms_<split>.json``; the train split's PNGs decoded with gamma 2.2
+(or ``_rgb.exr`` HDR frames, when the train directory holds EXRs) and
+their masks from ``_mask.png`` (or the PNG's alpha); the test split's
+``_rgba.png`` images, masks from their alpha, and the relit ground truth
+under ``test_rli/`` (``relit_images``); every ``frame_skip``-th frame;
+pose translations divided by ``pose_scale`` into stage-2 coordinates.
+``SynDataset.from_arrays`` builds one from arrays in memory.
+
+It holds linear-radiance images, object masks, intrinsics and poses;
 ``camera_rays`` lifts pixels (by default every pixel of the view,
 ``full_uv``) to rays, ``sample_pixels`` draws a random pixel batch of one
-camera and ``masked_pixels`` gathers the object's pixels.
-``shadow_scene`` builds a split of the two-sphere scene with cast shadows
-of ``robir_tpu/data/synthetic.py:make_shadow_dataset`` (same cameras from
-the same seed, same 8-bit quantisation and gamma-2.2 decode as a load of
-its PNGs) without writing files. Reading a dataset from disk is not
-ported yet.
+camera and ``masked_pixels`` gathers the object's pixels. ``shadow_scene``
+builds a split of the two-sphere scene with cast shadows of
+``data/synthetic.py:make_shadow_dataset`` (same cameras from the same
+seed, same 8-bit quantisation and gamma-2.2 decode as a load of its PNGs)
+without writing files.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import glob
+import json
+import os
+
 import numpy as np
 
-from .synthetic import look_at
+from ..utils.exr import read_exr
+from .synthetic import SHADOW_PHI, SHADOW_TARGET, _orbit, render_two_sphere_gt
+
+
+def _read_png(path: str) -> np.ndarray:
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def load_rgb(path: str) -> np.ndarray:
+    """Linear-radiance image (utils/rend_util.py:31-38): a PNG decoded with
+    gamma 2.2, an EXR as it is; [H, W, 3] float32."""
+    if path.endswith(".exr"):
+        return read_exr(path)[..., :3]
+    img = np.asarray(_read_png(path), dtype=np.float32)[..., :3] / 255.0
+    return np.power(img, 2.2)
+
+
+def load_mask(path: str) -> np.ndarray:
+    """[H, W] bool: the PNG's alpha (or its one channel) above one half."""
+    alpha = np.asarray(_read_png(path), dtype=np.float32)
+    if alpha.ndim == 3:
+        alpha = alpha[..., 3]
+    return alpha / 255.0 > 0.5
+
+
+@dataclasses.dataclass
+class SynDatasetConfig:
+    instance_dir: str = ""
+    frame_skip: int = 1
+    split: str = "train"
+    pose_scale: float = 2.0  # translations divided by this (:56-58)
 
 
 class SynDataset:
-    def __init__(self, images: list, masks: list, poses: np.ndarray,
-                 focal: float, img_res: tuple[int, int], pose_scale: float = 2.0):
+    def __init__(self, cfg: SynDatasetConfig):
+        with open(os.path.join(cfg.instance_dir, f"transforms_{cfg.split}.json")) as fp:
+            meta = json.load(fp)
+        blender = len(glob.glob(f"{cfg.instance_dir}/train/*.exr")) == 0
+        image_paths, mask_paths, poses = [], [], []
+        relit_paths = {"envmap6": [], "envmap12": []}
+        for frame in meta["frames"]:
+            poses.append(np.array(frame["transform_matrix"], np.float32))
+            base = os.path.join(cfg.instance_dir, frame["file_path"])
+            if cfg.split == "train":
+                image_paths.append(base + (".png" if blender else "_rgb.exr"))
+                mask_paths.append(base + (".png" if blender else "_mask.png"))
+            else:
+                image_paths.append(base + "_rgba.png")
+                ind = frame["file_path"].split("/")[1]
+                for env, paths in relit_paths.items():
+                    paths.append(os.path.join(cfg.instance_dir, f"test_rli/{env}_{ind}.png"))
+        sk = cfg.frame_skip
+        image_paths, mask_paths = image_paths[::sk], mask_paths[::sk]
+        images = [load_rgb(p) for p in image_paths]
+        h, w = images[0].shape[:2]
+        focal = 0.5 * w / np.tan(0.5 * float(meta["camera_angle_x"]))
+        if cfg.split == "train":
+            masks = [load_mask(p) for p in mask_paths]
+        else:
+            masks = [_read_png(p)[..., 3] > 128 for p in image_paths]
+        self._setup(images, masks, np.stack(poses)[::sk], focal, (h, w), cfg.pose_scale)
+        if cfg.split != "train":
+            self.relit_images = {
+                env: [load_rgb(p).reshape(-1, 3) for p in paths[::sk]]
+                for env, paths in relit_paths.items() if paths and os.path.exists(paths[0])}
+
+    @classmethod
+    def from_arrays(cls, images: list, masks: list, poses: np.ndarray, focal: float,
+                    img_res: tuple[int, int], pose_scale: float = 2.0) -> "SynDataset":
+        """A dataset of images (linear radiance, [H, W, 3]), masks and c2w
+        poses already in memory."""
+        ds = cls.__new__(cls)
+        ds._setup(images, masks, poses, focal, img_res, pose_scale)
+        return ds
+
+    def _setup(self, images, masks, poses, focal, img_res, pose_scale) -> None:
         h, w = img_res
         poses = np.asarray(poses, np.float32).copy()
         poses[..., 3] /= pose_scale
@@ -79,60 +163,6 @@ class SynDataset:
         return np.concatenate([img[m] for img, m in zip(self.rgb_images, self.object_masks)], 0)
 
 
-def render_two_sphere_gt(c2w: np.ndarray, h: int, w: int, focal: float,
-                         centers=((0.0, 0.0, 0.0), (0.37, 0.22, 0.61)),
-                         radii=(0.5, 0.18),
-                         albedos=((0.8, 0.3, 0.2), (0.25, 0.45, 0.8)),
-                         light_dir=(0.5, 0.3, 0.8)) -> np.ndarray:
-    """Two lambertian spheres with hard cast shadows, RGBA [h, w, 4]."""
-    x, y = np.meshgrid(np.arange(w, dtype=np.float32),
-                       np.arange(h, dtype=np.float32), indexing="xy")
-    dirs = np.stack([(x - w * 0.5 + 0.5) / focal, -(y - h * 0.5 + 0.5) / focal,
-                     -np.ones_like(x)], -1)
-    dirs = dirs @ c2w[:3, :3].T
-    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
-    o = c2w[:3, 3]
-    ld = np.asarray(light_dir, np.float32)
-    ld = ld / np.linalg.norm(ld)
-
-    def sphere_hit(origins, d, c, r):
-        oc = origins - np.asarray(c, np.float32)
-        b = 2.0 * np.sum(oc * d, -1)
-        cc = np.sum(oc * oc, -1) - r * r
-        disc = b * b - 4 * cc
-        t = (-b - np.sqrt(np.maximum(disc, 0.0))) / 2.0
-        hit = (disc > 0) & (t > 1e-4)
-        return np.where(hit, t, np.inf), hit
-
-    flat_o = np.broadcast_to(o, dirs.reshape(-1, 3).shape)
-    d = dirs.reshape(-1, 3)
-    t0, h0 = sphere_hit(flat_o, d, centers[0], radii[0])
-    t1, h1 = sphere_hit(flat_o, d, centers[1], radii[1])
-    t = np.minimum(t0, t1)
-    which = (t1 < t0).astype(np.int32)
-    hit = h0 | h1
-    pts = flat_o + np.where(np.isfinite(t), t, 0.0)[:, None] * d
-    out = np.zeros((h * w, 4), np.float32)
-    out[:, :3] = 1.0
-    for si in range(2):
-        sel = hit & (which == si)
-        if not sel.any():
-            continue
-        p = pts[sel]
-        n = (p - np.asarray(centers[si], np.float32)) / radii[si]
-        shadow = np.zeros(len(p), bool)
-        for sj in range(2):
-            if sj != si:
-                _, sh = sphere_hit(p + 1e-3 * n, np.broadcast_to(ld, p.shape),
-                                   centers[sj], radii[sj])
-                shadow |= sh
-        lam = np.where(shadow, 0.0, np.clip(n @ ld, 0.0, 1.0))
-        alb = np.asarray(albedos[si], np.float32)
-        out[np.where(sel)[0], :3] = (lam[:, None] * 0.8 + 0.2) * alb
-        out[np.where(sel)[0], 3] = 1.0
-    return out.reshape(h, w, 4)
-
-
 def shadow_scene(n_train: int = 20, h: int = 128, w: int = 128,
                  camera_angle_x: float = 0.6911112070083618, cam_dist: float = 3.2,
                  seed: int = 0, pose_scale: float = 2.0, split: str = "train",
@@ -144,19 +174,12 @@ def shadow_scene(n_train: int = 20, h: int = 128, w: int = 128,
     focal = 0.5 * w / np.tan(0.5 * camera_angle_x)
     rng = np.random.default_rng(seed)
     for sp, n in (("train", n_train), ("test", n_test)):
-        images, masks, poses = [], [], []
-        for i in range(n):
-            theta = (i / n) * 2 * np.pi + float(rng.uniform(0, 0.1))
-            phi = float(rng.uniform(0.15, 1.1))
-            eye = cam_dist * np.array([np.cos(theta) * np.cos(phi),
-                                       np.sin(theta) * np.cos(phi), np.sin(phi)], np.float32)
-            c2w = look_at(eye, np.array([0.2, 0.1, 0.35], np.float32))
-            if sp != split:
-                continue
-            img = (render_two_sphere_gt(c2w, h, w, focal) * 255).astype(np.uint8)
-            images.append(np.power(img[..., :3].astype(np.float32) / 255.0, 2.2))
-            masks.append(img[..., 3].astype(np.float32) / 255.0 > 0.5)
-            poses.append(c2w)
+        cams = _orbit(rng, n, cam_dist, SHADOW_PHI, SHADOW_TARGET)
         if sp == split:
-            return SynDataset(images, masks, np.stack(poses), focal, (h, w), pose_scale)
+            imgs = [(render_two_sphere_gt(c2w, h, w, focal) * 255).astype(np.uint8)
+                    for c2w in cams]
+            return SynDataset.from_arrays(
+                [np.power(im[..., :3].astype(np.float32) / 255.0, 2.2) for im in imgs],
+                [im[..., 3].astype(np.float32) / 255.0 > 0.5 for im in imgs],
+                np.stack(cams), focal, (h, w), pose_scale)
     raise ValueError(f"unknown split {split!r}")

@@ -20,11 +20,15 @@ returns the supervision's per-row ingredients, which the step reduces
 (the weighted means equal the dense ones). The runner switches to the
 dense step while the measured surface fraction is above
 ``compact_max_surface_frac``, as the JAX runner does.
+
+``cesr_plot_to_disk`` writes the stage's diagnostic grid of one view.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 
 import numpy as np
 import torch
@@ -38,9 +42,10 @@ from ..fields.sdf import SDFConfig, init_sdf, sdf_apply
 from ..render import sg as sg_lib
 from ..render.color import as_input, hdr2ldr
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
+from ..tools import plots
 from .losses import (InvLossConfig, latent_smooth_loss, masked_spec_kl, rgb_loss,
                      white_loss)
-from .stage2_runner import MaterialRunner, StageOptConfig
+from .stage2_runner import MaterialRunner, StageOptConfig, render_view
 
 SHADOW_PE = PEConfig(num_freqs=10, input_dims=3)
 
@@ -315,3 +320,28 @@ class CESRRunner(MaterialRunner):
             self.spec_var = (torch.rand(self.spec_var.shape, generator=self.generator,
                                         device=self.device) > 0.8).to(torch.float32)
         return metrics
+
+
+def cesr_plot_to_disk(runner: CESRRunner, dataset, idx: int = 0, plots_dir: str | None = None,
+                      chunk: int = 8000) -> str:
+    """The CESR grid of view ``idx`` (train_cesr.py plot_to_disk ->
+    utils/plots.py plot_cesr: prediction, image, albedo, shadow, refined
+    normals, specular), into ``plots_dir`` (default ``<log_dir>/CESR/plots``)
+    as ``cesr_<cur_iter>_<idx>.png``; returns its path. ``render_view``
+    with ``cesr_sg_render`` at the runner's step (its prefit phase and
+    normal switch; per-row outputs, so that it compacts), one set of draws
+    a chunk from the runner's generator: on the card per chunk one grid
+    march, and K3 (geometry normals) and K1 (the normal net) at the
+    surface rows."""
+    sc = runner.stage_cfg
+    render = functools.partial(cesr_sg_render, stage_cfg=sc,
+                               prefit=sc.prefit_option(runner.cur_iter),
+                               use_new_normal=runner.cur_iter > sc.normal_switch_iter,
+                               row_outputs=True)
+    out = render_view(runner.model(), dataset, idx, sg_render_fn=render,
+                      draws=lambda _: Draws(runner.generator, device=runner.device),
+                      chunk=chunk, shadow_params=runner.params["shadow_net"],
+                      normal_params=runner.params["normal_net"], spec_var=runner.spec_var)
+    plots_dir = plots_dir or os.path.join(runner.log_dir or ".", runner.stage_name, "plots")
+    return plots.plot_cesr(out, dataset.rgb_images[idx], plots_dir, runner.cur_iter,
+                           dataset.img_res, idx)

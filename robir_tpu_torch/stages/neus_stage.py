@@ -6,20 +6,27 @@ through K3), the masked MSE + eikonal + silhouette loss, backward (K4 for
 the SDF trunk), optional global-norm clipping, then ``torch.optim.Adam``
 with ``lr = log_lerp_lr(step)`` set before the update. The step counter
 starts at 0, as optax counts the first update. ``NeusTrainer`` runs the
-loop on a scene and renders test views in chunks.
+loop on a scene, with a checkpoint every ``ckpt_every`` steps and an
+in-train eval every ``eval_every`` (a test view and a mesh into a
+``tools/logger.py`` run directory), renders test views in chunks, and runs
+the test pass (mean PSNR and MSE, render time, rays/s, a video and
+``description.json``).
 
 ``NeusTrainer.extract_mesh`` meshes the current SDF (``texture/mesh.py``:
 on the card, K1 launches of 65,536 grid points, then the host marching
 tetrahedra).
 
-Not ported yet: the in-train eval and mesh (they need
-``tools/logger.py``), ``throughput`` and the CLI (``ckpt_every`` and
-``eval_every`` stay accepted config keys).
+Checkpoints hold the parameters, the step and the Adam moments in the JAX
+trainer's layout (``NeusTrainer.state``), so that either package resumes
+from the other's file with its moments.
+
+Not ported yet: ``throughput``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -28,6 +35,7 @@ import torch
 from .. import resolve_device
 from ..core import checkpoint as ckpt_lib
 from ..core.schedule import log_lerp_lr
+from ..core.tree import flatten_with_paths
 from ..data.blender import BlenderScene, Prefetcher, RayBatch
 from ..fields.neus_model import NeuS, NeuSConfig, init_neus
 from ..fields.sdf import frozen_sdf
@@ -138,10 +146,11 @@ def eval_render(model: NeuS, render_cfg: NeusRenderConfig, batch: RayBatch) -> d
 
 
 class NeusTrainer:
-    """Host-side loop over a scene: sampling, train steps, test renders.
+    """Host-side loop over a scene: sampling, train steps, checkpoints,
+    in-train evals, test renders.
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed; raises if CUDA is
-    asked for and absent. ``save`` writes checkpoints into ``log_dir``.
+    asked for and absent. ``save`` and ``restore`` use ``log_dir``.
     """
 
     def __init__(self, scene: BlenderScene, model_cfg: NeuSConfig,
@@ -169,32 +178,137 @@ class NeusTrainer:
         return RayBatch(*[torch.as_tensor(np.asarray(x), device=self.device)
                           for x in batch])
 
-    def run(self, n_steps: int) -> dict:
-        """Train ``n_steps``; returns the last step's metrics as floats."""
+    def run(self, n_steps: int, log_every: int = 0,
+            metrics_cb: Callable[[int, dict], None] | None = None,
+            test_scene: BlenderScene | None = None, logger=None) -> dict:
+        """Train ``n_steps`` steps. Every ``log_every`` steps (0: never) the
+        metrics, as floats, go to ``metrics_cb(step, metrics)``; every
+        ``eval_every`` steps ``in_train_eval(test_scene, logger)``; every
+        ``ckpt_every`` steps, given a ``log_dir``, ``save``. Returns the
+        metrics last logged, or the last step's where none was (as the JAX
+        trainer does)."""
         if self._prefetch is None:
             self._prefetch = Prefetcher(self._sample)
-        metrics = {}
+        cfg = self.train_cfg
+        last, metrics = {}, {}
         for _ in range(n_steps):
             batch = self._put(next(self._prefetch))
             metrics = train_step(self.model, self.optimizer, self.lr_fn, batch,
-                                 self.step, self.train_cfg, self.render_cfg,
-                                 generator=self._noise)
+                                 self.step, cfg, self.render_cfg, generator=self._noise)
             self.step += 1
-        return {k: float(v) for k, v in metrics.items()}
+            if log_every and self.step % log_every == 0:
+                last = {k: float(v) for k, v in metrics.items()}
+                if metrics_cb:
+                    metrics_cb(self.step, last)
+            if cfg.eval_every and self.step % cfg.eval_every == 0:
+                self.in_train_eval(test_scene, logger)
+            if self.log_dir and self.step % cfg.ckpt_every == 0:
+                self.save()
+        return last or {k: float(v) for k, v in metrics.items()}
+
+    def in_train_eval(self, test_scene: BlenderScene | None, logger) -> None:
+        """The periodic test render and mesh (trainer.py:75-81): with a
+        ``logger``, test view ``step % n_images`` as ``test_rgb_<step>.png``
+        with its PSNR and MSE, and the mesh at ``mesh_resolution`` as
+        ``meshes/mesh_<step>.ply``."""
+        if logger is None:
+            return
+        if test_scene is not None:
+            out = self.render_image(self.step % test_scene.n_images, scene=test_scene)
+            logger.log_image(self.step, "test_rgb", np.clip(out["rgb"], 0, 1))
+            logger.log_scalars(self.step, "test", psnr=out["psnr"], mse=out["mse"])
+        logger.log_mesh(self.step, self.extract_mesh())
+
+    def test(self, test_scene: BlenderScene, n_frames: int | None = None,
+             logger=None) -> dict:
+        """The test pass (neus/optimization/trainer.py:86-108): render the
+        first ``n_frames`` (default: every) test view; returns mean PSNR and
+        MSE, the wall time of the renders and rays/s. With a ``logger``: the
+        frames as the ``test_frames`` video, the metrics into
+        ``description.json`` and rays/s as a scalar."""
+        n_frames = min(n_frames or test_scene.n_images, test_scene.n_images)
+        frames, psnrs, mses = [], [], []
+        t0 = time.perf_counter()
+        for i in range(n_frames):
+            out = self.render_image(i, scene=test_scene)
+            frames.append(out["rgb"])
+            psnrs.append(out["psnr"])
+            mses.append(out["mse"])
+        render_time = time.perf_counter() - t0
+        rays_per_sec = n_frames * test_scene.h * test_scene.w / render_time
+        metrics = {"mean_psnr": float(np.mean(psnrs)), "mean_mse": float(np.mean(mses)),
+                   "render_time": render_time, "rays_per_sec": rays_per_sec}
+        if logger is not None:
+            logger.log_video("test_frames", frames)
+            logger.log_json(**metrics)
+            logger.log_rays_per_sec(self.step, rays_per_sec)
+        return metrics
+
+    def _opt_prefixes(self) -> tuple[str, str]:
+        """The JAX layout's paths of optax's Adam state and of its schedule's
+        count: ``opt_state/0`` and ``opt_state/1``, or, behind
+        ``clip_by_global_norm`` (a state without leaves), ``opt_state/1/0``
+        and ``opt_state/1/1``."""
+        if self.train_cfg.grad_max_norm > 1e-10:
+            return "opt_state/1/0", "opt_state/1/1"
+        return "opt_state/0", "opt_state/1"
+
+    def state(self) -> dict:
+        """``{path: numpy array}`` of what ``save`` writes, in the JAX
+        trainer's layout (``flatten_with_paths(to_plain(...))`` of its
+        params and optax state): ``params/<path>``; Adam's ``mu/<path>``
+        and ``nu/<path>`` (``exp_avg``, ``exp_avg_sq``; zeros before the
+        first update, as optax's init) and its ``count``, and the
+        schedule's ``count``, both the step (int32)."""
+        adam, sched = self._opt_prefixes()
+        count = np.int32(self.step)
+        out = {f"{adam}/count": count, f"{sched}/count": count}
+        for k, p in flatten_with_paths(self.model.params).items():
+            out[f"params/{k}"] = p.detach().cpu().numpy().copy()
+            st = self.optimizer.state.get(p, {})
+            for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                out[f"{adam}/{name}/{k}"] = (st[key].detach().cpu().numpy().copy() if key in st
+                                             else np.zeros(tuple(p.shape), np.float32))
+        return out
 
     def save(self) -> str:
-        """Write ``log_dir/ckpt_<step>.npz``: the parameters under
-        ``params/...`` and the step, in the JAX package's layout, so that
-        either package's stage 2 reads it (``stage2_runner.load_neus_checkpoint``,
-        ``robir_tpu/cli.py``). The Adam moments are not written: the JAX
-        trainer's ``restore`` keeps the ``opt_state`` paths a file lacks at
-        their fresh values, so a JAX run resumes from this file with fresh
-        moments. Returns the path."""
+        """Write ``log_dir/ckpt_<step>.npz``: ``state()`` and the step, in
+        the JAX package's format, so that either package's trainer resumes
+        from it and either package's stage 2 reads its parameters
+        (``stage2_runner.load_neus_checkpoint``, ``robir_tpu/cli.py``).
+        Returns the path."""
         if not self.log_dir:
             raise ValueError("NeusTrainer.save needs a log_dir")
         path = ckpt_lib.step_path(self.log_dir, self.step)
-        ckpt_lib.save(path, {"params": self.model.params}, step=self.step)
+        ckpt_lib.save(path, self.state(), step=self.step)
         return path
+
+    def restore(self, path: str | None = None) -> None:
+        """Resume from ``path`` (default: the newest ``ckpt_<step>.npz`` of
+        ``log_dir``; nothing where there is none), written by either
+        package: the parameters in place, the step, and the Adam moments
+        where the file has them (a file without them leaves the moments
+        fresh, as a JAX trainer does). A path that ``state()`` lacks raises
+        KeyError."""
+        path = path or (self.log_dir and ckpt_lib.latest_path(self.log_dir))
+        if not path:
+            return
+        loaded, meta = ckpt_lib.load(path)
+        flat = flatten_with_paths(loaded)
+        unknown = sorted(set(flat) - set(self.state()))
+        if unknown:
+            raise KeyError(f"{path}: paths this trainer does not have: {unknown[:5]}")
+        ckpt_lib.copy_into(self.model.params, {k[len("params/"):]: v for k, v in flat.items()
+                                               if k.startswith("params/")})
+        adam, _ = self._opt_prefixes()
+        if f"{adam}/count" in flat:
+            step = torch.tensor(float(flat[f"{adam}/count"]), dtype=torch.float32)
+            for k, p in flatten_with_paths(self.model.params).items():
+                self.optimizer.state[p] = {
+                    "step": step.clone(),
+                    "exp_avg": torch.from_numpy(np.array(flat[f"{adam}/mu/{k}"])).to(p.device),
+                    "exp_avg_sq": torch.from_numpy(np.array(flat[f"{adam}/nu/{k}"])).to(p.device)}
+        self.step = int(meta.get("step", 0))
 
     def extract_mesh(self, resolution: int | None = None) -> Mesh:
         """The marching-tetrahedra mesh of the current SDF over

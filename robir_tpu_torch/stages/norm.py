@@ -13,12 +13,13 @@ package's step reaches no Pallas kernel either).
 
 ``get_neus_surface`` is the short-segment NeuS integration of a surface
 point and its normal, through the frozen NeuS's sdf and its K3 gradient.
-Not ported yet: ``norm_plot_to_disk`` (it needs ``tools/plots.py``).
+``norm_plot_to_disk`` writes the stage's diagnostic grid of one view.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -28,7 +29,8 @@ from ..fields.encoding import integrated_pos_enc
 from ..fields.sparse_ae import sparse_ae_apply
 from ..render.stage2 import Stage2Config, Stage2Model
 from ..texture.focus_sampler import TexSpaceSampler
-from .stage2_runner import Stage2RunnerBase, StageOptConfig, make_adam
+from ..tools import plots
+from .stage2_runner import Stage2RunnerBase, StageOptConfig, make_adam, map_view
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +155,31 @@ def get_neus_surface(model: Stage2Model, points: torch.Tensor, view_dirs: torch.
     grad_err = torch.sum(relax * (torch.linalg.norm(normals, dim=-1) - 1.0) ** 2) / (
         torch.sum(relax) + 1e-5)
     return final_x, final_normal, grad_err
+
+
+def norm_plot_to_disk(runner: NormRunner, dataset, idx: int = 0, plots_dir: str | None = None,
+                      chunk: int = 8000) -> str:
+    """The AE normals against the NeuS short-segment normals and the image
+    of view ``idx`` (train_normal.py plot_to_disk -> utils/plots.py
+    plot_norm), into ``plots_dir`` (default ``<log_dir>/Norm/plots``) as
+    ``norm_<cur_iter>.png``; returns its path. Per chunk of ``chunk`` rays
+    without a graph: the primary trace (on the card one grid march), the
+    decoder's normals at the hits, and ``get_neus_surface`` (K1 and K3 at
+    32 samples a ray); ones off the surface."""
+    model = runner.model()
+    env = runner.cfg.envmap
+    ae = runner.params["envmap_material_network"]["normal_decoder_layer"]
+
+    def chunk_fn(_, o, d):
+        _, hit, x = model.trace(o, d)
+        pts_ipe = integrated_pos_enc(x, torch.full_like(x, 1e-5), env.ipe)
+        normal = _unit(sparse_ae_apply(ae, env.normal_ae, pts_ipe)[0])
+        _, neus_n, _ = get_neus_surface(model, x, d, normal)
+        m = hit[:, None]
+        return {"normals": torch.where(m, normal, 1.0),
+                "normal_neus": torch.where(m, neus_n, 1.0)}
+
+    out = map_view(dataset, idx, chunk, runner.device, chunk_fn)
+    plots_dir = plots_dir or os.path.join(runner.log_dir or ".", runner.stage_name, "plots")
+    return plots.plot_norm(out, dataset.rgb_images[idx], plots_dir, runner.cur_iter,
+                           dataset.img_res)

@@ -20,14 +20,15 @@ indirect net through ``hdr_shift``. On the card a step runs the grid march
 once (the batch's rays) and K3 once (the geometry normals at the shaded
 rows); K1, K2 and K4 not at all.
 
-Not ported yet: ``pbr_plot_to_disk`` (it needs ``tools/plots.py``).
-``PBRRunner.render_view`` renders a view without the plots.
+``PBRRunner.render_view`` renders a view, ``pbr_plot_to_disk`` writes the
+stage's diagnostic grid of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from ..data.syn_dataset import SynDataset
 from ..render import sg as sg_lib
 from ..render.color import as_input, hdr2ldr
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
+from ..tools import plots
 from .losses import InvLossConfig, latent_smooth_loss, masked_spec_kl, rgb_loss, white_loss
 from .stage2_runner import MaterialRunner, StageOptConfig, render_view
 
@@ -176,3 +178,17 @@ class PBRRunner(MaterialRunner):
             sg_render_fn=functools.partial(pbr_sg_render,
                                            use_normal_map=self.stage_cfg.use_normal_map),
             draws=lambda _: Draws(self.generator, device=self.device), chunk=chunk)
+
+
+def pbr_plot_to_disk(runner: PBRRunner, dataset, idx: int = 0, plots_dir: str | None = None,
+                     chunk: int = 8000) -> str:
+    """The PBR decomposition grid of view ``idx`` (train_pbr.py
+    plot_to_disk -> utils/plots.py plot_mat: prediction, image, albedo,
+    roughness, indirect light, shadow), rendered by
+    ``runner.render_view``, into ``plots_dir`` (default
+    ``<log_dir>/PBR/plots``) as ``mat_<cur_iter>_<idx>.png``; returns its
+    path."""
+    out = runner.render_view(idx, dataset, chunk=chunk)
+    plots_dir = plots_dir or os.path.join(runner.log_dir or ".", runner.stage_name, "plots")
+    return plots.plot_mat(out, dataset.rgb_images[idx], plots_dir, runner.cur_iter,
+                          dataset.img_res, idx)

@@ -8,8 +8,9 @@ checkpoints in the JAX package's format: the runner's own (``save``,
 (``restore_surgical``, the reference's checkpoint surgery,
 ``training/train_pbr.py:122-203``), and stage 1's NeuS as the frozen
 ``implicit_network`` (``load_neus_checkpoint``); the PBR and CESR runners'
-common loop (``MaterialRunner``); and ``render_view``, the chunked eval
-render of a whole view.
+common loop (``MaterialRunner``); ``render_view``, the chunked eval
+render of a whole view, and ``map_view``, the chunking under it that the
+stages' plots share.
 """
 
 from __future__ import annotations
@@ -161,13 +162,20 @@ class Stage2RunnerBase:
         do (stage-2 checkpoints carry parameters only)."""
         self.trainable = freeze(self.params, self.TRAINABLE)
 
-    def run(self, n_iters: int) -> dict:
+    def run(self, n_iters: int, log_every: int = 0, log_fn=None) -> dict:
         """Take ``n_iters`` steps (``step`` on ``_batch``, with draws from the
-        runner's generator); returns the last step's metrics as floats."""
-        metrics = {}
+        runner's generator). Every ``log_every`` steps (0: never) the
+        metrics, as floats, go to ``log_fn(cur_iter, metrics)``. Returns
+        the metrics last logged, or the last step's where none was (as the
+        JAX runners do)."""
+        last, metrics = {}, {}
         for _ in range(n_iters):
             metrics = self.step(self._batch(), Draws(self.generator, device=self.device))
-        return {k: float(v) for k, v in metrics.items()}
+            if log_every and self.cur_iter % log_every == 0:
+                last = {k: float(v) for k, v in metrics.items()}
+                if log_fn:
+                    log_fn(self.cur_iter, last)
+        return last or {k: float(v) for k, v in metrics.items()}
 
 
 class MaterialRunner(Stage2RunnerBase):
@@ -251,29 +259,42 @@ def render_view(model: Stage2Model, dataset, idx: int, sg_render_fn=None,
     if draws is None:
         gen = torch.Generator(device=device).manual_seed(0)
         draws = lambda _: Draws(gen, device=device)  # noqa: E731
+
+    def render(c, origins, dirs):
+        n = dirs.shape[0]
+        inp = {"points": origins, "dirs": dirs,
+               "hdr_shift": as_input(params["gamma"]).expand(n, 1)}
+        out = stage2_forward(model, draws(c), inp, trainstage="Material",
+                             sg_render_fn=sg_render_fn, train_spec=train_spec,
+                             lin_diff=lin_diff, compact_chunk=compact_chunk, **sg_kwargs)
+        pred = hdr2ldr(params["gamma"], model.cfg.tonemap, out["sg_rgb"] + out["indir_rgb"])
+        mask = out["network_object_mask"]
+        return {"pred_rgb": torch.where(mask[:, None], pred, 1.0),
+                "sg_rgb": out["sg_rgb"], "indir_rgb": out["indir_rgb"],
+                "sg_specular_rgb": out["sg_specular_rgb"],
+                "diffuse_albedo": out["diffuse_albedo"],
+                "roughness": out["roughness"].expand(pred.shape),
+                "normal_map": out["normal_map"], "normals": out["normals"],
+                "vis_shadow": out["vis_shadow"], "mask": mask}
+
+    return map_view(dataset, idx, chunk, device, render)
+
+
+def map_view(dataset, idx: int, chunk: int, device, fn) -> dict:
+    """``fn(c, origins, dirs)`` -> a dict of [chunk, ...] tensors, on each
+    chunk c of ``chunk`` rays of view ``idx`` of ``dataset`` (on
+    ``device``; the last chunk padded by repeating its last ray), without
+    a graph; returns the outputs with the padding cut, concatenated as
+    numpy [H * W, ...] buffers."""
     dirs, cam_loc = dataset.camera_rays(idx)
-    n = dirs.shape[0]
     outs = []
     with torch.no_grad():
-        for c, start in enumerate(range(0, n, chunk)):
+        for c, start in enumerate(range(0, dirs.shape[0], chunk)):
             d = dirs[start:start + chunk]
             cut = d.shape[0]
             if cut < chunk:
                 d = np.concatenate([d, np.repeat(d[-1:], chunk - cut, 0)])
-            d = torch.as_tensor(d, device=device)
-            inp = {"points": torch.as_tensor(cam_loc, device=device).expand(chunk, 3),
-                   "dirs": d, "hdr_shift": as_input(params["gamma"]).expand(chunk, 1)}
-            out = stage2_forward(model, draws(c), inp, trainstage="Material",
-                                 sg_render_fn=sg_render_fn, train_spec=train_spec,
-                                 lin_diff=lin_diff, compact_chunk=compact_chunk, **sg_kwargs)
-            pred = hdr2ldr(params["gamma"], model.cfg.tonemap, out["sg_rgb"] + out["indir_rgb"])
-            mask = out["network_object_mask"]
-            res = {"pred_rgb": torch.where(mask[:, None], pred, 1.0),
-                   "sg_rgb": out["sg_rgb"], "indir_rgb": out["indir_rgb"],
-                   "sg_specular_rgb": out["sg_specular_rgb"],
-                   "diffuse_albedo": out["diffuse_albedo"],
-                   "roughness": out["roughness"].expand(pred.shape),
-                   "normal_map": out["normal_map"], "normals": out["normals"],
-                   "vis_shadow": out["vis_shadow"], "mask": mask}
-            outs.append({k: v[:cut].cpu().numpy() for k, v in res.items()})
+            o = torch.as_tensor(cam_loc, device=device).expand(chunk, 3)
+            out = fn(c, o, torch.as_tensor(d, device=device))
+            outs.append({k: v[:cut].cpu().numpy() for k, v in out.items()})
     return {k: np.concatenate([o[k] for o in outs], 0) for k in outs[0]}

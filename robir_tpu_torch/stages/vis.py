@@ -16,13 +16,14 @@ nets; every other subtree is frozen.
 On the card the step runs the grid march twice (the 256 primary rays and
 the 131,072-ray fan) and K3 in the borrowed colour (one launch per slice
 of ``fan_compact_chunk`` needed rays); K1, K2 and K4 not at all.
-Not ported yet: ``vis_plot_to_disk`` (it needs ``tools/plots.py``) and
-``shard_fan`` (multi-device).
+``vis_plot_to_disk`` writes the stage's diagnostic grid of one view.
+Not ported yet: ``shard_fan`` (multi-device).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -33,8 +34,9 @@ from ..core.tree import flatten_with_paths
 from ..data.syn_dataset import SynDataset
 from ..render.color import fit_energy, init_energy, ldr2hdr
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward, trace_radiance
+from ..tools import plots
 from .losses import IllumLossConfig, illum_loss
-from .stage2_runner import Stage2RunnerBase, StageOptConfig, make_adam
+from .stage2_runner import Stage2RunnerBase, StageOptConfig, make_adam, map_view
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,3 +184,32 @@ class VisRunner(Stage2RunnerBase):
         metrics = self._step(self.params, batch, draws, self.grid_values)
         self.cur_iter += 1
         return metrics
+
+
+def vis_plot_to_disk(runner: VisRunner, dataset, idx: int = 0, plots_dir: str | None = None,
+                     chunk: int = 2048, nsamp: int = 8) -> str:
+    """The predicted against the traced visibility and the image of view
+    ``idx`` (train_visibility.py plot_to_disk -> utils/plots.py
+    plot_illum), into ``plots_dir`` (default ``<log_dir>/Vis/plots``) as
+    ``illum_<cur_iter>.png``; returns its path. Per chunk of ``chunk`` rays
+    without a graph, with draws from the runner's generator: the Illum
+    forward at ``hdr_shift`` 0.5 and ``trace_radiance`` with ``nsamp``
+    directions a pixel (on the card two grid marches, and K3 in the
+    borrowed colour); the mean P(visible) and the mean traced visibility
+    of each pixel, ones off the surface."""
+    model = runner.model()
+
+    def chunk_fn(_, o, d):
+        draws = Draws(runner.generator, device=runner.device)
+        inp = {"points": o, "dirs": d, "hdr_shift": torch.full_like(d[:, :1], 0.5)}
+        fwd = stage2_forward(model, draws, inp, trainstage="Illum")
+        tr = trace_radiance(model, draws, fwd, nsamp=nsamp)
+        pred = torch.softmax(tr["pred_vis"], -1)[..., 1].mean(-1)
+        gt = 1.0 - tr["gt_vis"].to(pred.dtype).mean(-1)
+        m = fwd["network_object_mask"]
+        return {"pred_vis": torch.where(m, pred, 1.0), "gt_vis": torch.where(m, gt, 1.0)}
+
+    out = map_view(dataset, idx, chunk, runner.device, chunk_fn)
+    plots_dir = plots_dir or os.path.join(runner.log_dir or ".", runner.stage_name, "plots")
+    return plots.plot_illum(out, dataset.rgb_images[idx], plots_dir, runner.cur_iter,
+                            dataset.img_res)

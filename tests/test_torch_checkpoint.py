@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from robir_tpu.core import checkpoint as jckpt
+from robir_tpu.core import tree as jtree
 from robir_tpu.fields.neus_model import NeuSConfig as JNeuS
 from robir_tpu.fields.radiance import RenderingConfig as JRender
 from robir_tpu.fields.sdf import SDFConfig as JSDF
@@ -170,8 +171,9 @@ def test_jax_stage1_checkpoint_seeds_the_port_stage2(tmp_path):
 
 
 def test_port_stage1_checkpoint_resumes_a_jax_trainer(tmp_path):
-    """The port's ``NeusTrainer.save``: ``params/...`` and the step, which a
-    JAX trainer restores, its Adam state kept at its fresh values."""
+    """The port's ``NeusTrainer.save``: ``params/...``, the step and the
+    Adam state in the JAX trainer's layout (``opt_state/...``; zero moments
+    before the first update), all of which a JAX trainer restores."""
     tcfg = NeuSConfig(sdf=SDFConfig(**NEUS_KW["sdf"]), color=RenderingConfig(**NEUS_KW["color"]))
     trainer = tneus.NeusTrainer(make_sphere_scene("train", n_train=2, h=8, w=8), tcfg,
                                 NeusRenderConfig(), tneus.NeusTrainConfig(), seed=1,
@@ -185,12 +187,16 @@ def test_port_stage1_checkpoint_resumes_a_jax_trainer(tmp_path):
     jcfg = JNeuS(sdf=JSDF(**NEUS_KW["sdf"]), color=JRender(**NEUS_KW["color"]))
     jt = jneus.NeusTrainer(None, jcfg, JRenderCfg(), jneus.NeusTrainConfig(), log_dir=str(tmp_path),
                            seed=9)
-    fresh = jax.tree_util.tree_map(np.asarray, jt.opt_state)
     jt.restore()
     assert jt.step == 12
     _assert_equal(jax.tree_util.tree_map(np.asarray, jt.params), to_numpy(trainer.model.params))
-    for a, b in zip(jax.tree_util.tree_leaves(jt.opt_state), jax.tree_util.tree_leaves(fresh)):
-        assert np.array_equal(np.asarray(a), b)
+    saved = trainer.state()
+    restored = jtree.flatten_with_paths(jtree.to_plain(jt.opt_state))
+    assert sorted(f"opt_state/{k}" for k in restored) == sorted(
+        k for k in saved if k.startswith("opt_state/"))
+    for k, v in restored.items():
+        assert np.array_equal(np.asarray(v), saved[f"opt_state/{k}"]), k
+    assert int(restored["0/count"]) == int(restored["1/count"]) == 12
 
 
 def test_runner_checkpoints(tmp_path):

@@ -491,3 +491,53 @@ def test_norm_step_matches_the_cpu(dev):
     for a, c, r in zip(ggpu, g32, g64):
         scale = float(r.abs().max())
         assert float((a - r).abs().max()) <= max(1e-4 * scale, 8 * float((c - r).abs().max()))
+
+
+def test_cli_neus_trains_and_resumes_on_the_card(dev, tmp_path):
+    """``cli neus --device cuda`` at small widths: 2 steps (a checkpoint,
+    an in-train eval and the test pass at step 2), then ``--is_continue``
+    for 1 step from the step-2 file, whose parameters, Adam moments and
+    step the resumed trainer holds bit for bit before it steps."""
+    import json
+    import os
+
+    from robir_tpu_torch import cli
+    from robir_tpu_torch.core import checkpoint as ckpt_lib
+    from robir_tpu_torch.core.tree import flatten_with_paths
+    from robir_tpu_torch.data.synthetic import make_sphere_dataset
+    from robir_tpu_torch.stages import neus_stage
+
+    scene = make_sphere_dataset(str(tmp_path / "scene"), n_train=4, n_test=2, h=16, w=16)
+    conf = {"model": {"sdf": {"d_out": 17, "d_hidden": 32, "n_layers": 3, "skip_in": [2],
+                              "multires": 2, "bias": 0.5},
+                      "color": {"d_feature": 16, "d_hidden": 32, "n_layers": 2}},
+            "render": {"n_samples": 16, "n_importance": 16},
+            "train": {"batch_size": 64, "eval_every": 2, "ckpt_every": 2, "eval_chunk": 256,
+                      "mesh_resolution": 24}}
+    conf_path = str(tmp_path / "conf.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    log_dir = str(tmp_path / "logs")
+    argv = ["neus", "--conf", conf_path, "--data", scene, "--log_dir", log_dir,
+            "--device", "cuda"]
+    assert cli.main([*argv, "--n_iters", "2"]).step == 2
+    saved = flatten_with_paths(ckpt_lib.load(os.path.join(log_dir, "NeuS",
+                                                          "ckpt_000002.npz"))[0])
+    held = []
+    real = neus_stage.NeusTrainer.restore
+
+    def restore(self, path=None):
+        real(self, path)
+        held.append(self.state())
+
+    neus_stage.NeusTrainer.restore = restore
+    try:
+        trainer = cli.main([*argv, "--n_iters", "1", "--is_continue"])
+    finally:
+        neus_stage.NeusTrainer.restore = real
+    assert trainer.step == 3 and sorted(held[0]) == sorted(saved)
+    assert all(np.array_equal(held[0][k], saved[k]) for k in saved)
+    run_dir = os.path.join(log_dir, "NeuS", "neus")
+    with open(os.path.join(run_dir, "description.json")) as f:
+        assert json.load(f)["rays_per_sec"] > 0
+    assert os.path.exists(os.path.join(run_dir, "meshes", "mesh_000002.ply"))

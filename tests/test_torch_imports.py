@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(names) >= 20  # every module was imported
     assert {"robir_tpu_torch.core.checkpoint", "robir_tpu_torch.stages.vis",
             "robir_tpu_torch.stages.pbr", "robir_tpu_torch.texture.mesh",
-            "robir_tpu_torch.texture.focus_sampler", "robir_tpu_torch.stages.norm"} <= names
+            "robir_tpu_torch.texture.focus_sampler", "robir_tpu_torch.stages.norm",
+            "robir_tpu_torch.cli", "robir_tpu_torch.tools.logger"} <= names
 
 
 def test_chip_smoke_fails_without_cuda():
