@@ -169,7 +169,22 @@
    ``cli_neus`` ... ``cli_cesr``: the counts set to 0 before each call and
    read after; every (kernel, shape) they launched held to its plain
    version. Prints each subcommand's wall time.
-23. With ``--profile STEPS``, profiles that many more steps of each path and
+23. The commands after training, each through ``cli.main`` with the counts
+   set to 0 just before and read just after: ``sgfit`` (path
+   ``cli_sgfit``) on an EXR of a seeded SG envmap at 512 x 1,024,
+   SGFIT_STEPS (300) steps at 128 SGs (its files finite, the loss
+   falling; no kernel); ``relight`` (``cli_relight``) of 22's CESR
+   checkpoint under the shadow pipeline's envmap6 on white over the
+   scene's three test views (K1 500 launches at 65,536 rows, its grid
+   bit-equal to 6's; one march and one K3 a 8,000-ray chunk; the relit
+   PSNRs, PNGs and GIF; view 0 on recorded draws against the march's and
+   K3's plain versions; every (kernel, shape) held to its plain version);
+   ``textures`` (``cli_textures``) at 1,024^2 on 10's mesh (no atlas, no
+   kernel; four maps, the OBJ and MTL); ``import-ref``
+   (``cli_import_ref``) of a reference ``.tar`` of 22's NeuS and a
+   ``.pth`` of its CESR checkpoint into a fresh log dir (every leaf
+   bit-equal to its source; no kernel). Prints each one's wall time.
+24. With ``--profile STEPS``, profiles that many more steps of each path and
    prints the device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, the build time, each check, the
@@ -233,7 +248,10 @@ from robir_tpu_torch.texture import native
 from robir_tpu_torch.texture.focus_sampler import TexSpaceSampler, focus_sampler_from_dataset
 from robir_tpu_torch.texture import pipeline as tpipe
 from robir_tpu_torch.tools import plots as tplots
+from robir_tpu_torch.tools import relight as relight_mod
+from robir_tpu_torch.tools.shadow_pipeline import make_relight_envmap
 from robir_tpu_torch.tracing import grid as tg
+from robir_tpu_torch.utils.exr import read_exr, write_exr
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "neus_blender.json"
@@ -313,6 +331,10 @@ NORM_STEPS = 500
 CLI_NEUS_STEPS, CLI_RESUME_STEPS, CLI_EVERY = 20, 10, 10
 CLI_NORM_STEPS, CLI_NORM_PLOT = 100, 50
 CLI_STAGE_STEPS, CLI_STAGE_PLOT = 10, 5
+# the commands after training: sgfit's steps and its EXR's size; the
+# texture maps' resolution
+SGFIT_STEPS, SGFIT_HW = 300, (512, 1024)
+TEXTURES_RES = 1024
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
@@ -2680,6 +2702,29 @@ def check_images(paths: list) -> None:
             raise RuntimeError(f"{p} is one flat colour")
 
 
+def cli_caller(runs: dict, walls: dict):
+    """``call(path, argv)``: ``cli.main(argv)`` to a synchronize, with the
+    counts set to 0 just before and read just after, added to
+    ``runs[path]`` by kernel and shape and the wall seconds to
+    ``walls[path]``; returns what ``cli.main`` returns."""
+    def call(path, argv):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        walls[path] = walls.get(path, 0.0) + secs
+        for kernel, by_shape in shapes().items():
+            acc = runs.setdefault(path, {}).setdefault(kernel, {})
+            for shape, k in by_shape.items():
+                acc[shape] = acc.get(shape, 0) + k
+        print(f"cli {' '.join(argv[:1] + argv[-4:])}: {secs:.1f} s wall (cli.main to a "
+              f"synchronize)", flush=True)
+        return out
+    return call
+
+
 def drive_cli_chain(root: str, seed: int, ckpt: str, mesh_path: str, grid, plans1: dict,
                     plans2: dict, neus_sets: list, gen):
     """The command line's chain on the card, in process (``cli.main``), into
@@ -2699,29 +2744,16 @@ def drive_cli_chain(root: str, seed: int, ckpt: str, mesh_path: str, grid, plans
     widths); the counts set to 0 just before each call and read just
     after. Checks the files each stage writes and
     that Vis kept Norm's decoder; prints each subcommand's wall time.
-    Returns (the launches by path and shape, their kernels-line entries)."""
+    Returns (the launches by path and shape, their kernels-line entries,
+    the stage-2 commands' common arguments, the march's check inputs
+    (grid, GridConfig, dataset))."""
     sphere = make_sphere_dataset(os.path.join(root, "sphere"), n_train=20, n_test=2, h=64, w=64,
                                  seed=seed)
     shadow = make_shadow_dataset(os.path.join(root, "shadow"), n_train=20, n_test=3, h=128,
                                  w=128, seed=seed)
     L = os.path.join(root, "logs")
     runs, walls = {}, {}
-
-    def call(path, argv):
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        out = cli.main(argv)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        walls[path] = walls.get(path, 0.0) + secs
-        for kernel, by_shape in shapes().items():
-            acc = runs.setdefault(path, {}).setdefault(kernel, {})
-            for shape, k in by_shape.items():
-                acc[shape] = acc.get(shape, 0) + k
-        print(f"cli {' '.join(argv[:1] + argv[-4:])}: {secs:.1f} s wall (cli.main to a "
-              f"synchronize)", flush=True)
-        return out
+    call = cli_caller(runs, walls)
 
     # stage 1, and its resume from the step-20 file
     s1 = ["--conf", str(CONFIG), "--data", sphere, "--log_dir", L, "--seed", str(seed),
@@ -2827,7 +2859,202 @@ def drive_cli_chain(root: str, seed: int, ckpt: str, mesh_path: str, grid, plans
         stage1 = path in ("cli_neus", "cli_mesh")
         entries.update(hold_path_kernels(path, run, plans1 if stage1 else plans2, march_on,
                                          frozen=path != "cli_neus", gen=gen))
-    return runs, entries
+    return runs, entries, s2, march_on
+
+
+def launched(run: dict) -> dict:
+    """The kernels a path launched: {kernel: {shape: launches}}."""
+    return {k: v for k, v in run.items() if v}
+
+
+def drive_cli_sgfit(root: str, seed: int, call) -> None:
+    """Path ``cli_sgfit``: an EXR of a seeded SG envmap at SGFIT_HW, then
+    ``sgfit`` for SGFIT_STEPS steps at 128 SGs; its files written and
+    finite, the loss at the last step below the first's; no kernel."""
+    rng = np.random.default_rng(seed)
+    sgs = rng.standard_normal((16, 7)).astype(np.float32)
+    sgs[:, 3] = np.abs(sgs[:, 3]) * 20 + 5
+    sgs[:, 4:] = np.abs(sgs[:, 4:]) * 0.5
+    env = os.path.join(root, "envmaps", "studio.exr")
+    os.makedirs(os.path.dirname(env), exist_ok=True)
+    with torch.no_grad():
+        write_exr(env, compute_envmap(torch.as_tensor(sgs, device="cuda"), *SGFIT_HW)
+                  .cpu().numpy())
+    fitted, logged = call("cli_sgfit", ["sgfit", "--envmap_path", env, "--n_iters",
+                                        str(SGFIT_STEPS), "--num_sg", "128"])
+    out = os.path.join(root, "envmaps", "studio")
+    npy, fit = np.load(os.path.join(out, "sg_128.npy")), read_exr(os.path.join(out, "fit_128.exr"))
+    if not (npy.shape == (128, 7) and np.array_equal(npy, fitted) and np.isfinite(npy).all()
+            and fit.shape[:2] == (256, 512) and np.isfinite(fit).all()):
+        raise RuntimeError(f"sgfit wrote {npy.shape} SGs and a {fit.shape} image, or non-finite")
+    (first, l0), (last, l1) = logged[0], logged[-1]
+    if not l1 < l0:
+        raise RuntimeError(f"sgfit: the loss at step {last} ({l1}) is not below step {first}'s "
+                           f"({l0})")
+    print(f"cli sgfit: {SGFIT_STEPS} Adam steps at 128 SGs on a {SGFIT_HW[0]}x{SGFIT_HW[1]} EXR "
+          f"(area-resized to 256x512): loss {l0:.6f} at step {first}, {l1:.6f} at step {last}; "
+          f"sg_128.npy and fit_128.exr written, finite", flush=True)
+
+
+def drive_cli_relight(root: str, s2: list, grid, plans2: dict, march_on, call, runs: dict,
+                      gen) -> dict:
+    """Path ``cli_relight``: ``relight`` of the chain's CESR checkpoint under
+    the shadow pipeline's envmap6 on white, over the shadow scene's three
+    test views: K1 exactly 500 launches at 65,536 rows (its bake, the grid
+    bit-equal to ``grid``), per VIEW_CHUNK-ray chunk one march and one K3,
+    nothing else; ``metrics.json``'s relit PSNRs finite, the buffers
+    finite, the PNGs not flat, the GIF written. Then view 0 again on
+    recorded draws against the same call with the march's and K3's plain
+    versions (masks identical, each buffer within KERNEL_TOL of its largest
+    entry), and every (kernel, shape) of the path held to its plain
+    version. Returns the path's kernels-line entries."""
+    env6 = make_relight_envmap(os.path.join(root, "envmaps"))
+    out_dir = os.path.join(root, "relight")
+    seen = []
+    with observed(relight_mod, "relight_views", seen, lambda a, k, out: (a, k)):
+        views, metrics, baked = call("cli_relight", [
+            "relight", *s2, "--envmap", env6, "--background", "white", "--n_views", "3",
+            "--out", out_dir])
+    (params, cfg, _, dataset, *_), kwargs = seen[0]
+    h, w = dataset.img_res
+    n_chunks = len(views) * -(-h * w // VIEW_CHUNK)
+    R = cfg.grid.resolution
+    run = launched(runs["cli_relight"])
+    k3 = sum(run.get("K3", {}).values())
+    if (run.get("K1") != {(fm.MAX_WIDTH, 65536): R ** 3 // 65536}
+            or run.get("march") != {(R, VIEW_CHUNK): n_chunks} or k3 != n_chunks
+            or set(run) - {"K1", "K3", "march"}):
+        raise RuntimeError(f"cli relight launched {run}; expected {R ** 3 // 65536} K1 at 65,536 "
+                           f"rows and {n_chunks} marches of {VIEW_CHUNK} rays and K3")
+    if not torch.equal(baked, grid):
+        raise RuntimeError("cli relight: the grid differs from the chain's of that NeuS")
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        saved = json.load(f)
+    psnrs = [saved[k] for k in ("mean_relit_psnr", "mean_relit_psnr_masked")]
+    if not (all(np.isfinite(p) for p in psnrs) and saved == {
+            k: v for k, v in metrics.items() if k in saved}
+            and all(np.isfinite(v).all() for view in views for v in view.values())):
+        raise RuntimeError(f"cli relight: metrics {saved}, or non-finite buffers")
+    check_images([os.path.join(out_dir, f"{kind}_{v:03d}.png") for v in range(len(views))
+                  for kind in ("rgb", "albedo", "roughness", "normal")])
+    if not (metrics["video"].endswith((".gif", ".mp4")) and os.path.exists(metrics["video"])):
+        raise RuntimeError(f"cli relight: no video at {metrics['video']}")
+    print(f"cli relight of the CESR checkpoint under envmap6 (2 SGs) on white: {len(views)} "
+          f"test views {h}x{w}, {n_chunks} chunks of {VIEW_CHUNK} rays; K1 {R ** 3 // 65536} at "
+          f"65,536 rows (the bake, grid bit-equal to the chain's), {n_chunks} marches, K3 at "
+          f"{sorted(r for (_, r), k in run['K3'].items() for _ in range(k))} rows; relit PSNR "
+          f"{psnrs[0]:.3f} dB, masked {psnrs[1]:.3f} dB (views {saved['relit_psnr']}); "
+          f"{4 * len(views)} PNGs, none flat; {os.path.basename(metrics['video'])}", flush=True)
+
+    # view 0 on recorded draws, on the kernels and on their plain versions
+    taken, slices = [], []
+    real_k3, real_cast = fv.vg_forward_cuda, stage2_mod.grid_cast
+
+    def recorded(plan, x, ws, bs):
+        slices.append((plan, x, ws, bs))
+        return real_k3(plan, x, ws, bs)
+
+    def drawn(_):
+        taken.append(Draws(gen, device="cuda", record=True))
+        return taken[-1]
+
+    kw = dict(view_indices=[0], write_video=False, background="white", device="cuda")
+    check_dir = os.path.join(root, "relight_check")
+    try:
+        fv.vg_forward_cuda = recorded
+        got = relight_mod.relight_views(params, cfg, baked, dataset, env6, check_dir,
+                                        draws=drawn, **kw)[0][0]
+        fv.vg_forward_cuda = lambda plan, x, ws, bs: fv._forward_phases(plan, x, ws, bs)[:2]
+        stage2_mod.grid_cast = lambda g, c, o, d: tg.grid_cast_plain(g, c, o, d)[:3]
+        want = relight_mod.relight_views(params, cfg, baked, dataset, env6, check_dir,
+                                         draws=lambda c: Draws(given=taken[c].taken,
+                                                               device="cuda"), **kw)[0][0]
+    finally:
+        fv.vg_forward_cuda, stage2_mod.grid_cast = real_k3, real_cast
+    if not np.array_equal(got["mask"], want["mask"]):
+        raise RuntimeError("cli relight: the traced mask differs from the plain march's")
+    err = held_to_plain("relight_views against the plain versions", [
+        (k, torch.as_tensor(got[k]), torch.as_tensor(want[k])) for k in want if k != "mask"])
+    if not slices:
+        raise RuntimeError("relight_views of view 0 recorded no K3 launch")
+    with torch.no_grad():
+        k3_err = max(held_to_plain(f"K3 on a relit chunk's {x.shape[0]} surface rows", [
+            (f"output {i}", a, b) for i, (a, b) in enumerate(zip(
+                real_k3(plan, x, ws, bs), fv._forward_phases(plan, x, ws, bs)[:2]))])
+            for plan, x, ws, bs in slices)
+    print(f"relight_views of view 0 on the kernels vs on their plain versions (the same draws): "
+          f"masks identical, every buffer within {err:.3e} of the plain render's (the march is "
+          f"its plain version bit for bit, and the relit buffers read no K3 output: the AE "
+          f"normal map shades); K3 within {k3_err:.3e} on the view's {len(slices)} recorded "
+          f"launches (rows {[x.shape[0] for _, x, _, _ in slices]})", flush=True)
+    return hold_path_kernels("cli_relight", run, plans2, march_on, frozen=True, gen=gen)
+
+
+def drive_cli_textures(root: str, s2: list, mesh_path: str, call, runs: dict) -> None:
+    """Path ``cli_textures``: ``textures`` of the chain's CESR checkpoint at
+    TEXTURES_RES on the driven mesh, whose texture cache holds its atlas
+    (no atlas may run); no kernel; the four maps finite and not flat; the
+    OBJ and MTL written."""
+    out_dir = os.path.join(root, "textures")
+    with timed_calls(tpipe, {"atlas_parameterize": "atlas"}) as atlas:
+        maps = call("cli_textures", ["textures", *s2, "--mesh", mesh_path, "--resolution",
+                                     str(TEXTURES_RES), "--out", out_dir])
+    run = launched(runs["cli_textures"])
+    if atlas["atlas"] or run:
+        raise RuntimeError(f"cli textures ran the atlas ({atlas['atlas']:.1f} s) or launched "
+                           f"{run}")
+    if not all(m.shape == (TEXTURES_RES, TEXTURES_RES, 3) and np.isfinite(m).all()
+               for m in maps.values()):
+        raise RuntimeError("cli textures: a map is not finite or has the wrong shape")
+    check_images([os.path.join(out_dir, f"{k}.png") for k in maps])
+    for name in ("mesh.obj", "mesh.mtl"):
+        if not os.path.getsize(os.path.join(out_dir, name)):
+            raise RuntimeError(f"cli textures: {name} is empty")
+    texels = float((maps["normal"].sum(-1) > 0).mean())
+    print(f"cli textures at {TEXTURES_RES}^2 on the driven mesh: no atlas ran (its uv in the "
+          f"texture cache), no kernel launched; albedo, roughness, metallic and normal maps "
+          f"finite, none flat, {100 * texels:.1f}% of the texels on the mesh; mesh.obj "
+          f"({os.path.getsize(os.path.join(out_dir, 'mesh.obj')) / 2**20:.1f} MiB) and mesh.mtl",
+          flush=True)
+
+
+def drive_cli_import_ref(root: str, log_dir: str, shadow: str, neus_sets: list, call,
+                         runs: dict) -> None:
+    """Path ``cli_import_ref``: a reference ``.tar`` of the chain's NeuS
+    checkpoint and a ``.pth`` of its CESR checkpoint, both in the
+    reference's key layout (``torch_port_helpers.reference_state_dict``),
+    imported with ``--filter all`` into a fresh log dir; every imported
+    leaf bit-equal to its source (CESR's own nets, which the stage-2 tree
+    lacks, dropped by ``--ignore_unknown``); no kernel."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_helpers import reference_state_dict
+
+    neus, meta = ckpt_lib.load(ckpt_lib.latest_path(os.path.join(log_dir, "NeuS")))
+    cesr, cesr_meta = ckpt_lib.load(os.path.join(log_dir, "CESR", "checkpoints", "latest.npz"))
+    tar = os.path.join(root, "reference", f"{meta['step']:06d}.tar")
+    pth = os.path.join(root, "reference", "latest.pth")
+    os.makedirs(os.path.dirname(tar), exist_ok=True)
+    torch.save({"global_step": meta["step"], "model": reference_state_dict(neus["params"])}, tar)
+    torch.save({"model_state_dict": reference_state_dict(cesr), "epoch": cesr_meta["step"]}, pth)
+    fresh = os.path.join(root, "imported")
+    paths = call("cli_import_ref", [
+        "import-ref", "--conf", str(STAGE2_CONFIG), "--data", shadow, "--log_dir", fresh,
+        *neus_sets, "--stage1_tar", tar, "--stage2_pth", pth, "--filter", "all",
+        "--ignore_unknown"])
+    if launched(runs["cli_import_ref"]):
+        raise RuntimeError(f"cli import-ref launched {launched(runs['cli_import_ref'])}")
+    s1, s2 = (flatten_with_paths(ckpt_lib.load(p)[0]) for p in paths)
+    src1 = flatten_with_paths({"params": neus["params"]})
+    src2 = flatten_with_paths(cesr)
+    dropped = sorted(set(src2) - set(s2))
+    if (s1.keys() != src1.keys() or not all(np.array_equal(s1[k], src1[k]) for k in src1)
+            or not all(np.array_equal(s2[k], src2[k]) for k in set(src2) & set(s2))
+            or any(not k.startswith(("shadow_net", "normal_net")) for k in dropped)):
+        raise RuntimeError("cli import-ref: an imported leaf differs from its source")
+    print(f"cli import-ref: {os.path.basename(tar)} -> {len(s1)} NeuS leaves, "
+          f"latest.pth -> {len(set(src2) & set(s2))} stage-2 leaves, each bit-equal to the "
+          f"chain's checkpoint; {len(dropped)} leaves of CESR's own nets dropped "
+          f"(--ignore_unknown)", flush=True)
 
 
 def main() -> None:
@@ -2998,10 +3225,25 @@ def main() -> None:
         plan1 = {fm.MAX_WIDTH: (fm.plan_from_sdf_config(model_cfg.sdf), model_cfg.sdf.pe)}
         plan2 = {fm.MAX_WIDTH: (fm.plan_from_sdf_config(cesr_cfg.neus.sdf), cesr_cfg.neus.sdf.pe),
                  fm.MAX_WIDTH_WIDE: (fm.plan_from_sdf_config(stage_cfg.normal_cfg), SHADOW_PE)}
-        cli_runs, cli_entries = drive_cli_chain(
-            os.path.join(log_dir, "cli"), args.seed, cli_ckpt, mesh_path, runner.grid_values,
-            plan1, plan2, ["--set", f"model.neus.sdf.multires={model_cfg.sdf.multires}"], gen)
+        cli_root = os.path.join(log_dir, "cli")
+        neus_sets = ["--set", f"model.neus.sdf.multires={model_cfg.sdf.multires}"]
+        cli_runs, cli_entries, s2, march_on = drive_cli_chain(
+            cli_root, args.seed, cli_ckpt, mesh_path, runner.grid_values, plan1, plan2,
+            neus_sets, gen)
         entries.update(cli_entries)
+
+        # the commands after training: sgfit, relight, textures, import-ref
+        post_runs, post_walls = {}, {}
+        call = cli_caller(post_runs, post_walls)
+        drive_cli_sgfit(cli_root, args.seed, call)
+        entries.update(drive_cli_relight(cli_root, s2, runner.grid_values, plan2, march_on,
+                                         call, post_runs, gen))
+        drive_cli_textures(cli_root, s2, mesh_path, call, post_runs)
+        drive_cli_import_ref(cli_root, os.path.join(cli_root, "logs"),
+                             os.path.join(cli_root, "shadow"), neus_sets, call, post_runs)
+        print("cli wall time after training: " + ", ".join(
+            f"{p[4:]} {t:.1f} s" for p, t in post_walls.items()), flush=True)
+        cli_runs.update(post_runs)
 
     # each entry counts its kernel's launches on its path, at its shape (or
     # at every shape: stage 1's entries, timed at the path's largest rows;

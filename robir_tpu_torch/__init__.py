@@ -3,13 +3,16 @@
 A second package beside the JAX one (``robir_tpu``), which stays the
 reference it is tested against. It imports ``torch`` and nothing of JAX or
 of ``robir_tpu``. It runs the stage-1 NeuS train step and its mesh export,
-the texture bake (host C++ and numpy, ``texture/``) and the stage-2 Norm,
-Vis, PBR and CESR train steps, from the command line as the JAX package
-does (``python -m robir_tpu_torch.cli``, ``cli.py``) on scenes read from
-disk, and reads and writes the JAX package's checkpoints; their dense trunks (the SDF trunk, the CESR normal net) and
-the grid tracer's march run through hand-written CUDA kernels for Hopper
-(``csrc/``, built with ``nvcc`` at first use), whose plain PyTorch
-versions serve CPU tensors only.
+the texture bake (host C++ and numpy, ``texture/``), the stage-2 Norm,
+Vis, PBR and CESR train steps, and after them relighting, the SG envmap
+fit, the texture-map export and the import of reference checkpoints, from
+the command line as the JAX package does (``python -m robir_tpu_torch.cli``,
+``cli.py``) on scenes read from disk; it reads and writes the JAX
+package's checkpoints, and ``tools/shadow_pipeline.py`` scores the whole
+chain on the procedural shadow scene. Its dense trunks (the SDF trunk, the
+CESR normal net) and the grid tracer's march run through hand-written CUDA
+kernels for Hopper (``csrc/``, built with ``nvcc`` at first use), whose
+plain PyTorch versions serve CPU tensors only.
 """
 
 import torch

@@ -8,22 +8,27 @@ and checkpoint files, on the card unless ``--device cpu`` is given.
     python -m robir_tpu_torch.cli vis  --conf ... --data DIR
     python -m robir_tpu_torch.cli pbr  --conf ... --data DIR
     python -m robir_tpu_torch.cli cesr --conf ... --data DIR
+    python -m robir_tpu_torch.cli relight  --conf ... --data DIR --envmap ENVDIR
+    python -m robir_tpu_torch.cli textures --conf ... --data DIR --mesh mesh.ply
+    python -m robir_tpu_torch.cli import-ref --conf ... [--stage1_tar T] [--stage2_pth P]
+    python -m robir_tpu_torch.cli sgfit --envmap_path ENV.exr
 
 Each stage reads the previous one's files under ``--log_dir``:
 ``NeuS/ckpt_<step>.npz`` (or ``neus_checkpoint``), ``Norm``, ``Vis`` and
-``PBR``'s ``checkpoints/latest.npz``; the files are the JAX package's, so
-a run may switch packages between any two stages. Not ported yet:
-``relight``, ``textures``, ``import-ref`` and ``sgfit`` (ROADMAP.md A.6);
-where a config asks for a piece the port lacks, the command raises
-NotImplementedError naming its ROADMAP.md item. Errors of a plot or of the
-logger are raised, not printed: on the card they may be a failed kernel
-launch.
+``PBR``'s ``checkpoints/latest.npz``; ``relight`` and ``textures`` read
+CESR's ``latest.npz``, else PBR's (or ``--ckpt``); ``import-ref`` writes
+reference checkpoints there. The files are the JAX package's, so a run may
+switch packages between any two stages. Where a config asks for a piece
+the port lacks, the command raises NotImplementedError naming its
+ROADMAP.md item. Errors of a plot or of the logger are raised, not
+printed: on the card they may be a failed kernel launch.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -415,9 +420,107 @@ def cmd_cesr(args):
     return _run_stage(runner, args, stage_cfg.max_iters, "CESR", dataset=dataset)
 
 
+def _stage2_checkpoint(args) -> str:
+    """``--ckpt``, else CESR's ``latest.npz``, else PBR's."""
+    ckpt = args.ckpt or os.path.join(args.log_dir, "CESR", "checkpoints", "latest.npz")
+    if not os.path.exists(ckpt):
+        ckpt = os.path.join(args.log_dir, "PBR", "checkpoints", "latest.npz")
+    return ckpt
+
+
+def cmd_relight(args):
+    """Relit renders of the test views (the train views where there is no
+    test split) under the prefit envmap ``--envmap``, from the latest CESR
+    (or PBR) checkpoint, into ``--out`` (default
+    ``<log_dir>/relight/<envmap name>``), with ``metrics.json`` where the
+    scene has relit ground truth. The grid is baked as the stage runners
+    bake it. Returns (the views, the metrics, the grid)."""
+    from .core import checkpoint as ckpt_lib
+    from .render.stage2 import Stage2Model
+    from .tools.relight import relight_views
+    from .tracing.grid import build_sdf_grid
+    cfg_dict = _load(args)
+    cfg, dataset, params = _stage2_setup(args, cfg_dict)
+    params, _ = ckpt_lib.restore_into(params, _stage2_checkpoint(args), ignore_unknown=True)
+    grid = build_sdf_grid(Stage2Model(params, cfg, args.device).frozen_sdf(), cfg.grid,
+                          device=args.device)
+    out_dir = args.out or os.path.join(args.log_dir, "relight", os.path.basename(args.envmap))
+    # the relit ground truth comes with the test split (syn_dataset.py:101-115)
+    if os.path.exists(os.path.join(args.data, "transforms_test.json")):
+        from .data.syn_dataset import SynDataset, SynDatasetConfig
+        test_cfg = _filter_fields(SynDatasetConfig, dict(cfg_dict.get("dataset", {})))
+        test_cfg["split"] = "test"
+        dataset = SynDataset(SynDatasetConfig(instance_dir=args.data, **test_cfg))
+    views, metrics = relight_views(
+        params, cfg, grid, dataset, args.envmap, out_dir,
+        view_indices=range(min(dataset.n_cameras, args.n_views)),
+        light_origin=args.light_origin, background=args.background, device=args.device)
+    if "mean_relit_psnr" in metrics:
+        for i, p in enumerate(metrics["relit_psnr"]):
+            print(f"[relight] view {i}: relit_psnr={p:.3f}")
+        print(f"[relight] mean_relit_psnr={metrics['mean_relit_psnr']:.3f}"
+              + (f" masked={metrics['mean_relit_psnr_masked']:.3f}"
+                 if "mean_relit_psnr_masked" in metrics else ""))
+        with open(os.path.join(out_dir, "metrics.json"), "w") as fp:
+            json.dump(metrics, fp, indent=1)
+    print("[relight] wrote", out_dir)
+    return views, metrics, grid
+
+
+def cmd_textures(args):
+    """The PBR texture maps and the OBJ/MTL of ``--mesh`` from the latest
+    CESR (or PBR) checkpoint, into ``--out`` (default
+    ``<log_dir>/textures``); returns the maps."""
+    from .core import checkpoint as ckpt_lib
+    from .tools.tex_extract import extract_textures
+    cfg_dict = _load(args)
+    cfg, _, params = _stage2_setup(args, cfg_dict)
+    params, _ = ckpt_lib.restore_into(params, _stage2_checkpoint(args), ignore_unknown=True)
+    out_dir = args.out or os.path.join(args.log_dir, "textures")
+    maps = extract_textures(params, cfg, args.mesh, out_dir, resolution=args.resolution,
+                            device=args.device)
+    print("[textures] wrote", out_dir)
+    return maps
+
+
+def cmd_import_ref(args):
+    """Reference checkpoints into this layout: ``--stage1_tar
+    {step:06d}.tar`` -> ``<log_dir>/NeuS/ckpt_<step>.npz``; ``--stage2_pth
+    *.pth`` -> ``<log_dir>/<--stage>/checkpoints/latest.npz``, grafted
+    onto a fresh init through the reference's surgery filter ``--filter``
+    (train_pbr.py:122-203). Returns the paths written."""
+    from .core import import_ref
+    paths = []
+    if args.stage1_tar:
+        paths.append(import_ref.import_stage1(args.stage1_tar,
+                                              os.path.join(args.log_dir, "NeuS")))
+        print(f"[import-ref] stage-1 {args.stage1_tar} -> {paths[-1]}")
+    if args.stage2_pth:
+        cfg_dict = _load(args)
+        _, _, params = _stage2_setup(args, cfg_dict)
+        stage_dir = os.path.join(args.log_dir, args.stage, "checkpoints")
+        os.makedirs(stage_dir, exist_ok=True)
+        paths.append(import_ref.import_stage2(
+            args.stage2_pth, params, os.path.join(stage_dir, "latest.npz"),
+            filter_name=args.filter, ignore_unknown=args.ignore_unknown))
+        print(f"[import-ref] stage-2 {args.stage2_pth} (filter={args.filter}) -> {paths[-1]}")
+    if not paths:
+        raise SystemExit("import-ref: pass --stage1_tar and/or --stage2_pth")
+    return paths
+
+
+def cmd_sgfit(args):
+    """``stages/sg_fit.py:main``; returns its (SGs, logged losses)."""
+    from .stages import sg_fit
+    return sg_fit.main(["--envmap_path", args.envmap_path, "--num_sg", str(args.num_sg),
+                        "--n_iters", str(args.n_iters), "--device", args.device]
+                       + (["--out_dir", args.out_dir] if args.out_dir else []))
+
+
 def main(argv=None):
     """Parse ``argv`` and run its subcommand; returns what the command
-    returns (its trainer, runner or mesh)."""
+    returns (its trainer, runner, mesh, or the outputs named in its
+    docstring)."""
     parser = argparse.ArgumentParser(prog="robir_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name, fn in [("neus", cmd_neus), ("norm", cmd_norm), ("vis", cmd_vis),
@@ -436,6 +539,52 @@ def main(argv=None):
     p.add_argument("--ckpt", type=str, required=True)
     p.add_argument("--out", type=str, required=True)
     p.set_defaults(fn=cmd_mesh)
+
+    p = sub.add_parser("relight")
+    _add_common(p)
+    p.add_argument("--envmap", type=str, required=True,
+                   help="dir containing sg_128.npy, with sibling <dir>.exr")
+    p.add_argument("--ckpt", type=str, default=None)
+    p.add_argument("--out", type=str, default=None)
+    p.add_argument("--n_views", type=int, default=4)
+    p.add_argument("--light_origin", action="store_true",
+                   help="render under the training light (sg+indir; scripts/relight.py:78-81)")
+    p.add_argument("--background", choices=["envmap", "white"], default="envmap",
+                   help="background compositing for relit frames")
+    p.set_defaults(fn=cmd_relight)
+
+    p = sub.add_parser("textures")
+    _add_common(p)
+    p.add_argument("--mesh", type=str, required=True)
+    p.add_argument("--ckpt", type=str, default=None)
+    p.add_argument("--out", type=str, default=None)
+    p.add_argument("--resolution", type=int, default=1024)
+    p.set_defaults(fn=cmd_textures)
+
+    p = sub.add_parser("import-ref")
+    _add_common(p)
+    p.add_argument("--stage1_tar", type=str, default=None,
+                   help="reference {step:06d}.tar stage-1 checkpoint")
+    p.add_argument("--stage2_pth", type=str, default=None,
+                   help="reference ModelParameters/*.pth stage-2 checkpoint")
+    p.add_argument("--stage", type=str, default="CESR", choices=["Norm", "Vis", "PBR", "CESR"],
+                   help="which stage directory the stage-2 import lands in")
+    p.add_argument("--filter", type=str, default="all",
+                   choices=["all", "pbr_resume", "norm_only", "illum"],
+                   help="reference surgery filter (train_pbr.py:122-203)")
+    p.add_argument("--ignore_unknown", action="store_true",
+                   help="drop imported paths missing from this config's param tree instead of "
+                        "raising")
+    p.set_defaults(fn=cmd_import_ref)
+
+    p = sub.add_parser("sgfit")
+    p.add_argument("--envmap_path", type=str, required=True)
+    p.add_argument("--num_sg", type=int, default=128)
+    p.add_argument("--n_iters", type=int, default=100_000)
+    p.add_argument("--out_dir", type=str, default=None)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the fit runs (cuda raises without a card)")
+    p.set_defaults(fn=cmd_sgfit)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -6,7 +6,8 @@ rotated by c2w, white-background compositing, lossmult = alpha mask
 (``alpha_as_mask``), near/far constant. All rays of a split are
 precomputed into flat host arrays; a sampler draws fixed-size index batches
 with a numpy generator, and a small thread prefetches them.
-PIL is imported inside the PNG loader only.
+PIL is imported inside the PNG loader only; ``factor: 2`` halves the
+images with ``utils/resize.py:resize_area`` (cv2's INTER_AREA in numpy).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import threading
 from typing import Iterator, NamedTuple
 
 import numpy as np
+
+from ..utils.resize import resize_area
 
 
 class RayBatch(NamedTuple):
@@ -68,9 +71,7 @@ class BlenderScene:
             fname = os.path.join(cfg.dataset_dir, frame["file_path"] + ".png")
             img = _load_png(fname)
             if cfg.factor == 2:
-                import cv2
-                h, w = [s // 2 for s in img.shape[:2]]
-                img = cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)
+                img = resize_area(img, tuple(s // 2 for s in img.shape[:2]))
             images.append(img)
             cams.append(np.array(frame["transform_matrix"], dtype=np.float32))
         self._setup(cfg, np.stack(images, 0), np.stack(cams, 0),

@@ -2,7 +2,8 @@
 ``robir_tpu/data/synthetic.py``): a lambertian sphere, and two spheres with
 hard cast shadows.
 
-``make_sphere_dataset`` and ``make_shadow_dataset`` write a scene to disk in
+``make_sphere_dataset`` and ``make_shadow_dataset`` (its main sphere of one
+colour, or ``textured``) write a scene to disk in
 the blender format, as the JAX package's writers of the same name do (the
 same cameras from the same seed, the same files): ``transforms_<split>.json``
 and RGBA PNGs for the train, test and val splits, the test split's
@@ -76,12 +77,25 @@ def render_sphere_gt(c2w: np.ndarray, h: int, w: int, focal: float,
 RELIT_LIGHT_DIRS = {"envmap6": (-0.6, 0.4, 0.7), "envmap12": (0.2, -0.7, 0.7)}
 
 
+def textured_albedo(p: np.ndarray) -> np.ndarray:
+    """The textured scene's albedo of the main sphere: a smooth two-colour
+    sinusoidal weave in world coordinates, [N, 3] points -> [N, 3] in
+    (0, 1), about three periods across the 0.5-radius sphere."""
+    a = np.asarray([0.8, 0.3, 0.2], np.float32)
+    b = np.asarray([0.2, 0.5, 0.8], np.float32)
+    w = 0.5 * (1.0 + np.sin(9.0 * p[..., 0]) * np.cos(9.0 * p[..., 1]))
+    w = w.astype(np.float32)[..., None]
+    return a * w + b * (1.0 - w)
+
+
 def render_two_sphere_gt(c2w: np.ndarray, h: int, w: int, focal: float,
                          centers=((0.0, 0.0, 0.0), (0.37, 0.22, 0.61)),
                          radii=(0.5, 0.18),
                          albedos=((0.8, 0.3, 0.2), (0.25, 0.45, 0.8)),
                          light_dir=(0.5, 0.3, 0.8)) -> np.ndarray:
-    """Two lambertian spheres with hard cast shadows, RGBA [h, w, 4]."""
+    """Two lambertian spheres with hard cast shadows, RGBA [h, w, 4]. An
+    ``albedos`` entry may be a callable, [N, 3] world points -> [N, 3]
+    (``textured_albedo``)."""
     x, y = np.meshgrid(np.arange(w, dtype=np.float32),
                        np.arange(h, dtype=np.float32), indexing="xy")
     dirs = np.stack([(x - w * 0.5 + 0.5) / focal, -(y - h * 0.5 + 0.5) / focal,
@@ -124,7 +138,7 @@ def render_two_sphere_gt(c2w: np.ndarray, h: int, w: int, focal: float,
                                    centers[sj], radii[sj])
                 shadow |= sh
         lam = np.where(shadow, 0.0, np.clip(n @ ld, 0.0, 1.0))
-        alb = np.asarray(albedos[si], np.float32)
+        alb = albedos[si](p) if callable(albedos[si]) else np.asarray(albedos[si], np.float32)
         out[np.where(sel)[0], :3] = (lam[:, None] * 0.8 + 0.2) * alb
         out[np.where(sel)[0], 3] = 1.0
     return out.reshape(h, w, 4)
@@ -193,15 +207,18 @@ def make_sphere_dataset(out_dir: str, n_train: int = 20, n_test: int = 4,
 def make_shadow_dataset(out_dir: str, n_train: int = 20, n_test: int = 3,
                         h: int = 128, w: int = 128,
                         camera_angle_x: float = 0.6911112070083618,
-                        cam_dist: float = 3.2, seed: int = 0) -> str:
+                        cam_dist: float = 3.2, seed: int = 0, textured: bool = False) -> str:
     """Write the blender-format two-sphere scene with cast shadows under
-    ``out_dir``; returns it."""
+    ``out_dir``; returns it. ``textured`` gives the main sphere the
+    spatially varying ``textured_albedo`` (the scene of the shadow
+    pipeline's albedo-recovery gates)."""
+    albedos = (textured_albedo if textured else (0.8, 0.3, 0.2)), (0.25, 0.45, 0.8)
     focal = 0.5 * w / np.tan(0.5 * camera_angle_x)
     rng = np.random.default_rng(seed)
     splits = [(sp, _orbit(rng, n, cam_dist, SHADOW_PHI, SHADOW_TARGET))
               for sp, n in (("train", n_train), ("test", n_test), ("val", 2))]
     return _write_scene(out_dir, splits, camera_angle_x, lambda c2w, ld: render_two_sphere_gt(
-        c2w, h, w, focal, **({} if ld is None else {"light_dir": ld})))
+        c2w, h, w, focal, albedos=albedos, **({} if ld is None else {"light_dir": ld})))
 
 
 def make_sphere_scene(split: str = "train", n_train: int = 20,

@@ -8,9 +8,10 @@ heads (counterpart of ``robir_tpu/fields/envmap_material.py``).
   * 0.9 + 0.09 and metallic * 0.99 + 0.01), and the normal decoder
   (IPE(var=1e-5) input, no out activation, smoothness on the input);
 - the scalar Fresnel ``specular_reflectance``;
-- the optional upper-hemisphere lobe restriction.
-
-Not ported yet: ``load_light`` and ``get_light`` (relighting).
+- the optional upper-hemisphere lobe restriction;
+- for relighting, ``get_light`` (the lights without a graph) and
+  ``load_light`` (prefit SGs and their envmap image in place of the
+  learnt lights).
 """
 
 from __future__ import annotations
@@ -173,3 +174,25 @@ def envmap_material_apply(params: Params, cfg: EnvmapMaterialConfig,
         random_xi_metallic=brdf_xi[..., 4:5],
         random_xi_diffuse_albedo=brdf_xi[..., :3],
         random_xi_normal=_unit(xi_normal))
+
+
+def get_light(params: Params, cfg: EnvmapMaterialConfig) -> torch.Tensor:
+    """The SG lights without a graph, restricted to the upper hemisphere
+    where ``cfg.upper_hemi``."""
+    lgt = params["lgtSGs"].detach()
+    return restrict_lobes_upper(lgt) if cfg.upper_hemi else lgt
+
+
+def load_light(params: Params, path: str) -> tuple[dict, np.ndarray]:
+    """Prefit SGs and their envmap image for relighting
+    (sg_envmap_material.py:257-268): ``<path>/sg_128.npy`` in place of
+    ``lgtSGs`` (a new dict; ``params`` is left as it was) and the RGB of
+    ``<path>.exr``. Returns (new params, envmap [H, W, 3])."""
+    import os
+
+    from ..utils.exr import read_exr
+
+    sgs = np.load(os.path.join(path, "sg_128.npy"))
+    new_params = dict(params)
+    new_params["lgtSGs"] = torch.as_tensor(np.asarray(sgs, np.float32))
+    return new_params, read_exr(path + ".exr")[..., :3]

@@ -142,6 +142,43 @@ def test_k3_k4_match_plain(dev, n_rows):
         _close(got, want)
 
 
+
+# the shadow pipeline's SDF trunk (robir_tpu_torch/tools/shadow_pipeline.py:
+# conf_dict): 4 layers 128 wide, the skip at 2, PE 6 (39 inputs), 129
+# outputs; at a surface batch's rows, an eval chunk's and a bake chunk's
+PIPELINE_SDF = SDFConfig(d_out=129, d_hidden=128, n_layers=4, skip_in=(2,), multires=6)
+
+
+@pytest.mark.parametrize("n_rows", [128, 2048, 65536])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_trunk_kernels_at_the_pipeline_plan(dev, kernel, n_rows):
+    plan = tfm.plan_from_sdf_config(PIPELINE_SDF)
+    assert plan.dims[0] == 39 and plan.out_dim == 129
+    x, ws, bs = trunk_case(plan, 11, n_rows)
+    rng = np.random.default_rng(12)
+    dy = to_t(rng.standard_normal((n_rows, plan.out_dim)), dev)
+    dde = to_t(rng.standard_normal((n_rows, plan.dims[0])), dev)
+    x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
+    counter = {"K1": tfm.FORWARD, "K2": tfm.BACKWARD, "K3": tfv.FORWARD,
+               "K4": tfv.BACKWARD}[kernel]
+    before = counter.launches
+    if kernel == "K1":
+        pairs = [(tfm.fused_mlp_cuda(plan, x, ws, bs), tfm._forward_rows(plan, x, ws, bs))]
+    elif kernel == "K2":
+        got = tfm.mlp_backward_cuda(plan, x, ws, bs, dy, True)
+        want = tfm._backward_rows(plan, x, ws, bs, dy, True)
+        pairs = [(got[0], want[0]), *zip(got[1], want[1]), *zip(got[2], want[2])]
+    elif kernel == "K3":
+        pairs = list(zip(tfv.vg_forward_cuda(plan, x, ws, bs),
+                         tfv._forward_phases(plan, x, ws, bs)[:2]))
+    else:
+        got = tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde)
+        want = tfv._backward_phases(plan, x, ws, bs, dy, dde)
+        pairs = [(got[0], want[0]), *zip(got[1], want[1]), *zip(got[2], want[2])]
+    assert counter.launches == before + 1
+    for got, want in pairs:
+        _close(got, want)
+
 def test_trainer_steps_launch_each_kernel(dev):
     """Small widths through NeusTrainer on the card: finite losses, and the
     launch counts rise by 4 K1 + 1 K3 + 1 K4 per step (4 up-sample rounds,

@@ -1,5 +1,6 @@
 """The port's scenes on disk against the JAX package's: the procedural
-writers, ``SynDataset`` (train and test splits), and the
+writers (the shadow scene plain and textured), ``SynDataset`` (train and
+test splits), ``BlenderScene`` at ``factor: 2``, and the
 ``cameras_sphere.npz`` loaders ``NeuSNpzScene`` and ``DTUSceneDataset``.
 
 Images, masks, poses, intrinsics and relit images are held exactly (both
@@ -104,6 +105,37 @@ def test_blender_scene_reads_the_ports_writer(tmp_path):
         np.testing.assert_array_equal(got.images, want.images)
         mem = tsyn.make_sphere_scene(split, n_train=3, n_test=2, h=16, w=16)
         np.testing.assert_allclose(mem.images, got.images, atol=1e-6)
+
+
+
+def test_textured_shadow_writer_matches_jax(tmp_path):
+    """``make_shadow_dataset(textured=True)``: every file equal to the JAX
+    writer's, and the main sphere's albedo not one colour."""
+    kw = dict(n_train=3, n_test=2, h=24, w=24, seed=1, textured=True)
+    jsyn.make_shadow_dataset(str(tmp_path / "jax"), **kw)
+    tsyn.make_shadow_dataset(str(tmp_path / "port"), **kw)
+    want, got = _read_all(str(tmp_path / "jax")), _read_all(str(tmp_path / "port"))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if isinstance(want[k], str):
+            assert got[k] == want[k], k
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    plain = _read_all(str(tsyn.make_shadow_dataset(str(tmp_path / "plain"), **{
+        **kw, "textured": False})))
+    assert not np.array_equal(plain["train/r_0.png"], got["train/r_0.png"])
+    p = np.random.default_rng(2).standard_normal((100, 3)).astype(np.float32)
+    np.testing.assert_array_equal(tsyn.textured_albedo(p), jsyn.textured_albedo(p))
+
+
+def test_blender_scene_at_factor_two_matches_jax(tmp_path):
+    """``factor: 2`` halves the images by the area rule: the port's numpy
+    resize against the JAX loader's cv2 (1e-5; cv2 sums in fp32)."""
+    tsyn.make_sphere_dataset(str(tmp_path), n_train=2, n_test=1, h=30, w=24)
+    got = BlenderScene(BlenderConfig(dataset_dir=str(tmp_path), factor=2), "train")
+    want = JBlenderScene(JBlenderConfig(dataset_dir=str(tmp_path), factor=2), "train")
+    assert got.images.shape == want.images.shape == (2, 15, 12, 3)
+    np.testing.assert_allclose(got.images, want.images, rtol=0, atol=1e-5)
 
 
 def _make_npz_scene(root, n=6, h=40, w=48):

@@ -1,6 +1,7 @@
 """The port stands alone: importing it, every module under it, or
-``chip_smoke.py`` leaves JAX and the JAX package out of ``sys.modules``,
-and ``chip_smoke.py`` refuses to run without a CUDA device."""
+``chip_smoke.py`` leaves JAX and the JAX package out of ``sys.modules``; no
+module of it imports cv2; and ``chip_smoke.py`` refuses to run without a
+CUDA device."""
 
 import os
 import subprocess
@@ -38,7 +39,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"robir_tpu_torch.core.checkpoint", "robir_tpu_torch.stages.vis",
             "robir_tpu_torch.stages.pbr", "robir_tpu_torch.texture.mesh",
             "robir_tpu_torch.texture.focus_sampler", "robir_tpu_torch.stages.norm",
-            "robir_tpu_torch.cli", "robir_tpu_torch.tools.logger"} <= names
+            "robir_tpu_torch.cli", "robir_tpu_torch.tools.logger",
+            "robir_tpu_torch.tools.relight", "robir_tpu_torch.tools.tex_extract",
+            "robir_tpu_torch.tools.shadow_pipeline", "robir_tpu_torch.stages.sg_fit",
+            "robir_tpu_torch.core.import_ref", "robir_tpu_torch.utils.resize"} <= names
+
+
+def test_port_imports_no_cv2():
+    """The card's machine has no cv2: no module of the port imports it, where
+    it is imported at all (at the top or inside a function)."""
+    import re
+    found = []
+    for dirpath, _, files in os.walk(os.path.join(REPO_ROOT, "robir_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fp:
+                    if re.search(r"^\s*(import|from)\s+cv2\b", fp.read(), re.M):
+                        found.append(f)
+    assert not found, found
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -223,3 +223,86 @@ def two_sphere_tex_sampler(root, resolution: int = 256, mesh_res: int = 48):
     np.savez(os.path.join(root, "mesh.cache", "uv.npz"), uv=grid_atlas(len(mesh.tris)),
              idx=mesh.tris.reshape(-1).astype(np.int32))
     return tpipe.TexSampler(os.path.join(root, "mesh.ply"), resolution)
+
+
+def jax_view_draws(jax_model, dataset, views, chunk: int, compact: int, key, stage2_cfg,
+                   n_lights: int, diffuse_nsamp: int = 32) -> list:
+    """The draws of each chunk of a JAX chunked view render (``render_view``
+    or ``tools/relight.py:relight_views``) from its key, in chunk order
+    over ``views``: each chunk of ``chunk`` rays (the last padded by
+    repeating its last ray) splits a key off ``key`` and draws as one
+    compacted ``stage2_forward`` (``jax_stage2_draws`` at ``compact``, its
+    surface rows those ``jax_model``'s trace hits)."""
+    import jax
+
+    trace = jax.jit(jax_model.trace)
+    out = []
+    for v in views:
+        dirs, cam_loc = dataset.camera_rays(v)
+        for start in range(0, dirs.shape[0], chunk):
+            d = dirs[start:start + chunk]
+            d = np.concatenate([d, np.repeat(d[-1:], chunk - d.shape[0], 0)])
+            hit = np.asarray(trace(np.broadcast_to(cam_loc, d.shape), d)[1])
+            key, k = jax.random.split(key)
+            out.append(jax_stage2_draws(k, chunk, stage2_cfg, n_lights,
+                                        diffuse_nsamp=diffuse_nsamp, surface=hit,
+                                        chunk=compact))
+    return out
+
+
+# the reference's Sequential (Linear, activation) stacks by the segment the
+# parameter tree names them (robir_tpu_torch/core/import_ref.py:_SEQ2's inverse)
+_REF_SEQ2 = {"encoder": "brdf_encoder_layer", "decoder": "brdf_decoder_layer",
+             "lobe_layer": "lobe_layer", "energy": "mlp"}
+_REF_SEQ1 = {"pts_lin": "pts_linears", "views_lin": "views_linears"}
+_REF_RENAME = {"feature": "feature_linear", "alpha": "alpha_linear", "rgb": "rgb_linear"}
+
+
+def reference_key(path: str):
+    """The inverse of ``import_ref._map_key``: a '/'-joined path of the
+    parameter tree -> (the reference's dotted state-dict key, the value's
+    transform into the reference's layout: ``w``/``v`` transposed, ``g``
+    as [out, 1]). Check code: it builds reference checkpoints from the
+    port's trees, so that no reference checkpoint is needed."""
+    import re
+
+    parts = path.split("/")
+    out = []
+    i = 0
+    while i < len(parts) - 1:
+        p, nxt = parts[i], parts[i + 1]
+        lin = re.fullmatch(r"lin(\d+)", nxt) if i + 1 < len(parts) - 1 else None
+        seq1 = re.fullmatch(r"(pts_lin|views_lin)(\d+)", p)
+        if lin and (p in _REF_SEQ2 or p == "visibility_network"):
+            out += [p, "vis_layer"] if p == "visibility_network" else [_REF_SEQ2[p]]
+            out.append(str(2 * int(lin.group(1))))
+            i += 2
+        elif seq1:
+            out += [_REF_SEQ1[seq1.group(1)], seq1.group(2)]
+            i += 1
+        else:
+            out.append(_REF_RENAME.get(p, p))
+            i += 1
+    if out[:1] == ["implicit_network"]:
+        out.insert(1, "neus_model")
+    leaf = parts[-1]
+    if leaf == "adapt_illum" and parts[-2:-1] == ["gamma"]:
+        out.append("hdr_shift")
+    if leaf in ("w", "v"):
+        return ".".join(out + ["weight" if leaf == "w" else "weight_v"]), \
+            lambda a: np.ascontiguousarray(a.T)
+    if leaf == "g":
+        return ".".join(out + ["weight_g"]), lambda a: a.reshape(-1, 1)
+    return ".".join(out + ["bias" if leaf == "b" else leaf]), lambda a: a
+
+
+def reference_state_dict(tree) -> dict:
+    """A parameter tree (nested dicts of arrays or tensors) as the
+    reference's torch state dict (``reference_key`` of every leaf)."""
+    from robir_tpu_torch.core.tree import flatten_with_paths
+
+    sd = {}
+    for path, leaf in flatten_with_paths(tree).items():
+        key, xform = reference_key(path)
+        sd[key] = torch.from_numpy(np.array(xform(to_np(leaf)), np.float32))
+    return sd
