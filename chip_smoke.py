@@ -184,7 +184,46 @@
    (``cli_import_ref``) of a reference ``.tar`` of 22's NeuS and a
    ``.pth`` of its CESR checkpoint into a fresh log dir (every leaf
    bit-equal to its source; no kernel). Prints each one's wall time.
-24. With ``--profile STEPS``, profiles that many more steps of each path and
+24. The stage-1 alternates, each ``neus`` through ``cli.main`` with the
+   counts set to 0 just before and read just after, on scenes written from
+   ``--seed`` by ``tests/torch_port_helpers.py`` and configs written as
+   JSON into the run directory; no kernel of the port may launch on these
+   paths (their models are plain PyTorch). ``cli_llff_mip``: VNeRF at its
+   defaults (8 x 256, skip at 4, PE 10, view PE 4) under
+   ``MipRenderConfig``'s (2 levels, 64 samples), batch ALT_BATCH, on a
+   forward-facing LLFF capture (24 views, 120 x 160, llffhold 8) for
+   LLFF_STEPS steps, one in-train eval, then the test pass;
+   ``cli_llff_ipe``: the same as MipNeRF (``use_ipe``, ``ipe_max_deg``
+   16). ``cli_multicam``: the same widths on a Multicam scene at two
+   resolutions for MULTICAM_STEPS steps and its ragged test pass (frames
+   as images). Each prints its step median, loss, PSNR and wall time.
+25. ``cli_hash``: ``model.type=hash`` at the ``HashNeuSConfig`` defaults
+   with configs/neus_blender.json's colour net, renderer and mesh section,
+   batch ALT_BATCH, HASH_STEPS steps on the sphere scene of 22; then
+   ``mesh`` of its checkpoint at 256^3 (``cli_hash_mesh``, the PLY read
+   back equal). No launch. The hash encoding's own ms per step (CUDA
+   events, forward and backward).
+26. ``neus_bg``: stage 1 with the NeRF background shell (``NeRFBgConfig``
+   defaults, n_outside 32, white_bkgd false) at configs/neus_blender.json
+   widths: one step on the card against the CPU in fp32 and fp64 on the
+   same samples (a planted K4 fault must fail), then BG_STEPS steps; the
+   counts must rise by exactly 4 K1 + 1 K3 + 1 K4 a step (the shell
+   queries no SDF); each kernel held to its plain version at the shapes it
+   launched.
+27. IDR mode (``model.use_neus=false``) at configs/hotdog.json: the CESR
+   step against the CPU in row mode on the two-sphere grid (a planted K2
+   fault must fail); ``norm`` must raise the JAX package's ValueError;
+   ``vis``, ``pbr`` and ``cesr`` (paths ``cli_idr_*``) IDR_STEPS steps each
+   on the shadow scene with the grid tracer: each bake 500 K1 launches of
+   65,536 rows at the IDR trunk, the Vis path's K3 one row a needed ray;
+   K1, K2, K3 and the march held to their plain versions at every shape
+   launched.
+28. ``mip_sdf``: the mip renderer's ``sdf`` compositor
+   (``similarity_process`` through ``NeuSSDF``) on the seeded NeuS at
+   configs/neus_blender.json widths, 512 rays, on the card against the CPU
+   within KERNEL_TOL of each output's largest entry; its one K3 launch held
+   to the plain version. Prints each phase's wall time.
+29. With ``--profile STEPS``, profiles that many more steps of each path and
    prints the device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, the build time, each check, the
@@ -215,9 +254,9 @@ from robir_tpu_torch import cli
 from robir_tpu_torch.core import checkpoint as ckpt_lib
 from robir_tpu_torch.core.config import (build_mesh_config, build_stage1_configs,
                                          build_stage2_config, build_stage_config, load_config,
-                                         texture_resolution)
+                                         stage1_dispatch, texture_resolution)
 from robir_tpu_torch.core.draws import Draws
-from robir_tpu_torch.core.params import to_numpy
+from robir_tpu_torch.core.params import from_jax, to_numpy
 from robir_tpu_torch.core.tree import flatten_with_paths
 from robir_tpu_torch.data.blender import RayBatch
 from robir_tpu_torch.data.syn_dataset import shadow_scene
@@ -225,18 +264,20 @@ from robir_tpu_torch.data.synthetic import (make_shadow_dataset, make_sphere_dat
                                             make_sphere_scene)
 from robir_tpu_torch.fields.encoding import positional_encoding
 from robir_tpu_torch.fields.neus_model import NeuS, init_neus
+from robir_tpu_torch.fields.radiance import NeRFBgConfig
 from robir_tpu_torch.render.cuda import build
 from robir_tpu_torch.render.cuda import fused_mlp as fm
 from robir_tpu_torch.render.cuda import fused_value_grad as fv
 from robir_tpu_torch.render.cuda import grid_march as gm
 from robir_tpu_torch.render import sg as sg_lib
 from robir_tpu_torch.render import stage2 as stage2_mod
-from robir_tpu_torch.render.neus import render_samples, sample_z_vals
+from robir_tpu_torch.render.neus import outside_z_vals, render_samples, sample_z_vals
 from robir_tpu_torch.render.sg import compute_envmap
 from robir_tpu_torch.render.stage2 import Stage2Model, secondary_fan, stage2_forward
 from robir_tpu_torch.stages import pbr as pbr_mod
 from robir_tpu_torch.stages.cesr import SHADOW_PE, CESRRunner, CESRStageConfig, cesr_loss
 from robir_tpu_torch.stages.norm import NormRunner, NormStageConfig, norm_loss
+from robir_tpu_torch.stages import neus_stage as neus_stage_mod
 from robir_tpu_torch.stages.neus_stage import (NeusTrainer, batch_to_rays,
                                                cos_anneal_ratio, neus_loss)
 from robir_tpu_torch.stages.pbr import PBRRunner, PBRStageConfig, pbr_loss, pbr_sg_render
@@ -335,6 +376,9 @@ CLI_STAGE_STEPS, CLI_STAGE_PLOT = 10, 5
 # texture maps' resolution
 SGFIT_STEPS, SGFIT_HW = 300, (512, 1024)
 TEXTURES_RES = 1024
+# the stage-1 alternates and IDR mode: steps of each path, and the batch
+LLFF_STEPS, MULTICAM_STEPS, HASH_STEPS, BG_STEPS, IDR_STEPS = 20, 10, 20, 20, 10
+ALT_BATCH = 512
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
@@ -3057,6 +3101,445 @@ def drive_cli_import_ref(root: str, log_dir: str, shadow: str, neus_sets: list, 
           f"(--ignore_unknown)", flush=True)
 
 
+# -- the stage-1 alternates and IDR mode ------------------------------------
+
+
+@contextlib.contextmanager
+def stage1_step_ms(ms: list):
+    """While open, each stage-1 ``train_step`` (the one ``NeusTrainer.run``
+    calls) is timed with CUDA events to a synchronize, into ``ms``."""
+    real = neus_stage_mod.train_step
+
+    def timed(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        return out
+
+    neus_stage_mod.train_step = timed
+    try:
+        yield ms
+    finally:
+        neus_stage_mod.train_step = real
+
+
+def write_conf(path: str, conf: dict) -> str:
+    with open(path, "w") as f:
+        json.dump(conf, f, indent=1)
+    return path
+
+
+def steady_median(ms: list) -> float:
+    return float(np.median(ms[2:] or ms))
+
+
+def drive_cli_stage1_alt(path: str, root: str, conf: dict, data: str, steps: int, call,
+                         runs: dict, walls: dict, frames: int) -> float:
+    """``neus`` of ``conf`` on ``data`` from the command line into
+    ``root/<path>`` for ``steps`` steps, its in-train evals and its test
+    pass: no kernel of the port may launch (the VNeRF, MipNeRF and hash
+    paths are plain PyTorch); the checkpoint, ``description.json`` and the
+    test frames (``frames`` of them; ragged scenes as images, the others
+    as one video) written, the losses and PSNR finite. Prints the phase's
+    line; returns its step median, ms."""
+    log_dir = os.path.join(root, path)
+    conf_path = write_conf(os.path.join(root, f"{path}.json"), conf)
+    ms, finals = [], []
+    with stage1_step_ms(ms), observed(NeusTrainer, "run", finals, lambda a, k, out: out):
+        trainer = call(path, ["neus", "--conf", conf_path, "--data", data, "--log_dir",
+                              log_dir, "--n_iters", str(steps)])
+    if launched(runs[path]):
+        raise RuntimeError(f"{path} launched {launched(runs[path])}; its models run no kernel")
+    run_dir = os.path.join(log_dir, "NeuS", "neus")
+    with open(os.path.join(run_dir, "description.json")) as f:
+        desc = json.load(f)
+    plots = set(os.listdir(os.path.join(run_dir, "plots")))
+    ragged = len({trainer.scene.image_shape(i) for i in range(trainer.scene.n_images)}) > 1 \
+        if hasattr(trainer.scene, "image_shape") else False
+    framed = ({f"test_frame_{i}_{steps}.png" for i in range(frames)} <= plots if ragged
+              else any(p.startswith("test_frames.") for p in plots))
+    if not (framed and os.path.exists(ckpt_lib.step_path(os.path.join(log_dir, "NeuS"),
+                                                                 steps))
+            and trainer.step == steps and np.isfinite(desc["mean_psnr"])
+            and all(np.isfinite(m["loss"]) for m in finals)):
+        raise RuntimeError(f"{path}: step {trainer.step}, {desc}, plots {sorted(plots)}")
+    print(f"{path}: {steps} steps of {type(trainer.model).__name__} at batch "
+          f"{trainer.train_cfg.batch_size}, {trainer.scene.n_images} train views; step median "
+          f"{steady_median(ms):.3f} ms (steps 3-{steps}, CUDA events around train_step), first "
+          f"{ms[0]:.1f} ms; loss {finals[-1]['loss']:.5f}; test pass {frames} views "
+          f"{'ragged, as images' if ragged else 'as a video'}: PSNR {desc['mean_psnr']:.3f} dB, "
+          f"{desc['rays_per_sec']:.0f} rays/s; {walls[path]:.1f} s wall; no kernel launched",
+          flush=True)
+    return steady_median(ms)
+
+
+def time_hash_encoding(cfg, params, rows: tuple[int, int], gen) -> float:
+    """The hash encoding's own work in one stage-1 step, timed with CUDA
+    events: its forward at the sampling phase's rows (no graph), then at
+    the shaded pass's rows its forward, the spatial gradient with a graph
+    and the backward of a loss on both to the tables (the eikonal term's
+    second order). ms."""
+    from robir_tpu_torch.fields.hashgrid import hashgrid_encode
+    grid = cfg.hash_sdf.grid
+    hash_params = params["sdf_network"]["hash"]
+    n_samp, n_shade = rows
+    xs = torch.rand(n_samp, 3, generator=gen, device="cuda") * 2 - 1
+    xt = torch.rand(n_shade, 3, generator=gen, device="cuda") * 2 - 1
+    w = torch.randn(grid.out_dim, generator=gen, device="cuda")
+
+    def step():
+        with torch.no_grad():
+            hashgrid_encode(hash_params, grid, xs)
+        x = xt.clone().requires_grad_(True)
+        f = hashgrid_encode(hash_params, grid, x) @ w
+        g, = torch.autograd.grad(f.sum(), x, create_graph=True)
+        (f.sum() + (g * g).sum()).backward()
+
+    return cuda_ms(step, 5)
+
+
+def drive_cli_hash(root: str, sphere: str, seed: int, call, runs: dict, walls: dict,
+                   gen) -> None:
+    """Path ``cli_hash``: ``neus`` with ``model.type=hash`` at the
+    ``HashNeuSConfig`` defaults, configs/neus_blender.json's colour net,
+    renderer, train and mesh sections, batch 512, HASH_STEPS steps on the
+    sphere scene; then ``mesh`` of its checkpoint at 256^3 (path
+    ``cli_hash_mesh``). No kernel; the hash encoding's own ms per step."""
+    base = load_config(str(CONFIG))
+    conf = {**base, "model": {"type": "hash", "color": base["model"]["color"]},
+            "train": {**base["train"], "batch_size": ALT_BATCH, "eval_every": HASH_STEPS,
+                      "ckpt_every": HASH_STEPS}}
+    step_ms = drive_cli_stage1_alt("cli_hash", root, conf, sphere, HASH_STEPS, call, runs,
+                                   walls, frames=2)
+    ckpt = ckpt_lib.step_path(os.path.join(root, "cli_hash", "NeuS"), HASH_STEPS)
+    ply = os.path.join(root, "cli_hash_mesh.ply")
+    mesh = call("cli_hash_mesh", ["mesh", "--conf", os.path.join(root, "cli_hash.json"),
+                                  "--ckpt", ckpt, "--out", ply])
+    if launched(runs["cli_hash_mesh"]):
+        raise RuntimeError(f"cli_hash_mesh launched {launched(runs['cli_hash_mesh'])}")
+    got = tmesh.Mesh.load_ply(ply)
+    if not (np.array_equal(got.tris, mesh.tris) and np.array_equal(got.verts, mesh.verts)):
+        raise RuntimeError("cli_hash_mesh: the PLY read back differs")
+    _, _, model_cfg, render_cfg = stage1_dispatch(conf)
+    params = from_jax(ckpt_lib.load(ckpt)[0]["params"], "cuda")
+    batch = conf["train"]["batch_size"]
+    samp = batch * (render_cfg.n_samples + render_cfg.n_importance * (
+        render_cfg.up_sample_steps - 1) // render_cfg.up_sample_steps)
+    shade = batch * (render_cfg.n_samples + render_cfg.n_importance)
+    enc_ms = time_hash_encoding(model_cfg, params, (samp, shade), gen)
+    g = model_cfg.hash_sdf.grid
+    print(f"cli_hash_mesh: {build_mesh_config(conf).resolution}^3 from {os.path.basename(ckpt)}: "
+          f"{len(mesh.verts)} vertices, {len(mesh.tris)} triangles, {walls['cli_hash_mesh']:.1f} "
+          f"s wall, no kernel launched; the hash encoding ({g.n_levels} levels x "
+          f"{g.n_features} features, 2^{g.log2_hashmap_size} entries a level, plain PyTorch "
+          f"gathers): {enc_ms:.3f} ms a step (forward at the sampling phase's {samp} points, "
+          f"forward, spatial gradient and second-order backward at the shaded pass's {shade}; "
+          f"CUDA events) of the step's {step_ms:.3f} ms median", flush=True)
+
+
+def check_bg_step_against_cpu(model_cfg, render_cfg, train_cfg, scene, seed: int) -> None:
+    """One full-width stage-1 step with the background shell on the card
+    against the same step on the CPU in fp32 and fp64, as
+    ``check_step_against_cpu`` does: the same weights (seeded), 64 rays of
+    ``scene`` (every pixel in the loss's mask, so that the rays that pass
+    the object train the shell) and the same samples (the CPU's sampling
+    phase, the shell's from one seeded draw). Each parameter gradient on
+    the card against fp64 within GRAD_TOL of its largest entry, or, where
+    fp32 itself does worse (the shell's density head, whose gradient
+    cancels over the samples), within CESR_FP32_FACTOR x the CPU fp32
+    step's own error. Then a planted fault, K4 blind to the first
+    FAULT_ROWS rows (their cotangents zeroed), which those bounds must
+    reject on the SDF trunk's gradients."""
+    cfg = dataclasses.replace(model_cfg, color=dataclasses.replace(
+        model_cfg.color, storage_dtype=None))
+    params = init_neus(torch.Generator().manual_seed(seed), cfg)
+    batch = scene.sample(np.random.default_rng(seed), 64)
+    gen = torch.Generator().manual_seed(seed)
+    t_rand = torch.rand((64, 1), generator=gen) - 0.5
+    t_out = torch.rand((64, render_cfg.n_outside), generator=gen)
+    anneal = cos_anneal_ratio(0, train_cfg.anneal_end)
+    z_vals = z_out = None
+
+    def step(dev, dtype):
+        nonlocal z_vals, z_out
+        model = NeuS(params, cfg, dev).to(dtype)
+        rays, pixels = batch_to_rays(RayBatch(*[
+            torch.as_tensor(a, device=dev, dtype=dtype) for a in batch]))
+        if z_vals is None:
+            z_vals = sample_z_vals(rays, model, render_cfg, t_rand=t_rand)
+            z_out = outside_z_vals(rays, render_cfg, t_rand_outside=t_out)
+        out = render_samples(rays, z_vals.to(dev, dtype), model, anneal, render_cfg,
+                             z_out.to(dev, dtype))
+        loss, _ = neus_loss(out, rays.lossmult, pixels, train_cfg)
+        names, leaves = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), names, [g.to("cpu", torch.float64) for g in grads]
+
+    loss_cpu, names, g_cpu = step("cpu", torch.float32)
+    loss64, _, g64 = step("cpu", torch.float64)
+    loss_gpu, _, g_gpu = step("cuda", torch.float32)
+    real = fv.vg_backward_cuda
+
+    def blind_to_first_rows(plan, x, ws, bs, dy, dde):
+        dy, dde = dy.clone(), dde.clone()
+        dy[:FAULT_ROWS] = 0
+        dde[:FAULT_ROWS] = 0
+        return real(plan, x, ws, bs, dy, dde)
+
+    try:
+        fv.vg_backward_cuda = blind_to_first_rows
+        g_fault = step("cuda", torch.float32)[2]
+    finally:
+        fv.vg_backward_cuda = real
+
+    def rel(a, ref):
+        return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+    errs = {n: (rel(a, r), rel(c, r)) for n, a, c, r in zip(names, g_gpu, g_cpu, g64)}
+    bound = {n: max(GRAD_TOL, CESR_FP32_FACTOR * e[1]) for n, e in errs.items()}
+    over = {n: errs[n][0] / bound[n] for n in errs}
+    worst = max(over, key=over.get)
+    shell = max((n for n in errs if n.startswith("params.nerf_outside")), key=over.get)
+    fault = {n: rel(a, r) / bound[n] for n, a, r in zip(names, g_fault, g64)
+             if n.startswith("params.sdf_network")}
+    caught = max(fault, key=fault.get)
+    print(f"stage-1 step with the background shell on the card vs the CPU (64 rays, "
+          f"neus_blender.json widths, the shell at NeRFBgConfig's, n_outside "
+          f"{render_cfg.n_outside}, same samples): loss card {loss_gpu:.8f}, CPU fp32 "
+          f"{loss_cpu:.8f}, fp64 {loss64:.8f}; {len(errs)} tensors; worst {worst}: card vs "
+          f"fp64 {errs[worst][0]:.3e}, CPU fp32 vs fp64 {errs[worst][1]:.3e}, bound "
+          f"{bound[worst]:.3e}; the shell's worst {shell}: {errs[shell][0]:.3e} "
+          f"(CPU fp32 {errs[shell][1]:.3e}, bound {bound[shell]:.3e}); planted fault (K4 "
+          f"blind to the first {FAULT_ROWS} rows): {caught} {fault[caught]:.1f}x its bound",
+          flush=True)
+    print(f"shell step check worst: gradient {worst} at {over[worst]:.3f} of its bound",
+          flush=True)
+    if not abs(loss_gpu - loss_cpu) <= LOSS_RTOL * abs(loss_cpu):
+        raise RuntimeError(f"shell step loss on the card {loss_gpu} vs CPU {loss_cpu}")
+    if not over[worst] <= 1.0:
+        raise RuntimeError(f"shell step gradient {worst}: card vs fp64 {errs[worst][0]:.3e} "
+                           f"> bound {bound[worst]:.3e}")
+    if not fault[caught] > 1.0:
+        raise RuntimeError("the shell step's gradient bounds passed the planted K4 fault")
+
+
+def drive_neus_bg(model_cfg, render_cfg, train_cfg, scene, steps: int, seed: int, plans1: dict,
+                  gen) -> tuple[dict, dict]:
+    """Path ``neus_bg``: ``NeusTrainer`` with the shell for ``steps`` steps;
+    the counts set to 0 just before must rise by exactly
+    ``up_sample_steps`` K1 + 1 K3 + 1 K4 a step (the shell queries no SDF);
+    each kernel then held to its plain version at the shapes it launched.
+    Returns (the launches by shape, the kernels-line entries)."""
+    trainer = NeusTrainer(scene, model_cfg, render_cfg, train_cfg, seed=seed, device="cuda")
+    ms, losses = [], []
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        with stage1_step_ms(ms):
+            for _ in range(steps):
+                losses.append(trainer.run(1)["loss"])
+        run, by_shape = counts(), shapes()
+    finally:
+        trainer.close()
+    wall = time.perf_counter() - t0
+    want = {"K1": render_cfg.up_sample_steps * steps, "K2": 0, "K3": steps, "K4": steps,
+            "march": 0}
+    if run != want or not all(np.isfinite(losses)):
+        raise RuntimeError(f"neus_bg launches {run}, expected {want}; losses {losses}")
+    print(f"neus_bg: {steps} steps with the background shell (n_outside "
+          f"{render_cfg.n_outside}, white_bkgd {render_cfg.white_bkgd}) at batch "
+          f"{train_cfg.batch_size}: step median {steady_median(ms):.3f} ms (steps 3-{steps}), "
+          f"first {ms[0]:.1f} ms; losses {losses[0]:.5f} -> {losses[-1]:.5f}; launches {run} "
+          f"({render_cfg.up_sample_steps} K1 + 1 K3 + 1 K4 a step, as without the shell); "
+          f"{wall:.1f} s wall", flush=True)
+    return by_shape, hold_path_kernels("neus_bg", by_shape, plans1, None, frozen=False,
+                                       gen=gen)
+
+
+def drive_cli_idr(root: str, shadow: str, seed: int, stage_cfg, call, runs: dict,
+                  walls: dict, gen) -> dict:
+    """Paths ``cli_idr_vis``, ``cli_idr_pbr``, ``cli_idr_cesr``: ``vis``,
+    ``pbr`` and ``cesr`` at configs/hotdog.json with ``--set
+    model.use_neus=false`` (IDR mode: a fresh IDR pair, no stage-1 graft)
+    on the shadow scene, IDR_STEPS steps each, the grid tracer. Each bake
+    is 500 K1 launches of 65,536 rows at the IDR trunk; the Vis path's K3
+    rows are one a needed ray (no mini render). ``norm`` with the same
+    setting must raise the JAX package's error. Every (kernel, shape)
+    launched held to its plain version. Returns the kernels-line entries."""
+    from robir_tpu_torch.stages.norm import IDR_REFUSAL
+    L = os.path.join(root, "idr_logs")
+    s2 = ["--conf", str(STAGE2_CONFIG), "--data", shadow, "--log_dir", L, "--seed", str(seed),
+          "--set", "model.use_neus=false"]
+    try:
+        cli.main(["norm", *s2, "--mesh", os.path.join(root, "none.ply")])
+    except ValueError as e:
+        if str(e) != IDR_REFUSAL:
+            raise
+        print(f"cli norm with model.use_neus=false: ValueError, the JAX package's: {e}",
+              flush=True)
+    else:
+        raise RuntimeError("cli norm ran in IDR mode")
+    cfg = build_stage2_config(load_config(str(STAGE2_CONFIG))["model"], use_neus=False)
+    vis_chunk = build_stage_config(VisStageConfig,
+                                   load_config(str(STAGE2_CONFIG))["vis"]).fan_compact_chunk
+    print(f"IDR prediction: the Vis path's K3 launches at one row a needed ray, at most "
+          f"{vis_chunk} rows each (the NeuS bridge's mini render takes 16 a ray); 500 K1 "
+          f"launches of 65,536 rows a bake", flush=True)
+    runners, grids = {}, []
+    for stage in ("vis", "pbr", "cesr"):
+        path = f"cli_idr_{stage}"
+        runners[path] = call(path, [stage, *s2, "--n_iters", str(IDR_STEPS), "--no_plot"])
+        grids.append(runners[path].grid_values)
+        bake = runs[path]["K1"].get((fm.MAX_WIDTH, 65536), 0)
+        if bake != 500:
+            raise RuntimeError(f"{path}: {bake} K1 launches of 65,536 rows, not 500")
+    if not all(torch.equal(g, grids[0]) for g in grids):
+        raise RuntimeError("the IDR stages baked different grids of one seeded IDR pair")
+    k3_vis = sorted({r for (w, r) in runs["cli_idr_vis"]["K3"]})
+    if not k3_vis or max(k3_vis) > vis_chunk:
+        raise RuntimeError(f"cli_idr_vis K3 rows {k3_vis}: the prediction was at most "
+                           f"{vis_chunk}")
+    for path, r in runners.items():
+        leaves = flatten_with_paths(to_numpy(r.params))
+        if "rendering_network/lin0/v" not in leaves or "implicit_network/lin0/v" not in leaves:
+            raise RuntimeError(f"{path}: not the IDR tree")
+    vis_ck, pbr_ck, cesr_ck = (flatten_with_paths(ckpt_lib.load(os.path.join(
+        L, st, "checkpoints", "latest.npz"))[0]) for st in ("Vis", "PBR", "CESR"))
+    idr = [k for k in vis_ck if k.startswith(("implicit_network", "rendering_network"))]
+    kept = [k for k in vis_ck if k.startswith(("indirect_illum_network", "visibility_network"))]
+    if not (all(np.array_equal(cesr_ck[k], vis_ck[k]) and np.array_equal(pbr_ck[k], vis_ck[k])
+                for k in idr) and all(np.array_equal(pbr_ck[k], vis_ck[k]) for k in kept)):
+        raise RuntimeError("the IDR hand-over changed a kept leaf")
+    print(f"cli vis, pbr, cesr in IDR mode ({IDR_STEPS} steps each): each bake 500 K1 launches "
+          f"of 65,536 rows at the IDR trunk ({cfg.neus.sdf.n_layers} x {cfg.neus.sdf.d_hidden}, "
+          f"PE {cfg.neus.sdf.multires}, bias {cfg.neus.sdf.bias}), the three grids bit-equal; "
+          f"the Vis path's K3 rows {k3_vis[0]}-{k3_vis[-1]}; the IDR pair ({len(idr)} leaves) "
+          f"and the Vis nets PBR keeps bit-equal through the hand-over; wall "
+          + ", ".join(f"{p[8:]} {walls[p]:.1f} s" for p in runners), flush=True)
+    plans = {fm.MAX_WIDTH: (fm.plan_from_sdf_config(cfg.neus.sdf), cfg.neus.sdf.pe),
+             fm.MAX_WIDTH_WIDE: (fm.plan_from_sdf_config(stage_cfg.normal_cfg), SHADOW_PE)}
+    march_on = (grids[0], cfg.grid, runners["cli_idr_vis"].dataset)
+    entries = {}
+    for path in runners:
+        entries.update(hold_path_kernels(path, runs[path], plans, march_on, frozen=True,
+                                         gen=gen))
+    return entries
+
+
+def check_mip_sdf_mode(model_cfg, scene, seed: int, gen) -> tuple[dict, dict]:
+    """Path ``mip_sdf``: ``similarity_process`` in its ``sdf`` sub-mode on
+    the seeded NeuS at configs/neus_blender.json widths, 512 rays of
+    MipRenderConfig's 64 samples (their sdf from K1, their gradient from
+    K3, through ``NeuSSDF``), on the card against the same call on the CPU:
+    every output within KERNEL_TOL of its largest entry. Returns (the
+    launches by shape, the kernels-line entries of K1 and K3)."""
+    from robir_tpu_torch.render import mip as mip_mod
+    params = init_neus(torch.Generator().manual_seed(seed), model_cfg)
+    batch = scene.sample(np.random.default_rng(seed), 512)
+    mcfg = mip_mod.MipRenderConfig(mode="sdf")
+    rgb = torch.randn((512, mcfg.num_samples, 3), generator=torch.Generator().manual_seed(seed))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        neus = NeuS(params, model_cfg, dev)
+        rays, _ = batch_to_rays(RayBatch(*[torch.as_tensor(a, device=dev) for a in batch]))
+        with torch.no_grad():
+            t, (means, _) = mip_mod.sample_along_rays(None, rays.origins, rays.directions,
+                                                      rays.radii, mcfg.num_samples, rays.near,
+                                                      rays.far)
+            means = means / 2.0  # inside the NeuS's sphere of radius 2
+            sdf = neus.sdf(means.reshape(-1, 3)).reshape(512, -1)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                reset_counts()
+            out = mip_mod.similarity_process(rgb.to(dev), sdf, means, t, rays.directions, mcfg,
+                                             mode="sdf", model=mip_mod.NeuSSDF(neus),
+                                             cos_anneal_ratio=0.5)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                run = shapes()
+        outs[dev] = {k: v.cpu() for k, v in out.items()}
+    err = held_to_plain("similarity_process sdf mode, card vs CPU",
+                        [(k, outs["cuda"][k], outs["cpu"][k]) for k in outs["cpu"]])
+    if sum(run["K3"].values()) != 1 or any(sum(run[k].values()) for k in ("K1", "K2", "K4")):
+        raise RuntimeError(f"mip_sdf launches {run}: one K3 expected")
+    print(f"mip_sdf: similarity_process 'sdf' on the seeded NeuS, 512 rays x "
+          f"{mcfg.num_samples} samples, card vs CPU: every output within {err:.3e} (limit "
+          f"{KERNEL_TOL} of its largest entry); eikonal {float(outs['cuda']['sim_or_grad']):.6f}; "
+          f"one K3 launch at {list(run['K3'])}", flush=True)
+    plans = {fm.MAX_WIDTH: (fm.plan_from_sdf_config(model_cfg.sdf), model_cfg.sdf.pe)}
+    return run, hold_path_kernels("mip_sdf", run, plans, None, frozen=False, gen=gen)
+
+
+def drive_alternates(root: str, seed: int, sphere: str, shadow: str, model_cfg, render_cfg,
+                     train_cfg, train_scene, dataset, stage_cfg, plans1: dict,
+                     gen) -> tuple[dict, dict]:
+    """The six phases of the stage-1 alternates and IDR mode; returns (their
+    launches by path and shape, their kernels-line entries)."""
+    runs, walls, entries, phase_s = {}, {}, {}, {}
+    call = cli_caller(runs, walls)
+    t0 = time.perf_counter()
+    llff = str(Path(root) / "llff")
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_helpers import write_llff_scene, write_multicam_scene
+    write_llff_scene(llff, n=24, h=120, w=160, seed=seed)
+    train = {"batch_size": ALT_BATCH, "eval_every": LLFF_STEPS, "ckpt_every": LLFF_STEPS}
+    llff_conf = {"model": {"type": "vnerf"}, "render": {"type": "mip"}, "train": train,
+                 "dataset": {"type": "llff", "llffhold": 8}}
+    drive_cli_stage1_alt("cli_llff_mip", root, llff_conf, llff, LLFF_STEPS, call, runs, walls,
+                         frames=3)
+    ipe = {**llff_conf, "model": {"type": "vnerf", "use_ipe": True, "ipe_max_deg": 16}}
+    drive_cli_stage1_alt("cli_llff_ipe", root, ipe, llff, LLFF_STEPS, call, runs, walls,
+                         frames=3)
+    phase_s["llff"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mc = write_multicam_scene(str(Path(root) / "multicam"), sizes=((120, 160), (96, 128)),
+                              n_train=8, n_test=2, seed=seed)
+    mc_conf = {**llff_conf, "train": {**train, "eval_every": MULTICAM_STEPS,
+                                      "ckpt_every": MULTICAM_STEPS},
+               "dataset": {"type": "multicam"}}
+    drive_cli_stage1_alt("cli_multicam", root, mc_conf, mc, MULTICAM_STEPS, call, runs, walls,
+                         frames=2)
+    phase_s["multicam"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    drive_cli_hash(root, sphere, seed, call, runs, walls, gen)
+    phase_s["hash"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bg_model = dataclasses.replace(model_cfg, background=NeRFBgConfig())
+    bg_render = dataclasses.replace(render_cfg, n_outside=32, white_bkgd=False)
+    check_bg_step_against_cpu(bg_model, bg_render, train_cfg, make_sphere_scene(
+        "train", h=64, w=64, seed=seed, cfg=dataclasses.replace(train_scene.cfg,
+                                                                 alpha_as_mask=False)), seed)
+    runs["neus_bg"], bg_entries = drive_neus_bg(bg_model, bg_render, train_cfg, train_scene,
+                                                BG_STEPS, seed, plans1, gen)
+    entries.update(bg_entries)
+    phase_s["neus_bg"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    idr_cfg = build_stage2_config(load_config(str(STAGE2_CONFIG))["model"], use_neus=False)
+    idr_params = init_stage2_params(torch.Generator().manual_seed(seed), idr_cfg)
+    two_spheres = tg.build_sdf_grid(two_sphere_sdf, idr_cfg.grid, device="cuda")
+    check_cesr_step_against_cpu(idr_cfg, dataclasses.replace(stage_cfg, compact_chunk=16),
+                                dataset, idr_params, seed, grid=two_spheres)
+    entries.update(drive_cli_idr(root, shadow, seed, stage_cfg, call, runs, walls, gen))
+    phase_s["idr"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    runs["mip_sdf"], sdf_entries = check_mip_sdf_mode(model_cfg, train_scene, seed, gen)
+    entries.update(sdf_entries)
+    phase_s["mip_sdf"] = time.perf_counter() - t0
+    print("stage-1 alternates and IDR wall time by phase: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in phase_s.items()) + f"; {sum(phase_s.values()):.1f} s in "
+        "all", flush=True)
+    return runs, entries
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -3244,6 +3727,16 @@ def main() -> None:
         print("cli wall time after training: " + ", ".join(
             f"{p[4:]} {t:.1f} s" for p, t in post_walls.items()), flush=True)
         cli_runs.update(post_runs)
+
+        # the stage-1 alternates (LLFF and Multicam scenes, VNeRF/MipNeRF
+        # under mip, the hash-grid NeuS, the background shell), IDR mode
+        # and the mip renderer's sdf compositor
+        alt_runs, alt_entries = drive_alternates(
+            os.path.join(log_dir, "alt"), args.seed, os.path.join(cli_root, "sphere"),
+            os.path.join(cli_root, "shadow"), model_cfg, render_cfg, train_cfg, train_scene,
+            dataset, stage_cfg, plan1, gen)
+        entries.update(alt_entries)
+        cli_runs.update(alt_runs)
 
     # each entry counts its kernel's launches on its path, at its shape (or
     # at every shape: stage 1's entries, timed at the path's largest rows;

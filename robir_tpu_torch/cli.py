@@ -18,9 +18,13 @@ Each stage reads the previous one's files under ``--log_dir``:
 ``PBR``'s ``checkpoints/latest.npz``; ``relight`` and ``textures`` read
 CESR's ``latest.npz``, else PBR's (or ``--ckpt``); ``import-ref`` writes
 reference checkpoints there. The files are the JAX package's, so a run may
-switch packages between any two stages. Where a config asks for a piece
-the port lacks, the command raises NotImplementedError naming its
-ROADMAP.md item. Errors of a plot or of the logger are raised, not
+switch packages between any two stages. ``neus`` trains every stage-1
+model and renderer the JAX CLI trains (``model.type`` neus, hash or vnerf;
+``render.type`` neus or mip; the NeRF background shell) on every dataset
+type it reads (blender, neus_npz, llff, multicam); stage 2 runs in IDR
+mode (``model.use_neus=false``) too. Where a config asks for a piece the
+port lacks, the command raises NotImplementedError naming its ROADMAP.md
+item. Errors of a plot or of the logger are raised, not
 printed: on the card they may be a failed kernel launch.
 """
 
@@ -33,25 +37,6 @@ import os
 
 import numpy as np
 import torch
-
-# the dataset keys of the JAX package's LLFF and Multicam loaders
-# (robir_tpu/data/llff.py, multicam.py), not ported yet (ROADMAP.md A.6):
-# a config valid for the JAX CLI parses here too
-
-
-@dataclasses.dataclass
-class LLFFConfig:
-    data_dir: str = ""
-    factor: int = 0
-    llffhold: int = 8
-    spherify: bool = False
-    near_ndc: float = 1.0
-
-
-@dataclasses.dataclass
-class MulticamConfig:
-    dataset_dir: str = ""
-    white_bkgd: bool = True
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -75,6 +60,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 def _known_dataset_keys() -> set:
     """Every dataset loader's config field names, and 'type'."""
     from .data.blender import BlenderConfig
+    from .data.llff import LLFFConfig
+    from .data.multicam import MulticamConfig
     from .data.neus_npz import DTUConfig, NeuSNpzSceneConfig
     from .data.syn_dataset import SynDatasetConfig
     keys = {"type"}
@@ -102,30 +89,20 @@ def _load(args) -> dict:
 
 
 def _stage1_configs(cfg_dict: dict):
-    """(model, render, train) configs of stage 1. ``model.type`` "neus"
-    (its fields at ``model`` or, in a stage-2 config, at ``model.neus``);
-    "hash" and "vnerf" and ``render.type`` "mip" are not ported."""
-    from .core.config import _build, build_neus_config, build_neus_render_config
-    from .stages.neus_stage import NeusTrainConfig
-    model_d = dict(cfg_dict.get("model", {}))
-    render_d = dict(cfg_dict.get("render", {}))
-    model_type = model_d.pop("type", "neus")
-    render_type = render_d.pop("type", "mip" if model_type == "vnerf" else "neus")
-    if model_type in ("hash", "vnerf") or render_type == "mip":
-        raise NotImplementedError(
-            f"stage-1 model.type {model_type!r} with render.type {render_type!r}: the port "
-            "has the NeuS model and renderer only (ROADMAP.md A.9)")
-    if model_type != "neus":
-        raise KeyError(f"unknown stage-1 model.type {model_type!r}")
-    src = model_d["neus"] if "neus" in model_d and "sdf" not in model_d else model_d
-    return (build_neus_config(src), build_neus_render_config(render_d),
-            _build(NeusTrainConfig, cfg_dict.get("train")))
+    """(bindings, model, render, train configs) of stage 1: the JAX
+    package's dispatch (``core/config.py:stage1_dispatch``)."""
+    from .core.config import _build, stage1_dispatch
+    from .stages.neus_stage import NeusTrainConfig, make_stage1_bindings
+    model_type, render_type, model_cfg, render_cfg = stage1_dispatch(cfg_dict)
+    return (make_stage1_bindings(model_type, render_type, model_cfg, render_cfg), model_cfg,
+            render_cfg, _build(NeusTrainConfig, cfg_dict.get("train")))
 
 
 def _stage1_scenes(args, cfg_dict: dict):
     """``make_scene(split)`` of the config's stage-1 ``dataset.type``:
-    "blender"/"syn" (BlenderScene) or "neus_npz"/"dtu"/"neus"
-    (NeuSNpzScene, both splits on one loaded dataset)."""
+    "blender"/"syn" (BlenderScene), "neus_npz"/"dtu"/"neus" (NeuSNpzScene,
+    both splits on one loaded dataset), "multicam"/"mip" (MulticamScene)
+    or "llff" (LLFFScene)."""
     ds_dict = dict(cfg_dict.get("dataset", {}))
     kind = ds_dict.pop("type", "blender")
     if kind in ("neus_npz", "dtu", "neus"):
@@ -143,9 +120,14 @@ def _stage1_scenes(args, cfg_dict: dict):
         from .data.blender import BlenderConfig, BlenderScene
         ds = _filter_fields(BlenderConfig, ds_dict)
         return lambda split: BlenderScene(BlenderConfig(dataset_dir=args.data, **ds), split)
-    if kind in ("multicam", "mip", "llff"):
-        raise NotImplementedError(f"dataset.type {kind!r}: the LLFF and Multicam loaders "
-                                  "are not ported (ROADMAP.md A.6)")
+    if kind in ("multicam", "mip"):
+        from .data.multicam import MulticamConfig, MulticamScene
+        ds = _filter_fields(MulticamConfig, ds_dict)
+        return lambda split: MulticamScene(MulticamConfig(dataset_dir=args.data, **ds), split)
+    if kind == "llff":
+        from .data.llff import LLFFConfig, LLFFScene
+        ds = _filter_fields(LLFFConfig, ds_dict)
+        return lambda split: LLFFScene(LLFFConfig(data_dir=args.data, **ds), split)
     raise KeyError(f"unknown stage-1 dataset.type {kind!r} (expected 'blender', "
                    "'neus_npz', 'multicam', or 'llff')")
 
@@ -171,18 +153,23 @@ def _stage2_setup(args, cfg_dict: dict):
     ``ckpt_<step>.npz``; default ``<log_dir>/NeuS``) as the
     ``implicit_network``, or its fresh init, with a warning, where there is
     none. A NeuS whose leaves' shapes are not ``model.neus``'s raises
-    ValueError (the JAX CLI takes it and fails in the first matmul)."""
+    ValueError (the JAX CLI takes it and fails in the first matmul). In
+    IDR mode (``model.use_neus=false``) the fresh IDR pair stays: there is
+    no stage-1 graft."""
     from .core import checkpoint as ckpt_lib
     from .core.config import build_stage2_config
     from .core.tree import flatten_with_paths
     from .stages.stage2_runner import init_stage2_params
 
-    if not cfg_dict["model"].get("use_neus", True):
-        raise NotImplementedError("model.use_neus=false (IDR mode): the plain IDR pair is "
-                                  "not ported (ROADMAP.md A.9)")
     cfg = build_stage2_config(cfg_dict["model"])
     dataset = _stage2_dataset(args.data, cfg_dict)
     params = init_stage2_params(torch.Generator().manual_seed(args.seed), cfg)
+    if not cfg.use_neus:
+        # the implicit/rendering networks of IDR mode are stage 2's own
+        # (implicit_differentiable_renderer.py:277-282): grafting a stage-1
+        # NeuS would clobber their tree
+        print("[stage2] IDR mode (use_neus=false): fresh implicit network, no stage-1 graft")
+        return cfg, dataset, params
     neus_ckpt = cfg_dict.get("neus_checkpoint") or os.path.join(args.log_dir, "NeuS")
     path = neus_ckpt if os.path.isfile(neus_ckpt) else ckpt_lib.latest_path(neus_ckpt)
     if path:
@@ -275,11 +262,11 @@ def cmd_neus(args):
     from .stages.neus_stage import NeusTrainer
     from .tools.logger import Logger
     cfg_dict = _load(args)
-    model_cfg, render_cfg, train_cfg = _stage1_configs(cfg_dict)
+    bindings, model_cfg, render_cfg, train_cfg = _stage1_configs(cfg_dict)
     make_scene = _stage1_scenes(args, cfg_dict)
     trainer = NeusTrainer(make_scene("train"), model_cfg, render_cfg, train_cfg,
                           seed=args.seed, device=args.device,
-                          log_dir=os.path.join(args.log_dir, "NeuS"))
+                          log_dir=os.path.join(args.log_dir, "NeuS"), bindings=bindings)
     try:
         if args.is_continue or args.test_only:
             trainer.restore()
@@ -309,22 +296,24 @@ def cmd_neus(args):
 
 
 def cmd_mesh(args):
-    """The marching-tetrahedra mesh of a stage-1 checkpoint's SDF at the
-    config's ``mesh`` section, written as a PLY to ``--out``; returns it."""
+    """The marching-tetrahedra mesh of a stage-1 checkpoint's SDF (NeuS or
+    the hash-grid NeuS) at the config's ``mesh`` section, written as a PLY
+    to ``--out``; returns it. A density model exits with the JAX CLI's
+    message."""
     from .core import checkpoint as ckpt_lib
     from .core.config import build_mesh_config
     from .core.tree import flatten_with_paths
-    from .fields.neus_model import NeuS, init_neus
-    from .fields.sdf import frozen_sdf
     from .texture.mesh import extract_mesh
     cfg_dict = _load(args)
-    model_cfg, _, _ = _stage1_configs(cfg_dict)
-    model = NeuS(init_neus(torch.Generator().manual_seed(0), model_cfg), model_cfg,
-                 args.device)
+    bindings, model_cfg, _, _ = _stage1_configs(cfg_dict)
+    if bindings.sdf is None:
+        raise SystemExit(f"mesh extraction needs an SDF model, got "
+                         f"model.type={cfg_dict.get('model', {}).get('type')!r}")
+    model = bindings.model(bindings.init(torch.Generator().manual_seed(0)), args.device)
     loaded, _ = ckpt_lib.load(args.ckpt)
     ckpt_lib.copy_into(model.params, flatten_with_paths(loaded["params"]))
     mcfg = build_mesh_config(cfg_dict)
-    mesh = extract_mesh(frozen_sdf(model.params["sdf_network"], model_cfg.sdf, out_cols=1),
+    mesh = extract_mesh(bindings.sdf(model),
                         bbox_min=tuple(mcfg.bbox_min), bbox_max=tuple(mcfg.bbox_max),
                         resolution=mcfg.resolution, device=args.device)
     mesh.export_ply(args.out)
@@ -334,13 +323,18 @@ def cmd_mesh(args):
 
 def cmd_norm(args):
     """The Norm stage on the texture-space samples of ``--mesh`` (its
-    texture cache beside it, made on first use); returns the runner."""
+    texture cache beside it, made on first use); returns the runner. IDR
+    mode (``model.use_neus=false``) raises the JAX package's ValueError
+    before any work: the stage's surface integration needs the NeuS's
+    deviation network (the JAX CLI raises it from its plot, and prints it)."""
     from .core.config import build_stage_config, texture_resolution
-    from .stages.norm import NormRunner, NormStageConfig
+    from .stages.norm import IDR_REFUSAL, NormRunner, NormStageConfig
     from .texture.focus_sampler import TexSpaceSampler, focus_sampler_from_dataset
     from .texture.pipeline import TexSampler
     from .tracing.grid import grid_cast
     cfg_dict = _load(args)
+    if not cfg_dict["model"].get("use_neus", True):
+        raise ValueError(IDR_REFUSAL)
     cfg, dataset, params = _stage2_setup(args, cfg_dict)
     stage_cfg = build_stage_config(NormStageConfig, cfg_dict.get("norm"))
     runner = NormRunner(cfg, params, None, stage_cfg, seed=args.seed, device=args.device,

@@ -4,7 +4,9 @@ imports the JAX modules).
 Reads the same ``configs/*.json`` files: JSON with ``//`` line comments.
 ``_build`` fills a frozen dataclass from a dict, keeping defaults for
 missing keys and rejecting unknown ones. Covered sections: stage 1's
-``model``, ``render``, ``train`` and ``dataset``; stage 2's ``model``
+``model`` (``type`` "neus", "hash" or "vnerf", dispatched by
+``stage1_dispatch`` as the JAX ``build_stage1_configs``), ``render``
+(``type`` "neus" or "mip"), ``train`` and ``dataset``; stage 2's ``model``
 (``neus``, ``envmap_material_network``, ``indirect_illum_network``,
 ``visibility_network``, ``tonemap``, ``grid``, ``coord_scale``,
 ``sweep_light_chunk`` and the tracer keys), ``texture_resolution``, and
@@ -23,11 +25,14 @@ from typing import Any
 
 from ..data.blender import BlenderConfig
 from ..fields.envmap_material import EnvmapMaterialConfig
-from ..fields.neus_model import NeuSConfig, VarianceConfig
-from ..fields.radiance import RenderingConfig
+from ..fields.hashgrid import HashGridConfig, HashSDFConfig
+from ..fields.neus_model import HashNeuSConfig, NeuSConfig, VarianceConfig
+from ..fields.radiance import NeRFBgConfig, RenderingConfig
+from ..fields.vnerf import VNeRFConfig
 from ..fields.sdf import SDFConfig
 from ..fields.visibility import IndirIllumConfig, VisNetConfig
 from ..render.color import ToneMapConfig
+from ..render.mip import MipRenderConfig
 from ..render.neus import NeusRenderConfig
 from ..render.stage2 import Stage2Config
 from ..stages.losses import IllumLossConfig, InvLossConfig
@@ -90,15 +95,51 @@ def _build(dc_type, d: dict | None, **extra):
 def build_neus_config(d: dict) -> NeuSConfig:
     d = dict(d)
     if d.pop("type", "neus") != "neus":
-        raise KeyError("the port's stage 1 supports model.type 'neus' only")
+        raise KeyError("build_neus_config builds model.type 'neus' only")
     unknown = set(d) - {"sdf", "color", "variance", "background", "radius"}
     if unknown:
         raise KeyError(f"unknown model keys: {sorted(unknown)}")
+    bg = d.get("background")
     return NeuSConfig(sdf=_build(SDFConfig, d.get("sdf")),
                       color=_build(RenderingConfig, d.get("color")),
                       variance=_build(VarianceConfig, d.get("variance")),
-                      background=d.get("background"),
+                      background=_build(NeRFBgConfig, bg) if bg is not None else None,
                       radius=d.get("radius", 2.0))
+
+
+def stage1_dispatch(cfg: dict):
+    """(model_type, render_type, model_cfg, render_cfg) of a stage-1 config
+    dict, as the JAX ``build_stage1_configs``: ``model.type`` "neus" (its
+    fields at ``model`` or, in a stage-2 config, at ``model.neus``),
+    "hash" (``hash_sdf`` with its nested ``grid``) or "vnerf";
+    ``render.type`` "neus", or "mip" (the default for "vnerf")."""
+    model_d = dict(cfg.get("model", {}))
+    render_d = dict(cfg.get("render", {}))
+    model_type = model_d.pop("type", "neus")
+    render_type = render_d.pop("type", "mip" if model_type == "vnerf" else "neus")
+    if model_type == "neus":
+        model_cfg = build_neus_config(model_d["neus"] if "neus" in model_d
+                                      and "sdf" not in model_d else model_d)
+    elif model_type == "hash":
+        hs = dict(model_d.get("hash_sdf", {}))
+        grid = hs.pop("grid", None)
+        model_cfg = HashNeuSConfig(
+            hash_sdf=_build(HashSDFConfig, hs, **({"grid": _build(HashGridConfig, grid)}
+                                                  if grid is not None else {})),
+            color=_build(RenderingConfig, model_d.get("color")),
+            variance=_build(VarianceConfig, model_d.get("variance")),
+            radius=model_d.get("radius", 2.0))
+    elif model_type == "vnerf":
+        model_cfg = _build(VNeRFConfig, model_d)
+    else:
+        raise KeyError(f"unknown stage-1 model.type {model_type!r}")
+    if render_type == "neus":
+        render_cfg = _build(NeusRenderConfig, render_d)
+    elif render_type == "mip":
+        render_cfg = _build(MipRenderConfig, render_d)
+    else:
+        raise KeyError(f"unknown stage-1 render.type {render_type!r}")
+    return model_type, render_type, model_cfg, render_cfg
 
 
 def build_mesh_config(cfg: dict) -> MeshConfig:
@@ -113,18 +154,11 @@ def texture_resolution(cfg: dict) -> int:
     return int(cfg.get("texture_resolution", 2048))
 
 
-def build_neus_render_config(d: dict) -> NeusRenderConfig:
-    d = dict(d)
-    if d.pop("type", "neus") != "neus":
-        raise KeyError("the port's stage 1 supports render.type 'neus' only")
-    return _build(NeusRenderConfig, d)
-
-
 def build_stage1_configs(cfg: dict):
-    """(model, render, train, dataset) configs of a stage-1 config dict."""
-    return (build_neus_config(cfg.get("model", {})),
-            build_neus_render_config(cfg.get("render", {})),
-            _build(NeusTrainConfig, cfg.get("train")),
+    """(model, render, train, dataset) configs of a stage-1 config dict; the
+    model and render configs of ``stage1_dispatch``."""
+    _, _, model_cfg, render_cfg = stage1_dispatch(cfg)
+    return (model_cfg, render_cfg, _build(NeusTrainConfig, cfg.get("train")),
             _build(BlenderConfig, cfg.get("dataset")))
 
 

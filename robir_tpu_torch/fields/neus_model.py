@@ -3,8 +3,12 @@
 
 ``NeuS`` is an ``nn.Module`` holding the parameter tree under the JAX
 package's names (``sdf_network``, ``color_network``,
-``deviation_network``), so the weights bridge (``core/params.py``) maps it
-1:1. The hash-grid variant and the background shell are not ported yet.
+``deviation_network`` and, with ``background``, the NeRF shell
+``nerf_outside``), so the weights bridge (``core/params.py``) maps it 1:1.
+``HashNeuS`` is the same interface over the hash-encoded SDF
+(``fields/hashgrid.py``): plain PyTorch, its spatial gradient one
+``torch.autograd.grad`` with ``create_graph`` (the JAX package's per-point
+``vmap(grad)``), so the eikonal term reaches the hash tables.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ from torch import nn
 from .. import resolve_device
 from ..core.params import from_jax
 from .mlp import Params
-from .radiance import RenderingConfig, init_rendering, rendering_apply
+from .hashgrid import HashSDFConfig, hash_sdf_apply, init_hash_sdf
+from .radiance import (NeRFBgConfig, RenderingConfig, init_nerf_bg, init_rendering,
+                       nerf_bg_apply, rendering_apply)
 from .sdf import SDFConfig, init_sdf, sdf_apply, sdf_full_and_gradient
 
 
@@ -41,22 +47,20 @@ class NeuSConfig:
     color: RenderingConfig = RenderingConfig(
         d_feature=256, mode="idr", d_in=9, d_out=3, d_hidden=256, n_layers=4)
     variance: VarianceConfig = VarianceConfig(0.3)
-    background: None = None  # the outer NeRF shell is not ported yet
+    background: NeRFBgConfig | None = None  # None: no outer NeRF shell
     radius: float = 2.0
-
-    def __post_init__(self):
-        if self.background is not None:
-            raise NotImplementedError("the NeRF background shell is not "
-                                      "ported yet (set model.background null)")
 
 
 def init_neus(gen: torch.Generator, cfg: NeuSConfig) -> Params:
     """A fresh parameter tree (CPU tensors) from a CPU generator."""
-    return {
+    params = {
         "sdf_network": init_sdf(gen, cfg.sdf),
         "color_network": init_rendering(gen, cfg.color),
         "deviation_network": init_variance(cfg.variance),
     }
+    if cfg.background is not None:
+        params["nerf_outside"] = init_nerf_bg(gen, cfg.background)
+    return params
 
 
 class NeuS(nn.Module):
@@ -90,3 +94,47 @@ class NeuS(nn.Module):
 
     def radius(self) -> float:
         return self.cfg.radius
+
+    def background(self, pts4: torch.Tensor, dirs: torch.Tensor):
+        """(density [N, 1], rgb [N, 3]) of the NeRF shell at the 4-D
+        inverted-sphere points."""
+        return nerf_bg_apply(self.params["nerf_outside"], self.cfg.background, pts4, dirs)
+
+
+@dataclasses.dataclass(frozen=True)
+class HashNeuSConfig:
+    hash_sdf: HashSDFConfig = HashSDFConfig()
+    color: RenderingConfig = RenderingConfig(
+        d_feature=256, mode="idr", d_in=9, d_out=3, d_hidden=256, n_layers=4)
+    variance: VarianceConfig = VarianceConfig(0.3)
+    radius: float = 2.0
+
+
+def init_hash_neus(gen: torch.Generator, cfg: HashNeuSConfig) -> Params:
+    return {
+        "sdf_network": init_hash_sdf(gen, cfg.hash_sdf),
+        "color_network": init_rendering(gen, cfg.color),
+        "deviation_network": init_variance(cfg.variance),
+    }
+
+
+class HashNeuS(NeuS):
+    """``NeuS``'s interface over the hash-SDF field (no background shell);
+    ``cfg`` is a ``HashNeuSConfig``."""
+
+    def _full(self, x: torch.Tensor) -> torch.Tensor:
+        return hash_sdf_apply(self.params["sdf_network"], self.cfg.hash_sdf, x)
+
+    def sdf(self, x: torch.Tensor) -> torch.Tensor:
+        return self._full(x)[..., :1]
+
+    def full_with_grad(self, x: torch.Tensor):
+        """(sdf+features, d sdf/dx): one forward and one backward to the
+        points; under grad mode the gradient keeps its graph, so a loss on
+        it reaches the parameters."""
+        keep = torch.is_grad_enabled()
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            full = self._full(xg)
+            g, = torch.autograd.grad(full[..., 0].sum(), xg, create_graph=keep)
+        return (full, g) if keep else (full.detach(), g)

@@ -4,10 +4,14 @@ alpha compositing (counterpart of ``robir_tpu/render/neus.py``).
 The sampling phase (``sample_z_vals``) runs under ``torch.no_grad`` (the
 JAX package wraps it in ``stop_gradient``) and queries the SDF through K1;
 ``render_samples`` shades those samples, and its ``render_core`` queries
-value + spatial gradient through K3, whose backward is K4. Noise
-(``t_rand`` for the stratified jitter, ``u`` for stochastic inverse-CDF
-draws) can be handed in as tensors, so a test can feed both packages the
-same numbers; when absent it is drawn from a ``torch.Generator``.
+value + spatial gradient through K3, whose backward is K4. With
+``n_outside`` > 0 the NeRF++ background shell (``render_core_outside``, a
+plain PyTorch net that queries no SDF) colours the samples outside the
+unit sphere and ``n_outside`` more beyond it (``outside_z_vals``).
+Noise (``t_rand`` for the stratified jitter, ``t_rand_outside`` for the
+shell's, ``u`` for stochastic inverse-CDF draws) can be handed in as
+tensors, so a test can feed both packages the same numbers; when absent
+it is drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -43,9 +47,6 @@ class NeusRenderConfig:
     sampling_dtype: str | None = None
 
     def __post_init__(self):
-        if self.n_outside > 0:
-            raise NotImplementedError("n_outside > 0 needs the NeRF background "
-                                      "shell, which is not ported yet")
         if self.sampling_dtype is not None:
             raise NotImplementedError("sampling_dtype is not supported by the "
                                       "port's fp32 sampling kernel")
@@ -159,9 +160,41 @@ def cat_z_vals(model: NeuS, rays_o, rays_d, z_vals, new_z_vals, sdf,
     return merge_sorted(z_vals, new_z_vals, sdf, new_sdf)
 
 
+def render_core_outside(rays_o, rays_d, z_vals, sample_dist, model: NeuS,
+                        background_rgb=None):
+    """The NeRF++ background shell (sdf_render.py:102-138): the shell's
+    density and colour at the samples' midpoints, as 4-D inverted-sphere
+    points [x/r, 1/r] (r clipped to [1, 1e10])."""
+    batch_size, n_samples = z_vals.shape
+    dists = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
+                       torch.full_like(z_vals[:, :1], sample_dist)], -1)
+    mid_z = z_vals + dists * 0.5
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z[..., :, None]
+    dis = torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True), 1.0, 1e10)
+    pts4 = torch.cat([pts / dis, 1.0 / dis], dim=-1)
+    dirs = rays_d[:, None, :].expand(batch_size, n_samples, 3)
+
+    density, sampled_color = model.background(pts4.reshape(-1, 4), dirs.reshape(-1, 3))
+    sp = density.reshape(batch_size, n_samples)
+    sp = torch.clamp_min(sp, 0.0) + torch.log1p(torch.exp(-sp.abs()))
+    alpha = 1.0 - torch.exp(-sp * dists)
+    weights = alpha * _cumprod_trans(alpha)
+    sampled_color = sampled_color.reshape(batch_size, n_samples, 3)
+    color = torch.sum(weights[:, :, None] * sampled_color, dim=1)
+    if background_rgb is not None:
+        color = color + background_rgb * (1.0 - torch.sum(weights, -1, keepdim=True))
+    return {"color": color, "sampled_color": sampled_color,
+            "alpha": alpha, "weights": weights}
+
+
 def render_core(rays_o, rays_d, z_vals, sample_dist, model: NeuS,
+                background_alpha=None, background_sampled_color=None,
                 background_rgb=None, cos_anneal_ratio=0.0):
-    """Core NeuS compositing; the SDF value + gradient go through K3/K4."""
+    """Core NeuS compositing; the SDF value + gradient go through K3/K4.
+    With the shell's ``background_alpha`` and ``background_sampled_color``
+    ([B, n + n_outside], the shell at the sorted feed of both sets of
+    samples), its alpha and colour replace the SDF's outside the sphere and
+    its last ``n_outside`` samples are composited after them."""
     batch_size, n_samples = z_vals.shape
     dists = torch.cat([z_vals[..., 1:] - z_vals[..., :-1],
                        torch.full_like(z_vals[:, :1], sample_dist)], -1)
@@ -193,7 +226,16 @@ def render_core(rays_o, rays_d, z_vals, sample_dist, model: NeuS,
     inside_sphere = (pts_norm < radius).to(alpha.dtype).detach()
     relax_inside = (pts_norm < radius * 1.2).to(alpha.dtype).detach()
 
-    alpha = alpha * inside_sphere
+    if background_alpha is not None:
+        alpha = alpha * inside_sphere + background_alpha[:, :n_samples] * (1.0 - inside_sphere)
+        alpha = torch.cat([alpha, background_alpha[:, n_samples:]], dim=-1)
+        sampled_color = (sampled_color * inside_sphere[:, :, None]
+                         + background_sampled_color[:, :n_samples]
+                         * (1.0 - inside_sphere)[:, :, None])
+        sampled_color = torch.cat([sampled_color, background_sampled_color[:, n_samples:]],
+                                  dim=1)
+    else:
+        alpha = alpha * inside_sphere
     weights = alpha * _cumprod_trans(alpha)
     weights_sum = torch.sum(weights, -1, keepdim=True)
     color = torch.sum(sampled_color * weights[:, :, None], dim=1)
@@ -255,17 +297,51 @@ def sample_z_vals(rays: Rays, model: NeuS, cfg: NeusRenderConfig,
     return z_vals
 
 
+def outside_z_vals(rays: Rays, cfg: NeusRenderConfig, is_eval: bool = False,
+                   t_rand_outside: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+    """The background shell's sample positions [B, n_outside] beyond the
+    far bound (None without a shell): stratified over (1e-3, 1 - 1/(n+1)),
+    jittered in training by ``t_rand_outside`` [B, n_outside] in [0, 1) if
+    given, else drawn from ``generator``; then far / flip(z) + 1/n_samples."""
+    if cfg.n_outside == 0:
+        return None
+    far = rays.far
+    z = torch.linspace(1e-3, 1.0 - 1.0 / (cfg.n_outside + 1.0), cfg.n_outside,
+                       device=far.device, dtype=far.dtype)
+    if not is_eval and cfg.perturb > 0:
+        if t_rand_outside is None:
+            t_rand_outside = torch.rand((far.shape[0], cfg.n_outside), generator=generator,
+                                        device=far.device)
+        mids = 0.5 * (z[..., 1:] + z[..., :-1])
+        upper = torch.cat([mids, z[..., -1:]], -1)
+        lower = torch.cat([z[..., :1], mids], -1)
+        z = lower[None, :] + (upper - lower)[None, :] * t_rand_outside
+    return far / torch.flip(z, dims=(-1,)) + 1.0 / cfg.n_samples
+
+
 def render_samples(rays: Rays, z_vals: torch.Tensor, model: NeuS,
-                   cos_anneal_ratio, cfg: NeusRenderConfig) -> dict:
-    """Shade and composite the given sample positions (``render_core``):
-    the part of ``render_neus`` that gradients flow through."""
+                   cos_anneal_ratio, cfg: NeusRenderConfig,
+                   z_outside: Optional[torch.Tensor] = None) -> dict:
+    """Shade and composite the given sample positions (``render_core``),
+    with the background shell at the sorted feed of ``z_vals`` and
+    ``z_outside`` where ``cfg.n_outside`` > 0: the part of ``render_neus``
+    that gradients flow through."""
     rays_o, rays_d = rays.origins, rays.directions
     near, far = rays.near, rays.far
+    sample_dist = 2.0 / cfg.n_samples
     background_rgb = (torch.ones((1, 3), device=rays_o.device)
                       if cfg.white_bkgd else None)
-    ret_fine = render_core(rays_o, rays_d, z_vals, 2.0 / cfg.n_samples, model,
+    bg = {}
+    if cfg.n_outside > 0:
+        z_feed = torch.sort(torch.cat([z_vals, z_outside.expand(z_vals.shape[0], -1)], -1),
+                            dim=-1).values
+        out = render_core_outside(rays_o, rays_d, z_feed, sample_dist, model)
+        bg = {"background_alpha": out["alpha"],
+              "background_sampled_color": out["sampled_color"]}
+    ret_fine = render_core(rays_o, rays_d, z_vals, sample_dist, model,
                            background_rgb=background_rgb,
-                           cos_anneal_ratio=cos_anneal_ratio)
+                           cos_anneal_ratio=cos_anneal_ratio, **bg)
 
     weights = ret_fine["weights"]
     acc = torch.sum(weights, dim=-1)
@@ -288,8 +364,10 @@ def render_samples(rays: Rays, z_vals: torch.Tensor, model: NeuS,
 def render_neus(rays: Rays, model: NeuS, cos_anneal_ratio,
                 cfg: NeusRenderConfig = NeusRenderConfig(),
                 is_eval: bool = False, t_rand: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> dict:
-    """Top-level NeuS render: ``sample_z_vals`` (which takes the noise),
-    then ``render_samples``."""
+                generator: Optional[torch.Generator] = None,
+                t_rand_outside: Optional[torch.Tensor] = None) -> dict:
+    """Top-level NeuS render: ``sample_z_vals`` and ``outside_z_vals``
+    (which take the noise), then ``render_samples``."""
     z_vals = sample_z_vals(rays, model, cfg, is_eval, t_rand, generator)
-    return render_samples(rays, z_vals, model, cos_anneal_ratio, cfg)
+    z_outside = outside_z_vals(rays, cfg, is_eval, t_rand_outside, generator)
+    return render_samples(rays, z_vals, model, cos_anneal_ratio, cfg, z_outside)

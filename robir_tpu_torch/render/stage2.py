@@ -19,8 +19,15 @@ marches the cached-SDF grid that the runner bakes from the frozen NeuS
 normals at the primary hits, then a fan of secondary rays, traced (the
 grid march on the card), whose hits borrow their colour from the frozen
 NeuS (``borrow_color``: a 16-sample mini render through K3 and the colour
-net, run only on the rays whose colour a loss reads). Not ported yet:
-``neus_bridge_render`` and the plain-IDR mode (``use_neus=False``).
+net, run only on the rays whose colour a loss reads).
+
+IDR mode (``use_neus=False``, implicit_differentiable_renderer.py:268-282)
+runs the plain IDR pair instead of the bridge: ``implicit_network`` is the
+SDF tree itself and ``rendering_network`` a top-level colour net, queried
+in stage-2 coordinates with no scale (``sdf`` K1, ``sdf_gradient`` K3);
+``borrow_color`` evaluates the rendering network at the surface point
+(one K3 call for the full output and the gradient). Not ported yet:
+``neus_bridge_render``.
 """
 
 from __future__ import annotations
@@ -71,8 +78,6 @@ class Stage2Config:
     sphere_tracer: SphereTracerConfig = SphereTracerConfig()
 
     def __post_init__(self):
-        if not self.use_neus:
-            raise NotImplementedError("use_neus=False (the plain IDR pair) is not ported yet")
         if self.bgr:
             raise NotImplementedError("bgr=True (BGR-ordered images) is not ported yet")
         if self.vis_compute_dtype is not None:
@@ -85,8 +90,9 @@ class Stage2Config:
 class Stage2Model:
     """Binder of (params, cfg, grid) on a device: ``params`` is the stage-2
     tree with the reference's module names: implicit_network (the frozen
-    NeuS), envmap_material_network, indirect_illum_network,
-    visibility_network, gamma. A ``ParamTree`` already on ``device`` is
+    NeuS; in IDR mode the SDF tree, beside a top-level rendering_network),
+    envmap_material_network, indirect_illum_network, visibility_network,
+    gamma. A ``ParamTree`` already on ``device`` is
     used as it is (so gradients reach it); anything else is copied there by
     ``from_jax``. ``grid_values`` is the baked [R, R, R] grid that
     ``tracer="grid"`` marches. Runs on ``cuda`` unless ``device="cpu"`` is
@@ -103,33 +109,49 @@ class Stage2Model:
         self.grid_values = grid_values
 
     def _sdf_params(self):
+        if not self.cfg.use_neus:
+            return self.params["implicit_network"]
         return self.params["implicit_network"]["sdf_network"]
+
+    def _query_scale(self) -> tuple[float, float]:
+        """(coordinate scale into the SDF, divisor of its output): the NeuS
+        bridge queries at ``coord_scale`` and halves (neus_model.py:785-791);
+        the IDR pair queries stage-2 coordinates as they are."""
+        return (self.cfg.coord_scale, 2.0) if self.cfg.use_neus else (1.0, 1.0)
 
     def sdf_full(self, x: torch.Tensor) -> torch.Tensor:
         """[N, 3] stage-2 points -> [N, 1 + feat]."""
-        return sdf_apply(self._sdf_params(), self.cfg.neus.sdf,
-                         x * self.cfg.coord_scale) / 2.0
+        scale, div = self._query_scale()
+        return sdf_apply(self._sdf_params(), self.cfg.neus.sdf, x * scale) / div
 
     def sdf(self, x: torch.Tensor) -> torch.Tensor:
-        return sdf_apply(self._sdf_params(), self.cfg.neus.sdf,
-                         x * self.cfg.coord_scale, out_cols=1) / 2.0
+        scale, div = self._query_scale()
+        return sdf_apply(self._sdf_params(), self.cfg.neus.sdf, x * scale, out_cols=1) / div
 
     def sdf_gradient(self, x: torch.Tensor) -> torch.Tensor:
         """d sdf / dx in stage-2 coordinates, by K3, without a graph."""
+        scale, div = self._query_scale()
         with torch.no_grad():
-            _, g = sdf_full_and_gradient(self._sdf_params(), self.cfg.neus.sdf,
-                                         x * self.cfg.coord_scale)
-        return g * (self.cfg.coord_scale / 2.0)
+            _, g = sdf_full_and_gradient(self._sdf_params(), self.cfg.neus.sdf, x * scale)
+        return g * (scale / div)
+
+    def _color_params(self):
+        if not self.cfg.use_neus:
+            return self.params["rendering_network"]
+        return self.params["implicit_network"]["color_network"]
 
     def color(self, points, normals, view_dirs, feature_vectors) -> torch.Tensor:
-        """The frozen NeuS's colour net at stage-2 ``points``."""
-        return rendering_apply(self.params["implicit_network"]["color_network"],
-                               self.cfg.neus.color, points * self.cfg.coord_scale, normals,
-                               view_dirs, feature_vectors)
+        """The colour net at stage-2 ``points``: the frozen NeuS's, or in IDR
+        mode the rendering network."""
+        return rendering_apply(self._color_params(), self.cfg.neus.color,
+                               points * self._query_scale()[0], normals, view_dirs,
+                               feature_vectors)
 
     def inv_s(self) -> torch.Tensor:
         """The frozen NeuS's inverse deviation, exp(10 v) clipped to
-        [1e-6, 1e6]."""
+        [1e-6, 1e6]; IDR mode has no deviation network (ValueError)."""
+        if not self.cfg.use_neus:
+            raise ValueError("IDR mode (use_neus=false) has no deviation network")
         return torch.clamp(variance_apply(self.params["implicit_network"]["deviation_network"]),
                            1e-6, 1e6)
 
@@ -148,11 +170,13 @@ class Stage2Model:
 
     def borrow_color(self, points: torch.Tensor, view_dirs: torch.Tensor,
                      chunk: int = 0) -> torch.Tensor:
-        """The frozen NeuS's colour at stage-2 ``points`` [B, 3] seen along
-        ``-view_dirs``: a 16-sample mini render (neus_model.py:856-871) at
-        t in linspace(-0.01, 0.05) along the negated view direction, in
-        stage-1 coordinates, one K3 call for (sdf, feature, gradient) at the
-        B x 16 samples and one colour-net call; with ``chunk`` > 0, one of
+        """The frozen geometry's colour at stage-2 ``points`` [B, 3] seen
+        along ``-view_dirs``. NeuS: a 16-sample mini render
+        (neus_model.py:856-871) at t in linspace(-0.01, 0.05) along the
+        negated view direction, in stage-1 coordinates, one K3 call for
+        (sdf, feature, gradient) at the B x 16 samples and one colour-net
+        call. IDR mode: the rendering network at the point itself, its
+        normal and feature from one K3 call. With ``chunk`` > 0, one of
         each per slice of ``chunk`` points (the same result: nothing here
         couples two points). No bgr flip: the reference calls the stage-1
         model directly here. Differentiable through K4 if a caller asks;
@@ -160,15 +184,17 @@ class Stage2Model:
         if 0 < chunk < points.shape[0]:
             return torch.cat([self.borrow_color(points[i:i + chunk], view_dirs[i:i + chunk])
                               for i in range(0, points.shape[0], chunk)])
-        n_samp = 16
         vd = -view_dirs / torch.linalg.norm(view_dirs, dim=-1, keepdim=True)
+        if not self.cfg.use_neus:
+            full, grads = sdf_full_and_gradient(self._sdf_params(), self.cfg.neus.sdf, points)
+            return self.color(points, grads, vd, full[..., 1:])
+        n_samp = 16
         t = torch.linspace(-0.01, 0.05, n_samp, dtype=points.dtype,
                            device=points.device)[:, None]
         pts = points[:, None, :] * self.cfg.coord_scale + vd[:, None, :] * t
         flat = pts.reshape(-1, 3)
         full, grads = sdf_full_and_gradient(self._sdf_params(), self.cfg.neus.sdf, flat)
-        color = rendering_apply(self.params["implicit_network"]["color_network"],
-                                self.cfg.neus.color, flat, grads,
+        color = rendering_apply(self._color_params(), self.cfg.neus.color, flat, grads,
                                 vd[:, None, :].expand(pts.shape).reshape(-1, 3), full[..., 1:])
         b = points.shape[0]
         return self.volume_render_color(full[..., :1].reshape(b, n_samp, 1),
@@ -208,8 +234,8 @@ class Stage2Model:
         """``sdf`` without a graph, the weights folded and packed once for
         all the queries (the sphere tracer's, the grid bake's)."""
         query = frozen_sdf(self._sdf_params(), self.cfg.neus.sdf, out_cols=1)
-        scale = self.cfg.coord_scale
-        return lambda x: query(x * scale) / 2.0
+        scale, div = self._query_scale()
+        return lambda x: query(x * scale) / div
 
     def trace(self, origins, dirs):
         """Primary-ray cast -> (t [N], hit [N], x [N, 3]), without a graph:

@@ -2,9 +2,16 @@
 ``robir_tpu/stages/neus_stage.py``).
 
 One train step: render a ray batch (sampling through K1, the shaded pass
-through K3), the masked MSE + eikonal + silhouette loss, backward (K4 for
-the SDF trunk), optional global-norm clipping, then ``torch.optim.Adam``
-with ``lr = log_lerp_lr(step)`` set before the update. The step counter
+through K3), the masked MSE + eikonal + silhouette loss (+ the sparsity
+and similarity terms), backward (K4 for the SDF trunk), optional
+global-norm clipping, then ``torch.optim.Adam`` with
+``lr = log_lerp_lr(step)`` set before the update. The model and its
+renderer come from ``make_stage1_bindings`` (the JAX package's stage-1
+dispatch): NeuS or the hash-grid NeuS under the NeuS renderer (with the
+background shell where the config has one), or VNeRF/MipNeRF under the
+mip renderer (plain PyTorch: no kernel of the port runs there). Each draw
+of a step is asked of a ``Draws`` by name (``t_rand``,
+``t_rand_outside``, ``mip_u<level>``). The step counter
 starts at 0, as optax counts the first update. ``NeusTrainer`` runs the
 loop on a scene, with a checkpoint every ``ckpt_every`` steps and an
 in-train eval every ``eval_every`` (a test view and a mesh into a
@@ -14,7 +21,9 @@ the test pass (mean PSNR and MSE, render time, rays/s, a video and
 
 ``NeusTrainer.extract_mesh`` meshes the current SDF (``texture/mesh.py``:
 on the card, K1 launches of 65,536 grid points, then the host marching
-tetrahedra).
+tetrahedra; the hash-grid SDF in plain PyTorch) and refuses a density
+model. Ragged scenes (Multicam) render each view at its own
+``image_shape`` and log their test frames as images, not a video.
 
 Checkpoints hold the parameters, the step and the Adam moments in the JAX
 trainer's layout (``NeusTrainer.state``), so that either package resumes
@@ -27,18 +36,21 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..core import checkpoint as ckpt_lib
+from ..core.draws import Draws
 from ..core.schedule import log_lerp_lr
 from ..core.tree import flatten_with_paths
 from ..data.blender import BlenderScene, Prefetcher, RayBatch
-from ..fields.neus_model import NeuS, NeuSConfig, init_neus
+from ..fields.neus_model import HashNeuS, NeuS, NeuSConfig, init_hash_neus, init_neus
 from ..fields.sdf import frozen_sdf
+from ..fields.vnerf import VNeRF, init_vnerf
+from ..render.mip import render_mip
 from ..render.neus import NeusRenderConfig, Rays, render_neus
 from ..texture.mesh import Mesh, extract_mesh
 
@@ -95,10 +107,13 @@ def batch_to_rays(batch: RayBatch) -> tuple[Rays, torch.Tensor]:
 
 def neus_loss(out: dict, mask: torch.Tensor, pixels: torch.Tensor,
               cfg: NeusTrainConfig) -> tuple[torch.Tensor, dict]:
-    """Masked MSE + eikonal + silhouette (+ optional sparsity)."""
+    """Masked MSE + eikonal + silhouette (+ the optional Cauchy-log weight
+    sparsity and the (sim - 1)^2 similarity terms, regular.py:18-29).
+    Density renderers (mip) have no SDF gradient, so no eikonal term."""
     mask_sum = torch.sum(mask) + 1e-5
     mse = torch.sum(mask * (out["rgb"] - pixels) ** 2) / mask_sum
-    eikonal = out["gradient_error"] * cfg.eikonal_weight
+    eikonal = (out["gradient_error"] * cfg.eikonal_weight if "gradient_error" in out
+               else torch.zeros((), device=mse.device))
     silhouette = torch.mean((out["acc"] - mask[..., 0]) ** 2) * cfg.silhouette_weight
     loss = mse + eikonal + silhouette
     metrics = {"mse": mse, "psnr": mse_to_psnr(mse),
@@ -107,6 +122,10 @@ def neus_loss(out: dict, mask: torch.Tensor, pixels: torch.Tensor,
         sparsity = torch.mean(torch.sum(torch.log(1 + 2 * out["weights"] ** 2), -1))
         loss = loss + sparsity * cfg.sparsity_weight
         metrics["sparsity"] = sparsity
+    if cfg.similarity_weight > 0 and "similarity" in out:
+        sim = torch.mean(torch.sum((out["similarity"] - 1) ** 2, -1))
+        loss = loss + sim * cfg.similarity_weight
+        metrics["similarity"] = sim
     metrics["loss"] = loss
     return loss, metrics
 
@@ -115,16 +134,97 @@ def cos_anneal_ratio(step: int, anneal_end: int) -> float:
     return float(min(np.float32(1.0), np.float32(step) / np.float32(anneal_end)))
 
 
-def train_step(model: NeuS, optimizer: torch.optim.Optimizer,
+class Stage1Bindings(NamedTuple):
+    """A stage-1 (model, renderer) pair: ``init(gen)`` the fresh tree (CPU
+    tensors), ``model(tree, device)`` the module a trainer holds,
+    ``render(draws, rays, model, cos_anneal, is_eval)`` the render,
+    ``sdf(model)`` the SDF query for the mesh export (None: a density
+    model, which has no mesh)."""
+
+    init: Callable
+    model: Callable
+    render: Callable
+    sdf: Optional[Callable]
+
+
+def neus_render_binding(render_cfg: NeusRenderConfig):
+    """render="neus" (volume_render/interface.py:20-34), for NeuS and the
+    hash-grid NeuS: the stratified jitter ``t_rand`` ([B, 1] in [0, 1),
+    less 0.5) and the shell's ``t_rand_outside`` ([B, n_outside]) asked of
+    ``draws`` in training."""
+    def render_fn(draws, rays, model, cos_anneal, is_eval=False):
+        t_rand = t_out = None
+        if not is_eval and render_cfg.perturb > 0:
+            b = rays.origins.shape[0]
+            t_rand = draws.uniform("t_rand", (b, 1)) - 0.5
+            if render_cfg.n_outside > 0:
+                t_out = draws.uniform("t_rand_outside", (b, render_cfg.n_outside))
+        return render_neus(rays, model, cos_anneal, render_cfg, is_eval, t_rand=t_rand,
+                           t_rand_outside=t_out)
+    return render_fn
+
+
+def mip_render_binding(render_cfg):
+    """render="mip" over VNeRF/MipNeRF fields, trained and evaluated on the
+    finest level (the reference's ``mip_render_fn``, interface.py:8-17);
+    the 'sim' and 'raw' compositors feed ``similarity`` to the loss
+    (trainer.py:129). 'sdf' needs an SDF model, which a density field is
+    not: refused with the JAX package's ValueError."""
+    mode = render_cfg.mode
+    if mode == "sdf":
+        raise ValueError(
+            "render.mode='sdf' requires an SDF model; vnerf/mipnerf fields "
+            "are density-only. Use model.type=neus with render.type=neus, "
+            "or call render.mip.similarity_process directly with an SDF "
+            "model adapter.")
+
+    def render_fn(draws, rays, model, cos_anneal, is_eval=False):
+        out = render_mip(draws, rays, model, render_cfg, is_eval=is_eval,
+                         cos_anneal_ratio=cos_anneal)[-1]
+        if mode != "mip":
+            out["similarity"] = out["sim_or_grad"]
+        return out
+    return render_fn
+
+
+def _neus_mesh_sdf(model: NeuS):
+    return frozen_sdf(model.params["sdf_network"], model.cfg.sdf, out_cols=1)
+
+
+def _hash_mesh_sdf(model: HashNeuS):
+    return torch.no_grad()(model.sdf)
+
+
+def make_stage1_bindings(model_type: str, render: str, model_cfg,
+                         render_cfg) -> Stage1Bindings:
+    """The bindings of a stage-1 (model.type, render.type) pair, as the JAX
+    package's dispatch (trainer.py:39-48, interface.py:37-40): ("neus",
+    "neus"), ("hash", "neus"), ("vnerf", "mip"); any other raises KeyError."""
+    table = {
+        ("neus", "neus"): (init_neus, NeuS, neus_render_binding, _neus_mesh_sdf),
+        ("hash", "neus"): (init_hash_neus, HashNeuS, neus_render_binding, _hash_mesh_sdf),
+        ("vnerf", "mip"): (init_vnerf, VNeRF, mip_render_binding, None),
+    }
+    if (model_type, render) not in table:
+        raise KeyError(f"unsupported stage-1 combo model={model_type!r} render={render!r}; "
+                       f"supported: {sorted(table)}")
+    init_fn, module, binder, sdf = table[(model_type, render)]
+    return Stage1Bindings(lambda gen: init_fn(gen, model_cfg),
+                          lambda tree, device: module(tree, model_cfg, device),
+                          binder(render_cfg), sdf)
+
+
+def train_step(model, optimizer: torch.optim.Optimizer,
                lr_fn: Callable[[int], float], batch: RayBatch, step: int,
-               train_cfg: NeusTrainConfig, render_cfg: NeusRenderConfig,
-               t_rand: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> dict:
+               train_cfg: NeusTrainConfig, render_cfg, draws: Draws,
+               render_fn: Optional[Callable] = None) -> dict:
     """One update of ``model``'s parameters in place; returns the metrics
-    (detached tensors)."""
+    (detached tensors). ``render_fn`` (a ``Stage1Bindings.render``;
+    default: the NeuS renderer's) asks ``draws`` for the step's draws."""
     rays, pixels = batch_to_rays(batch)
-    out = render_neus(rays, model, cos_anneal_ratio(step, train_cfg.anneal_end),
-                      render_cfg, t_rand=t_rand, generator=generator)
+    if render_fn is None:
+        render_fn = neus_render_binding(render_cfg)
+    out = render_fn(draws, rays, model, cos_anneal_ratio(step, train_cfg.anneal_end))
     loss, metrics = neus_loss(out, rays.lossmult, pixels, train_cfg)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -137,11 +237,15 @@ def train_step(model: NeuS, optimizer: torch.optim.Optimizer,
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def eval_render(model: NeuS, render_cfg: NeusRenderConfig, batch: RayBatch) -> dict:
-    """Forward-only render of a ray batch (K1 and K3, no gradients)."""
+def eval_render(model, render_cfg, batch: RayBatch,
+                render_fn: Optional[Callable] = None) -> dict:
+    """Forward-only render of a ray batch (no draws, no gradients; NeuS:
+    K1 and K3)."""
     rays, _ = batch_to_rays(batch)
+    if render_fn is None:
+        render_fn = neus_render_binding(render_cfg)
     with torch.no_grad():
-        out = render_neus(rays, model, 1.0, render_cfg, is_eval=True)
+        out = render_fn(Draws(), rays, model, 1.0, is_eval=True)
     return {"rgb": out["rgb"], "acc": out["acc"], "dist": out["dist"]}
 
 
@@ -151,19 +255,23 @@ class NeusTrainer:
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed; raises if CUDA is
     asked for and absent. ``save`` and ``restore`` use ``log_dir``.
+    ``bindings`` (``make_stage1_bindings``; default: NeuS under the NeuS
+    renderer) give the model, its init and its render.
     """
 
     def __init__(self, scene: BlenderScene, model_cfg: NeuSConfig,
                  render_cfg: NeusRenderConfig, train_cfg: NeusTrainConfig,
-                 seed: int = 0, device="cuda", log_dir: str | None = None):
+                 seed: int = 0, device="cuda", log_dir: str | None = None,
+                 bindings: Stage1Bindings | None = None):
         self.scene = scene
         self.log_dir = log_dir
         self.model_cfg = model_cfg
         self.render_cfg = render_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
-        self.model = NeuS(init_neus(torch.Generator().manual_seed(seed), model_cfg),
-                          model_cfg, self.device)
+        self.bindings = bindings or make_stage1_bindings("neus", "neus", model_cfg, render_cfg)
+        self.model = self.bindings.model(self.bindings.init(torch.Generator().manual_seed(seed)),
+                                         self.device)
         self.optimizer, self.lr_fn = make_optimizer(self.model.parameters(),
                                                     train_cfg)
         self.step = 0
@@ -193,8 +301,9 @@ class NeusTrainer:
         last, metrics = {}, {}
         for _ in range(n_steps):
             batch = self._put(next(self._prefetch))
-            metrics = train_step(self.model, self.optimizer, self.lr_fn, batch,
-                                 self.step, cfg, self.render_cfg, generator=self._noise)
+            metrics = train_step(self.model, self.optimizer, self.lr_fn, batch, self.step,
+                                 cfg, self.render_cfg, Draws(self._noise, device=self.device),
+                                 self.bindings.render)
             self.step += 1
             if log_every and self.step % log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
@@ -210,14 +319,15 @@ class NeusTrainer:
         """The periodic test render and mesh (trainer.py:75-81): with a
         ``logger``, test view ``step % n_images`` as ``test_rgb_<step>.png``
         with its PSNR and MSE, and the mesh at ``mesh_resolution`` as
-        ``meshes/mesh_<step>.ply``."""
+        ``meshes/mesh_<step>.ply`` (none for a density model)."""
         if logger is None:
             return
         if test_scene is not None:
             out = self.render_image(self.step % test_scene.n_images, scene=test_scene)
             logger.log_image(self.step, "test_rgb", np.clip(out["rgb"], 0, 1))
             logger.log_scalars(self.step, "test", psnr=out["psnr"], mse=out["mse"])
-        logger.log_mesh(self.step, self.extract_mesh())
+        if self.bindings.sdf is not None:
+            logger.log_mesh(self.step, self.extract_mesh())
 
     def test(self, test_scene: BlenderScene, n_frames: int | None = None,
              logger=None) -> dict:
@@ -235,11 +345,15 @@ class NeusTrainer:
             psnrs.append(out["psnr"])
             mses.append(out["mse"])
         render_time = time.perf_counter() - t0
-        rays_per_sec = n_frames * test_scene.h * test_scene.w / render_time
+        rays_per_sec = sum(f.shape[0] * f.shape[1] for f in frames) / render_time
         metrics = {"mean_psnr": float(np.mean(psnrs)), "mean_mse": float(np.mean(mses)),
                    "render_time": render_time, "rays_per_sec": rays_per_sec}
         if logger is not None:
-            logger.log_video("test_frames", frames)
+            if len({f.shape for f in frames}) == 1:
+                logger.log_video("test_frames", frames)
+            else:  # ragged (Multicam): a video needs frames of one size
+                for i, f in enumerate(frames):
+                    logger.log_image(self.step, f"test_frame_{i}", f)
             logger.log_json(**metrics)
             logger.log_rays_per_sec(self.step, rays_per_sec)
         return metrics
@@ -314,10 +428,14 @@ class NeusTrainer:
         """The marching-tetrahedra mesh of the current SDF over
         ``[-mesh_bbox, mesh_bbox]^3`` at ``resolution`` (default
         ``mesh_resolution``) nodes per axis. The SDF trunk's weights are
-        folded, and on the card packed, once for all the grid's chunks."""
+        folded, and on the card packed, once for all the grid's chunks.
+        Raises ValueError for a density model (no SDF, no mesh)."""
+        if self.bindings.sdf is None:
+            raise ValueError(f"{type(self.model).__name__} is a density model: it has no "
+                             "SDF to mesh")
         bb = self.train_cfg.mesh_bbox
-        sdf = frozen_sdf(self.model.params["sdf_network"], self.model_cfg.sdf, out_cols=1)
-        return extract_mesh(sdf, bbox_min=(-bb,) * 3, bbox_max=(bb,) * 3,
+        return extract_mesh(self.bindings.sdf(self.model), bbox_min=(-bb,) * 3,
+                            bbox_max=(bb,) * 3,
                             resolution=resolution or self.train_cfg.mesh_resolution,
                             device=self.device)
 
@@ -342,11 +460,13 @@ class NeusTrainer:
             if pad:
                 sl = RayBatch(*[np.concatenate([x, np.repeat(x[-1:], pad, 0)])
                                 for x in sl])
-            out = eval_render(self.model, self.render_cfg, self._put(sl))
+            out = eval_render(self.model, self.render_cfg, self._put(sl),
+                              self.bindings.render)
             outs.append({k: v[:valid].cpu().numpy() for k, v in out.items()})
+        # per-image shapes for ragged scenes (Multicam); others have h, w
+        h, w = scene.image_shape(idx) if hasattr(scene, "image_shape") else (scene.h, scene.w)
         img = {k: np.concatenate([o[k] for o in outs], 0) for k in outs[0]}
-        rgb = img["rgb"].reshape(scene.h, scene.w, 3)
+        rgb = img["rgb"].reshape(h, w, 3)
         mse = float(np.mean((rgb - scene.images[idx]) ** 2))
-        return {"rgb": rgb, "acc": img["acc"].reshape(scene.h, scene.w),
-                "dist": img["dist"].reshape(scene.h, scene.w),
+        return {"rgb": rgb, "acc": img["acc"].reshape(h, w), "dist": img["dist"].reshape(h, w),
                 "mse": mse, "psnr": -10.0 / np.log(10.0) * np.log(mse)}

@@ -42,6 +42,10 @@ class NormStageConfig:
 
 
 BATCH_KEYS = ("points", "normals", "object_mask")
+# the JAX package's error for IDR mode (robir_tpu/stages/norm.py:132-136)
+IDR_REFUSAL = ("get_neus_surface needs the frozen NeuS bridge (its alpha uses "
+               "the deviation network's inv_s); the Norm stage's short-segment "
+               "integration is undefined with model.use_neus=false")
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -129,6 +133,8 @@ def get_neus_surface(model: Stage2Model, points: torch.Tensor, view_dirs: torch.
     the residual weight to (points, pred_normals). ``model`` is the
     stage-2 model of the frozen NeuS. Returns (final_x [N, 3],
     final_normal [N, 3], gradient_error scalar)."""
+    if not model.cfg.use_neus:
+        raise ValueError(IDR_REFUSAL)
     t = torch.linspace(0.0, dist, n_samp, dtype=points.dtype, device=points.device)[:, None]
     xs = points[:, None, :] - t[None, :, :] * view_dirs[:, None, :]
     flat = xs.reshape(-1, 3)

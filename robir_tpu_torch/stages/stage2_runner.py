@@ -27,6 +27,8 @@ from ..core import checkpoint as ckpt_lib
 from ..core.params import freeze, from_jax
 from ..fields.envmap_material import init_envmap_material
 from ..fields.neus_model import init_neus
+from ..fields.radiance import init_rendering
+from ..fields.sdf import init_sdf
 from ..core.draws import Draws
 from ..fields.visibility import init_indirect, init_visnet
 from ..render.color import as_input, hdr2ldr, init_tonemap
@@ -59,14 +61,22 @@ def make_adam(params: Iterable[torch.nn.Parameter], cfg: StageOptConfig):
 
 def init_stage2_params(gen: torch.Generator, cfg: Stage2Config) -> dict:
     """A fresh stage-2 tree (CPU tensors) from a CPU generator: the same
-    tree, shapes and distributions as the JAX package's init."""
-    return {
+    tree, shapes and distributions as the JAX package's init. In IDR mode
+    (``use_neus=False``) ``implicit_network`` is the SDF tree and
+    ``rendering_network`` the colour net (implicit_differentiable_renderer.py
+    :280-282), drawn last, in that order, as the JAX keys 1 and 5 are."""
+    params = {
         "envmap_material_network": init_envmap_material(gen, cfg.envmap),
         "indirect_illum_network": init_indirect(gen, cfg.indirect),
         "visibility_network": init_visnet(gen, cfg.visnet),
         "gamma": init_tonemap(cfg.tonemap, gen),
-        "implicit_network": init_neus(gen, cfg.neus),
     }
+    if cfg.use_neus:
+        params["implicit_network"] = init_neus(gen, cfg.neus)
+    else:
+        params["implicit_network"] = init_sdf(gen, cfg.neus.sdf)
+        params["rendering_network"] = init_rendering(gen, cfg.neus.color)
+    return params
 
 
 def load_neus_checkpoint(path: str) -> dict:

@@ -282,7 +282,7 @@ def main(argv=None) -> dict:
     # the mesh in stage-1 (world) coordinates: TexSampler scales by 0.5
     # into stage 2's itself
     t0 = time.time()
-    s1_cfg = cli._stage1_configs(conf)[0]
+    s1_cfg = cli._stage1_configs(conf)[1]
     loaded = ckpt_lib.load(ckpt_lib.latest_path(os.path.join(logs, "NeuS")))[0]
     s1_model = NeuS(loaded["params"], s1_cfg, device)
     world_mesh = extract_mesh(frozen_sdf(s1_model.params["sdf_network"], s1_cfg.sdf, out_cols=1),

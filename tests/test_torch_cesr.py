@@ -54,7 +54,7 @@ from robir_tpu_torch.render.stage2 import Stage2Config
 from robir_tpu_torch.stages import cesr as tcesr
 from robir_tpu_torch.stages import stage2_runner as trunner
 from robir_tpu_torch.tracing import grid as tg
-from torch_port_helpers import assert_close, jax_stage2_draws, to_t
+from torch_port_helpers import assert_close, grab_grads, jax_stage2_draws, to_t
 
 N_LIGHTS = 8
 GRAD_ATOL = 3e-3  # of each gradient's largest entry
@@ -165,13 +165,6 @@ def test_cesr_nets_match_jax(case):
         assert_close(leaf.grad, flat[path], rtol=5e-4, atol=GRAD_ATOL * scale, what=path)
 
 
-def _grab_grads():
-    """An optax 'optimizer' that leaves the parameters and returns the
-    gradients as its state, so the JAX step hands them out exactly."""
-    zeros = lambda t: jax.tree_util.tree_map(jnp.zeros_like, t)  # noqa: E731
-    return optax.GradientTransformation(zeros, lambda g, s, p=None: (zeros(g), g))
-
-
 SPEC_VAR = (np.arange(8) % 4 == 2).astype(np.float32)
 BATCH_KEYS = ("points", "dirs", "object_mask", "rgb")
 
@@ -180,7 +173,7 @@ def jax_step(params, cfg, jstage, batch, key, prefit, use_new_normal, use_rgb_lo
              grid=None):
     """(gradients, metrics) of one JAX CESR step."""
     trainable, frozen = jrunner.split_params(params, jcesr.CESRRunner.TRAINABLE)
-    step = jcesr.make_cesr_step(cfg, jstage, _grab_grads())
+    step = jcesr.make_cesr_step(cfg, jstage, grab_grads())
     jbatch = {k: jnp.asarray(batch[k]) for k in BATCH_KEYS}
     _, grads, metrics = step(trainable, frozen, None, grid, jnp.asarray(SPEC_VAR), jbatch,
                              key, prefit=prefit, use_new_normal=use_new_normal,

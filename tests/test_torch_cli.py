@@ -1,7 +1,8 @@
 """The port's command line (``robir_tpu_torch/cli.py``) against the JAX
 package's: the parser, the ``--set`` overrides, the dataset-key filter, the
 plot schedule of ``_run_stage``, the Norm decoder that ``vis`` restores,
-what the port refuses, the whole chain neus -> mesh -> norm -> vis -> pbr
+the stage-1 alternates and IDR mode against the JAX command line, the
+whole chain neus -> mesh -> norm -> vis -> pbr
 -> cesr on the CPU in one log dir, and ``mesh`` on a JAX trainer's
 checkpoint (vertices within 1e-5 of the JAX command's PLY, triangles
 equal: the two grids differ by fp32 rounding, far below a cell).
@@ -150,19 +151,129 @@ def test_cmd_vis_restores_the_norm_decoder(tmp_path, monkeypatch):
     assert not any(np.array_equal(got[k], marked[k].numpy()) for k in others)
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["neus", "--set", "dataset.type=llff"], "A.6"),
-    (["neus", "--set", "dataset.type=multicam"], "A.6"),
-    (["neus", "--set", "model.type=hash"], "A.9"),
-    (["neus", "--set", "render.type=mip"], "A.9"),
-    (["pbr", "--set", "model.use_neus=false"], "A.9"),
-])
-def test_refuses_what_is_not_ported(tmp_path, argv, what):
+def _layout(path: str) -> dict:
+    """{path: shape} of a checkpoint file, and its step."""
+    tree, meta = ckpt_lib.load(path)
+    return {k: np.shape(v) for k, v in flatten_with_paths(tree).items()}, meta.get("step")
+
+
+def _conf(tmp_path, conf: dict) -> str:
+    path = str(tmp_path / "conf.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    return path
+
+
+SMALL_TRAIN = {"batch_size": 16, "max_steps": 4, "eval_chunk": 128, "ckpt_every": 100,
+               "eval_every": 0}
+SMALL_VNERF = {"type": "vnerf", "width": 16, "depth": 2, "skips": [], "multires": 3,
+               "multires_view": 2}
+SMALL_HASH = {"type": "hash", "hash_sdf": {"width": 16, "depth": 2, "d_out": 9,
+                                           "grid": {"n_levels": 4, "log2_hashmap_size": 10}},
+              "color": {"d_feature": 8, "d_hidden": 16, "n_layers": 2}}
+ALTERNATES = {
+    "llff": ({"model": SMALL_VNERF, "render": {"type": "mip", "num_samples": 8},
+              "dataset": {"type": "llff", "llffhold": 4}}, "llff"),
+    "multicam": ({"model": dict(SMALL_VNERF, use_ipe=True, ipe_max_deg=4),
+                  "render": {"type": "mip", "num_samples": 8}, "dataset": {"type": "multicam"}},
+                 "multicam"),
+    "hash": ({"model": SMALL_HASH, "render": {"n_samples": 8, "n_importance": 8,
+                                              "up_sample_steps": 2}}, "sphere"),
+    "vnerf_mip": ({"model": SMALL_VNERF, "render": {"type": "mip", "num_samples": 8,
+                                                    "mode": "sim"},
+                   "train": {"similarity_weight": 0.1}}, "sphere"),
+}
+
+
+@pytest.mark.parametrize("case", [*ALTERNATES, "pbr_idr"])
+def test_alternates_match_the_jax_cli(tmp_path, case, monkeypatch):
+    """What the port refused until ROADMAP.md A.6 and A.9 were ported, run
+    by both command lines on the CPU at small widths: ``neus`` on an LLFF
+    and a Multicam scene (VNeRF and MipNeRF under the mip renderer), with
+    the hash-grid NeuS, and with VNeRF under the 'sim' compositor; ``pbr``
+    in IDR mode (``model.use_neus=false``) from one Vis checkpoint. Each
+    package's checkpoint has the same paths, shapes and step, and its test
+    metrics are finite; the IDR PBR checkpoints hold the Vis file's
+    indirect and visibility nets bit for bit."""
     from robir_tpu_torch.data.synthetic import make_sphere_dataset as tmake
-    scene = tmake(str(tmp_path / "scene"), n_train=2, n_test=1, h=8, w=8)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {what}"):
-        cli.main([argv[0], "--conf", "configs/sphere_smoke.json", "--data", scene,
-                  "--log_dir", str(tmp_path / "logs"), "--device", "cpu", *argv[1:]])
+    from torch_port_helpers import write_llff_scene, write_multicam_scene
+    if case == "pbr_idr":
+        from robir_tpu_torch.data.synthetic import make_shadow_dataset
+        scene = make_shadow_dataset(str(tmp_path / "scene"), n_train=3, n_test=1, h=16, w=16)
+        idr = ["--conf", "configs/sphere_smoke.json", "--data", scene, "--set",
+               "model.use_neus=false", "--set", "model.neus.sdf.bias=0.3"]
+        orig = vis_mod.VisRunner.fit_energy_prologue
+        monkeypatch.setattr(vis_mod.VisRunner, "fit_energy_prologue",
+                            lambda self, n_steps=1000: orig(self, 3))
+        L = str(tmp_path / "vis")
+        cli.main(["vis", *idr, "--log_dir", L, "--n_iters", "1", "--no_plot", "--device", "cpu"])
+        vis_file = os.path.join(L, "Vis", "checkpoints", "latest.npz")
+        got = {}
+        for pkg, main in (("port", cli.main), ("jax", jcli.main)):
+            os.makedirs(os.path.join(tmp_path, pkg, "Vis", "checkpoints"))
+            import shutil
+            shutil.copy(vis_file, os.path.join(tmp_path, pkg, "Vis", "checkpoints"))
+            extra = ["--device", "cpu"] if pkg == "port" else []
+            main(["pbr", *idr, "--log_dir", str(tmp_path / pkg), "--n_iters", "1", "--no_plot",
+                  *extra])
+            got[pkg] = os.path.join(tmp_path, pkg, "PBR", "checkpoints", "latest.npz")
+        assert _layout(got["port"]) == _layout(got["jax"])
+        vis = flatten_with_paths(ckpt_lib.load(vis_file)[0])
+        kept = [k for k in vis if k.startswith(("indirect_illum_network", "visibility_network"))]
+        for pkg in ("port", "jax"):
+            leaves = flatten_with_paths(ckpt_lib.load(got[pkg])[0])
+            assert "rendering_network/lin0/v" in leaves
+            assert kept and all(np.array_equal(leaves[k], vis[k]) for k in kept)
+        return
+    conf, kind = ALTERNATES[case]
+    conf = {**conf, "train": {**SMALL_TRAIN, **conf.get("train", {})}}
+    data = str(tmp_path / "scene")
+    if kind == "llff":
+        write_llff_scene(data, n=8, h=12, w=16)
+    elif kind == "multicam":
+        write_multicam_scene(data)
+    else:
+        tmake(data, n_train=2, n_test=1, h=12, w=12)
+    args = ["neus", "--conf", _conf(tmp_path, conf), "--data", data, "--n_iters", "2"]
+    cli.main([*args, "--log_dir", str(tmp_path / "port"), "--device", "cpu"])
+    jcli.main([*args, "--log_dir", str(tmp_path / "jax")])
+    files = {pkg: os.path.join(tmp_path, pkg, "NeuS", "ckpt_000002.npz")
+             for pkg in ("port", "jax")}
+    assert _layout(files["port"]) == _layout(files["jax"])
+    for pkg in ("port", "jax"):
+        with open(os.path.join(tmp_path, pkg, "NeuS", "neus", "description.json")) as f:
+            desc = json.load(f)
+        assert np.isfinite(desc["mean_psnr"]) and desc["rays_per_sec"] > 0, (pkg, desc)
+
+
+def test_norm_refuses_idr_mode_with_the_jax_error(tmp_path):
+    """``norm`` with ``model.use_neus=false`` raises the JAX package's
+    ValueError, the error of its ``get_neus_surface`` on an IDR model (the
+    Norm stage's surface integration needs the NeuS's deviation network;
+    the JAX command line meets it in its plot, which it prints)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from robir_tpu.core.config import build_stage2_config as jbuild
+    from robir_tpu.render.stage2 import Stage2Model as JStage2Model
+    from robir_tpu.stages import norm as jnorm
+    from robir_tpu.fields.sdf import init_sdf as jinit_sdf
+    import jax
+    from robir_tpu_torch.data.synthetic import make_shadow_dataset
+    scene = make_shadow_dataset(str(tmp_path / "scene"), n_train=2, n_test=1, h=8, w=8)
+    cfg = dataclasses.replace(jbuild(load_config("configs/sphere_smoke.json")["model"]),
+                              use_neus=False)
+    x = jnp.full((2, 3), 0.3)
+    with pytest.raises(ValueError) as jax_error:
+        # the IDR tree's implicit_network: all the surface integration reads
+        params = {"implicit_network": jinit_sdf(jax.random.PRNGKey(0), cfg.neus.sdf)}
+        jnorm.get_neus_surface(JStage2Model(params, cfg), x, x, x)
+    with pytest.raises(ValueError) as port_error:
+        cli.main(["norm", "--conf", "configs/sphere_smoke.json", "--data", scene, "--mesh",
+                  str(tmp_path / "mesh.ply"), "--log_dir", str(tmp_path / "logs"),
+                  "--set", "model.use_neus=false", "--device", "cpu"])
+    assert str(port_error.value) == str(jax_error.value)
 
 
 def test_stage2_refuses_a_neus_of_other_widths(tmp_path):

@@ -30,6 +30,7 @@ from robir_tpu.fields.sdf import SDFConfig as JSDFConfig
 from robir_tpu.render import neus as jneus
 from robir_tpu.stages import neus_stage as jstage
 from robir_tpu_torch.core import checkpoint as ckpt_lib
+from robir_tpu_torch.core.draws import Draws
 from robir_tpu_torch.core.tree import flatten_with_paths
 from robir_tpu_torch.data.blender import BlenderConfig, BlenderScene, RayBatch
 from robir_tpu_torch.fields import neus_model as tnm
@@ -115,9 +116,9 @@ def _next_step(tr, jt, scene_dir):
         jt.params, jt.opt_state, jblender.RayBatch(*map(jnp.asarray, batch)),
         jnp.asarray(jt.step, jnp.int32), key)
     _, k1 = jax.random.split(key)
-    t_rand = to_t(jax.random.uniform(k1, (64, 1)) - 0.5)
+    draws = Draws(given={"t_rand": to_t(jax.random.uniform(k1, (64, 1)))})
     tm = tstage.train_step(tr.model, tr.optimizer, tr.lr_fn, RayBatch(*map(to_t, batch)),
-                           tr.step, tr.train_cfg, tr.render_cfg, t_rand=t_rand)
+                           tr.step, tr.train_cfg, tr.render_cfg, draws)
     tr.step += 1
     jt.step += 1
     return float(tm["loss"]), float(jm["loss"])

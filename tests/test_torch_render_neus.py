@@ -133,6 +133,4 @@ def test_render_neus_matches_jax(models, is_eval):
 
 def test_render_config_refuses_unported_options():
     with pytest.raises(NotImplementedError):
-        tneus.NeusRenderConfig(n_outside=8)
-    with pytest.raises(NotImplementedError):
         tneus.NeusRenderConfig(sampling_dtype="bfloat16")

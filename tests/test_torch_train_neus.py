@@ -29,6 +29,7 @@ from robir_tpu.render import neus as jneus
 from robir_tpu.stages import neus_stage as jstage
 from robir_tpu_torch import resolve_device
 from robir_tpu_torch.core import config as tconfig
+from robir_tpu_torch.core.draws import Draws
 from robir_tpu_torch.core.params import to_numpy
 from robir_tpu_torch.core.schedule import log_lerp_lr
 from robir_tpu_torch.data.blender import RayBatch
@@ -77,9 +78,9 @@ def test_three_step_trajectory_matches_jax(scene):
             jnp.asarray(step, jnp.int32), sk)
         # the jitter render_neus draws from the step key, handed to the port
         _, k1 = jax.random.split(sk)
-        t_rand = to_t(jax.random.uniform(k1, (64, 1)) - 0.5)
+        draws = Draws(given={"t_rand": to_t(jax.random.uniform(k1, (64, 1)))})
         tm = tstage.train_step(model, topt, lr_fn, RayBatch(*map(to_t, batch)),
-                               step, ttrain, trender, t_rand=t_rand)
+                               step, ttrain, trender, draws)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=1e-4, err_msg=f"loss, step {step}")
         got = jax.tree_util.tree_leaves(to_numpy(model.params))

@@ -306,3 +306,94 @@ def reference_state_dict(tree) -> dict:
         key, xform = reference_key(path)
         sd[key] = torch.from_numpy(np.array(xform(to_np(leaf)), np.float32))
     return sd
+
+
+def write_llff_scene(root, n: int = 24, h: int = 120, w: int = 160, seed: int = 0,
+                     focal: float = 100.0) -> str:
+    """A forward-facing LLFF capture from ``seed`` under ``root``:
+    ``images/NNN.png`` (smooth colour ramps with noise) and
+    ``poses_bounds.npy`` (cameras near z = 0 looking along -z, in LLFF's raw
+    [down, right, back] column layout with hwf appended, and per-view
+    bounds). Returns ``root`` as a string."""
+    import os
+
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    rows = []
+    for i in range(n):
+        base = np.stack([xx, yy, 0.5 + 0.5 * np.sin(6 * xx + i)], -1)
+        img = np.clip(base + 0.05 * rng.standard_normal((h, w, 3)), 0, 1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(root, "images", f"{i:03d}.png"))
+        t = np.array([0.3 * (i - n / 2) / n, 0.02 * i, 0.1 * rng.random()])
+        m = np.stack([[0, -1.0, 0], [1.0, 0, 0], [0, 0, 1.0]], 1)  # [down right back]
+        pose = np.concatenate([m, t[:, None], np.array([[h], [w], [focal]])], 1)
+        rows.append(np.concatenate([pose.ravel(), [2.0 + 0.1 * i, 12.0]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+    return str(root)
+
+
+def write_multicam_scene(root, sizes=((16, 20), (24, 30)), n_train: int = 2,
+                         n_test: int = 2, seed: int = 0) -> str:
+    """A Multicam scene from ``seed`` under ``root``: ``metadata.json`` with
+    per-image ``pix2cam``/``cam2world``/``width``/``height``/``lossmult``/
+    ``near``/``far`` for the train and test splits, the images cycling
+    through ``sizes`` ((h, w) each: ragged resolutions), as RGBA PNGs under
+    ``imgs/``. Returns ``root`` as a string."""
+    import json
+    import os
+
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "imgs"), exist_ok=True)
+    keys = ("file_path", "pix2cam", "cam2world", "width", "height", "lossmult", "near",
+            "far")
+    meta = {s: {k: [] for k in keys} for s in ("train", "test")}
+    n = 0
+    for split, count in (("train", n_train), ("test", n_test)):
+        for i in range(count):
+            h, w = sizes[i % len(sizes)]
+            img = (rng.random((h, w, 4)) * 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, "imgs", f"{n}.png"))
+            focal = 0.5 * w
+            pix2cam = np.linalg.inv(np.array([[focal, 0, w / 2], [0, focal, h / 2],
+                                              [0, 0, 1.0]]))
+            th = 2 * np.pi * n / (n_train + n_test)
+            c2w = np.eye(4)[:3]
+            c2w[:, 3] = [0.3 * np.cos(th), 0.3 * np.sin(th), 2.0 + 0.1 * n]
+            c2w[:, :3] = np.diag([1.0, -1.0, -1.0])  # looking along -z
+            m = meta[split]
+            for k, v in zip(keys, (f"imgs/{n}.png", pix2cam.tolist(), c2w.tolist(), w, h,
+                                   1.0, 1.0, 6.0)):
+                m[k].append(v)
+            n += 1
+    with open(os.path.join(root, "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    return str(root)
+
+
+def grab_grads():
+    """An optax 'optimizer' that leaves the parameters and returns the
+    gradients as its state, so a JAX train step hands them out exactly."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    zeros = lambda t: jax.tree_util.tree_map(jnp.zeros_like, t)  # noqa: E731
+    return optax.GradientTransformation(zeros, lambda g, s, p=None: (zeros(g), g))
+
+
+def assert_grads_match(tparams, jgrads, rtol: float = 5e-4, scale_atol: float = 5e-4):
+    """Every leaf gradient of the port's ``ParamTree`` against the JAX
+    gradient tree at its path: rtol ``rtol`` and an atol of ``scale_atol``
+    of the JAX tensor's largest entry; both trees have the same paths."""
+    from robir_tpu_torch.core.tree import flatten_with_paths
+    want = flatten_with_paths(jgrads)
+    got = flatten_with_paths(tparams)
+    assert sorted(got) == sorted(want)
+    for path, leaf in got.items():
+        w = np.asarray(want[path])
+        g = np.zeros_like(w) if leaf.grad is None else to_np(leaf.grad)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=scale_atol * float(np.abs(w).max()),
+                                   err_msg=path)
