@@ -223,7 +223,30 @@
    configs/neus_blender.json widths, 512 rays, on the card against the CPU
    within KERNEL_TOL of each output's largest entry; its one K3 launch held
    to the plain version. Prints each phase's wall time.
-29. With ``--profile STEPS``, profiles that many more steps of each path and
+29. ``ddp_stage1`` and ``ddp_stage2`` (``drive_ddp``): DDP_RANKS ranks
+   spawned once (``core/mesh.py:spawn_ranks``), gloo on the one card
+   (nccl takes one rank a device), each printing its backend. Stage 1 at
+   configs/neus_blender.json widths, a global batch of 512, DDP_STAGE1_STEPS
+   steps of ``NeusTrainer(mesh=)``: each rank's launches a step must be
+   exactly 4 K1 + 1 K3 + 1 K4; the replicas bit-equal; one step's summed
+   gradients within GRAD_TOL of the one-process step's on the card on the
+   same global batch and jitter; the step times, one gradient all-reduce
+   alone and ``throughput``. Stage 2 at configs/hotdog.json's sections
+   (CESR 1,024 global pixels, Vis, PBR, Norm) on the trained NeuS,
+   DDP_STAGE2_STEPS steps each after each rank's bake (bit-equal across
+   the ranks and to the one process's) and a DDP_VIS_PROLOGUE-step energy
+   prologue (CESR from its last warmup step but one): each rank's launches
+   a step, the replicas bit-equal; against the one-process runners every
+   step's metrics within LOSS_RTOL and the weights after the steps as the
+   CPU test holds them; one step's summed gradients within DDP_GRAD_TOL,
+   in a check run with fp32 storage and CESR past its warmup.
+   ``sampling_bf16``: stage 1 with ``sampling_dtype="bfloat16"`` for
+   ``--steps`` steps: exactly 0 K1 + 1 K3 + 1 K4 a step; the bf16 query
+   (one ``torch.mm(out_dtype=float32)`` a layer) against the CPU's bf16
+   route and K1 (which it must differ from by bf16's rounding), timed
+   beside K1; ``throughput`` of both settings. Each path's (kernel, shape)
+   held to its plain version.
+30. With ``--profile STEPS``, profiles that many more steps of each path and
    prints the device time by kernel and the device's busy share.
 
 Prints the card's name and power limit, the build time, each check, the
@@ -252,6 +275,7 @@ import torch
 
 from robir_tpu_torch import cli
 from robir_tpu_torch.core import checkpoint as ckpt_lib
+from robir_tpu_torch.core import mesh as dp
 from robir_tpu_torch.core.config import (build_mesh_config, build_stage1_configs,
                                          build_stage2_config, build_stage_config, load_config,
                                          stage1_dispatch, texture_resolution)
@@ -289,6 +313,7 @@ from robir_tpu_torch.texture import native
 from robir_tpu_torch.texture.focus_sampler import TexSpaceSampler, focus_sampler_from_dataset
 from robir_tpu_torch.texture import pipeline as tpipe
 from robir_tpu_torch.tools import plots as tplots
+from robir_tpu_torch.tools import dryrun_multichip
 from robir_tpu_torch.tools import relight as relight_mod
 from robir_tpu_torch.tools.shadow_pipeline import make_relight_envmap
 from robir_tpu_torch.tracing import grid as tg
@@ -379,6 +404,32 @@ TEXTURES_RES = 1024
 # the stage-1 alternates and IDR mode: steps of each path, and the batch
 LLFF_STEPS, MULTICAM_STEPS, HASH_STEPS, BG_STEPS, IDR_STEPS = 20, 10, 20, 20, 10
 ALT_BATCH = 512
+# the data-parallel phases: ranks sharing the card, stage 1's steps, each
+# stage-2 runner's, the Vis energy prologue's (1,000 in the Vis phase), and
+# the spawn's time limit
+DDP_RANKS, DDP_STAGE1_STEPS, DDP_STAGE2_STEPS, DDP_VIS_PROLOGUE = 2, 20, 4, 200
+DDP_TIMEOUT_S = 300.0
+# ddp_stage2's weights after its steps against the one process's, the
+# criterion of tests/test_torch_dist_stage2.py: each entry within 2 x lr a
+# step, and this share of them within this distance (the sums differ only
+# in their order; Adam's first steps are sign-like, so an entry whose
+# gradient is near zero moves by an amount its rounding decides)
+PARAM_AGREE_ATOL, PARAM_AGREE_FRAC = 1e-5, 0.99
+# ddp_stage2's gradient check (``check_runners``: the visibility net and
+# the NeuS colour net in fp32, whose bf16 outputs round apart where the
+# rows split differently; CESR past its warmup): step 1's summed gradients
+# against the one process's, to this share of each tensor's largest entry,
+# the gradient tolerance of the CPU tests against the JAX package (CESR's
+# normal net, whose n/|n| makes fp32 ill-conditioned, read 1.1e-4 to
+# 1.2e-4 on an NVIDIA H100 80GB HBM3 at 700 W; the others under 1e-6)
+DDP_GRAD_TOL = 5e-4
+# the bf16 sampling query, in bf16 unit roundoffs (2^-8) of the largest
+# |sdf|: against the CPU's bf16 route within BF16_CPU_ULPS (0.85 read on
+# an NVIDIA H100 80GB HBM3 at 700 W: each side rounds its own activations,
+# so a near tie rounds apart at some layer); against the fp32 trunk (K1)
+# within BF16_ULPS and at least BF16_MIN_GAP_ULPS away (1.29 read there),
+# so that a route that stayed in fp32 fails
+BF16_CPU_ULPS, BF16_ULPS, BF16_MIN_GAP_ULPS = 2, 8, 0.25
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
@@ -3540,6 +3591,480 @@ def drive_alternates(root: str, seed: int, sphere: str, shadow: str, model_cfg, 
     return runs, entries
 
 
+# -- the data-parallel phases and bf16 sampling ----------------------------
+
+
+def _rank_setup(mesh) -> None:
+    """A spawned rank's set-up: TF32 off as in the parent, the counts at 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(mesh.device)
+    reset_counts()
+
+
+def _timed_run(runner, steps: int) -> tuple[list, list]:
+    """``steps`` calls of ``runner.run(1)``, each timed with CUDA events:
+    (their ms, their metrics)."""
+    ms, metrics = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(runner.run(1))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    bad = [m for m in metrics if not all(np.isfinite(v) for v in m.values())]
+    if bad:
+        raise RuntimeError(f"non-finite metrics {bad[0]}")
+    return ms, metrics
+
+
+def _progress(mesh, what: str) -> None:
+    """Rank 0's line of where the ranks are (a hang shows where it hung)."""
+    if mesh.rank == 0:
+        print(f"  rank 0: {what}", flush=True)
+
+
+def _checksums(tree) -> list:
+    return [dp.bit_checksum(v) for v in flatten_with_paths(tree).values()]
+
+
+def _all_reduce_ms(mesh, params, reps: int = 10) -> float:
+    """The median wall ms of one gradient all-reduce of ``params``'s flat
+    buffer (zero gradients) to a synchronize."""
+    params = list(params)
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp.all_reduce_grads(mesh, params)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ms))
+
+
+def step_grads(mesh, params, model_cfg, render_cfg, train_cfg, batch, t_rand) -> tuple:
+    """One stage-1 ``train_step`` on the card on this rank's rows of
+    ``batch`` (numpy, global; all of it without a mesh) with the global
+    jitter ``t_rand``: (metrics, the summed gradients on the CPU)."""
+    device = mesh.device if mesh is not None else torch.device("cuda")
+    model = NeuS(params, model_cfg, device)
+    opt, lr_fn = neus_stage_mod.make_optimizer(model.parameters(), train_cfg)
+    rows = mesh.local_slice(len(batch[0])) if mesh is not None else slice(None)
+    local = RayBatch(*[torch.as_tensor(np.asarray(x)[rows], device=device) for x in batch])
+    n = local.origins.shape[0]
+    draws = Draws(given={"t_rand": torch.as_tensor(t_rand)}, device=device,
+                  split=dp.batch_split(mesh, n))
+    metrics = neus_stage_mod.train_step(model, opt, lr_fn, local, 0, train_cfg, render_cfg,
+                                        draws, mesh=mesh)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.grad.detach().cpu().numpy() for k, p in model.named_parameters()})
+
+
+def ddp_stage1_rank(mesh, model_cfg, render_cfg, train_cfg, scene_kw, seed: int, steps: int,
+                    check) -> dict:
+    """A rank of ``ddp_stage1``: the step check's summed gradients, then
+    ``NeusTrainer(mesh=)`` for ``steps`` steps (the counts set to 0 just
+    before and read just after, each step timed), the replicas checked
+    bit-equal, ``throughput`` and one gradient all-reduce timed alone."""
+    metrics, grads = step_grads(mesh, *check)
+    _progress(mesh, "the stage-1 step check's step done")
+    scene = make_sphere_scene("train", **scene_kw)
+    trainer = NeusTrainer(scene, model_cfg, render_cfg, train_cfg, seed=seed, mesh=mesh)
+    try:
+        reset_counts()
+        step_ms, step_metrics = _timed_run(trainer, steps)
+        run = shapes()
+        dp.check_replicas(mesh, "the stage-1 parameters", trainer.model.parameters())
+        _progress(mesh, f"{steps} stage-1 steps done")
+        rays_s = trainer.throughput(n_steps=5, warmup=2, reps=3)
+    finally:
+        trainer.close()
+    return {"backend": mesh.backend, "device": str(mesh.device), "check": (metrics, grads),
+            "run": run, "ms": step_ms, "metrics": step_metrics,
+            "checksums": _checksums(trainer.model.params), "rays_per_s": rays_s,
+            "all_reduce_ms": _all_reduce_ms(mesh, trainer.model.parameters())}
+
+
+def stage2_runners(cfg, stages: dict, params, dataset, seed: int, mesh, tex_sampler):
+    """The four stage-2 runners at ``stages`` (their sections of
+    configs/hotdog.json) on ``params`` (the Norm decoder for Vis and PBR as
+    it is: the runs hold ranks to one process, not stages to stages). CESR
+    starts at its last warmup step but one, so that of DDP_STAGE2_STEPS
+    steps the third on runs the rgb, latent KL and smoothness terms."""
+    dev = "cuda"
+    cesr = CESRRunner(cfg, params, dataset, stages["cesr"], seed=seed, device=dev, mesh=mesh)
+    cesr.cur_iter = stages["cesr"].warmup_iters - 1
+    return {"cesr": cesr,
+            "vis": VisRunner(cfg, params, dataset, stages["vis"], seed=seed, device=dev,
+                             mesh=mesh),
+            "pbr": PBRRunner(cfg, params, dataset, stages["pbr"], seed=seed, device=dev,
+                             mesh=mesh),
+            "norm": NormRunner(cfg, params, TexSpaceSampler(tex_sampler, None, None),
+                               stages["norm"], seed=seed, device=dev, mesh=mesh)}
+
+
+def check_runners(cfg, stages: dict, params, dataset, seed: int, mesh, grid) -> dict:
+    """CESR, Vis and PBR for the gradient check of ``ddp_stage2``: fresh,
+    with the visibility net and the NeuS colour net in fp32, on ``grid``,
+    CESR one step past its warmup (its rgb, latent KL and smoothness terms
+    on)."""
+    check = dataclasses.replace(
+        cfg, visnet=dataclasses.replace(cfg.visnet, storage_dtype=None),
+        neus=dataclasses.replace(cfg.neus, color=dataclasses.replace(cfg.neus.color,
+                                                                     storage_dtype=None)))
+    runners = {"cesr": CESRRunner(check, params, dataset, stages["cesr"], seed=seed,
+                                  device="cuda", mesh=mesh),
+               "vis": VisRunner(check, params, dataset, stages["vis"], seed=seed, device="cuda",
+                                mesh=mesh),
+               "pbr": PBRRunner(check, params, dataset, stages["pbr"], seed=seed, device="cuda",
+                                mesh=mesh)}
+    runners["cesr"].cur_iter = stages["cesr"].warmup_iters + 1
+    for r in runners.values():
+        r.grid_values = grid
+    return runners
+
+
+def _grads(tree) -> dict:
+    """The gradient of each leaf of ``tree`` that has one, on the host."""
+    return {k: v.grad.detach().cpu().numpy() for k, v in flatten_with_paths(tree).items()
+            if v.grad is not None}
+
+
+def _stage2_steps(runner, steps: int) -> dict:
+    """``steps`` timed steps of a stage-2 runner: their ms and metrics, the
+    first step's gradients (summed over the ranks) and the parameters
+    after the last step, on the host."""
+    ms, metrics = _timed_run(runner, 1)
+    grads = _grads(runner.params)
+    more_ms, more = _timed_run(runner, steps - 1)
+    return {"ms": ms + more_ms, "metrics": metrics + more, "grads": grads,
+            "params": flatten_with_paths(to_numpy(runner.params))}
+
+
+def ddp_stage2_rank(mesh, cfg, stages: dict, params, dataset_kw, mesh_path: str, tex_res: int,
+                    seed: int, steps: int, prologue: int) -> dict:
+    """A rank of ``ddp_stage2``: the CESR runner's bake (checked bit-equal
+    across the ranks by ``bake_grid``), shared by the four runners; Vis's
+    energy prologue (``prologue`` steps); then ``steps`` steps of CESR,
+    Vis, PBR and Norm, the counts set to 0 before each and read after, the
+    replicas checked bit-equal after each. Rank 0 alone returns the first
+    step's gradients and the parameters after the steps."""
+    dataset = shadow_scene(**dataset_kw)
+    runners = stage2_runners(cfg, stages, params, dataset, seed, mesh,
+                             tpipe.TexSampler(mesh_path, tex_res))
+    reset_counts()
+    t0 = time.perf_counter()
+    runners["cesr"].bake_grid()
+    torch.cuda.synchronize()
+    out = {"bake": {"run": shapes(), "s": time.perf_counter() - t0,
+                    "checksum": dp.bit_checksum(runners["cesr"].grid_values)}}
+    _progress(mesh, "the grid baked")
+    for r in runners.values():
+        r.grid_values = runners["cesr"].grid_values
+    runners["vis"].fit_energy_prologue(prologue)
+    out["energy"] = to_numpy(runners["vis"].params["gamma"]["energy"])
+    for name, r in runners.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        res = _stage2_steps(r, steps)
+        out[name] = {"run": shapes(), "checksums": _checksums(r.params), **res}
+        if mesh.rank:
+            del out[name]["grads"], out[name]["params"]
+        _progress(mesh, f"{steps} {name} steps done")
+        dp.check_replicas(mesh, f"the {name} parameters", r.params.parameters())
+    out["check"] = {}
+    for name, r in check_runners(cfg, stages, params, dataset, seed, mesh,
+                                 runners["cesr"].grid_values).items():
+        r.run(1)
+        out["check"][name] = _grads(r.params)
+    _progress(mesh, "the gradient check's steps done")
+    if mesh.rank:
+        del out["check"]
+    return out
+
+
+def rank_ddp(mesh, stage1: dict, stage2: dict) -> dict:
+    """One rank of the data-parallel phases on the card: ``ddp_stage1``,
+    then ``ddp_stage2``."""
+    _rank_setup(mesh)
+    return {"stage1": ddp_stage1_rank(mesh, **stage1), "stage2": ddp_stage2_rank(mesh, **stage2)}
+
+
+def _per_step(run: dict, steps: int) -> dict:
+    """Launches a step by kernel (all shapes) of a rank's run."""
+    return {k: sum(v.values()) / steps for k, v in run.items() if v}
+
+
+def _sum_runs(runs: list) -> dict:
+    """The ranks' launches by kernel and shape, summed."""
+    total = {k: {} for k in KERNELS}
+    for run in runs:
+        for k, by in run.items():
+            for shape, n in by.items():
+                total[k][shape] = total[k].get(shape, 0) + n
+    return total
+
+
+def _worst_grad(got: dict, want: dict) -> tuple[str, float]:
+    """The leaf whose gradient in ``got`` is furthest from ``want``'s, as a
+    share of ``want``'s largest entry; raises if the leaves differ."""
+    if got.keys() != want.keys():
+        raise RuntimeError(f"gradients of {sorted(got.keys() ^ want.keys())} on one side only")
+    errs = {k: float(np.abs(g - want[k]).max()) / max(float(np.abs(want[k]).max()), 1e-30)
+            for k, g in got.items()}
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
+def _params_agree(got: dict, want: dict) -> tuple[float, float]:
+    """The largest difference between two flat parameter sets, and the
+    share of entries within PARAM_AGREE_ATOL."""
+    diffs = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
+    return float(diffs.max()), float(np.mean(diffs <= PARAM_AGREE_ATOL))
+
+
+def _worst_metric(got: list, want: list) -> tuple[float, str]:
+    """The worst relative difference (METRIC_FLOOR beside) between two
+    runs' metrics, step by step, and where it was."""
+    worst, where = 0.0, ""
+    for step, (g, w) in enumerate(zip(got, want), 1):
+        for k, v in w.items():
+            err = abs(g[k] - v) - METRIC_FLOOR
+            err = err / abs(v) if v else (math.inf if err > 0 else 0.0)
+            if err > worst:
+                worst, where = err, f"step {step} {k}"
+    return max(worst, 0.0), where
+
+
+def drive_ddp(model_cfg, render_cfg, train_cfg, dataset_cfg, cfg, stages: dict, params,
+              seed: int, mesh_path: str, tex_res: int, tex_sampler, grid, plans1, plans2, gen):
+    """The data-parallel phases: DDP_RANKS gloo ranks sharing the one card
+    (nccl refuses two ranks on one device), spawned once.
+
+    ``ddp_stage1``: configs/neus_blender.json widths, a global batch of
+    512 (256 a rank), DDP_STAGE1_STEPS steps of ``NeusTrainer(mesh=)``;
+    each rank must launch exactly 4 K1 + 1 K3 + 1 K4 a step; the replicas
+    bit-equal; one step's summed gradients within GRAD_TOL (of each
+    tensor's largest entry) of the one-process step's on the card on the
+    same global batch and jitter (the colour net in fp32 there), its loss
+    within LOSS_RTOL.
+
+    ``ddp_stage2``: configs/hotdog.json's sections (CESR at 1,024 global
+    pixels, Vis 256 x 512, PBR 1,024, Norm 1,024) on the trained NeuS and
+    the grid each rank bakes (bit-equal across the ranks and to
+    ``grid``, the one process's bake), DDP_STAGE2_STEPS steps each; the
+    replicas bit-equal; against the one-process runners on the same
+    batches and draws (Vis on rank 0's energy net): every step's metrics
+    within LOSS_RTOL and the weights after the steps as PARAM_AGREE_*
+    says, CESR from its last warmup step but one, so that its rgb, latent
+    KL and smoothness terms run over the ranks; and one step of
+    ``check_runners`` (fp32 storage, CESR past its warmup; Norm's own first
+    step) whose summed gradients are within DDP_GRAD_TOL of each tensor's
+    largest entry of the one process's. Then the dry run at one rank on the card, which must take
+    nccl (the one-rank-a-GPU layout; its kernel launches count on no
+    path). Returns the paths' launches by shape (the ranks' summed)
+    and their kernels-line entries, each launched shape held to its plain
+    version."""
+    n1 = train_cfg.batch_size
+    scene_kw = dict(h=64, w=64, seed=seed, cfg=dataset_cfg)
+    # the check's colour net in fp32, as check_step_against_cpu's: its bf16
+    # storage rounds GEMM outputs whose sums cuBLAS orders by the rows
+    check_cfg = dataclasses.replace(model_cfg, color=dataclasses.replace(
+        model_cfg.color, storage_dtype=None))
+    check_params = seeded_neus(check_cfg, seed)
+    batch = tuple(np.asarray(x) for x in make_sphere_scene("train", **scene_kw).sample(
+        np.random.default_rng(seed + 1), n1))
+    t_rand = torch.rand((n1, 1), generator=torch.Generator().manual_seed(seed + 1)).numpy()
+    check = (check_params, check_cfg, render_cfg, train_cfg, batch, t_rand)
+    dataset_kw = dict(n_train=20, h=128, w=128, seed=seed)
+    t0 = time.perf_counter()
+    ranks = dp.spawn_ranks(
+        rank_ddp, DDP_RANKS,
+        dict(model_cfg=model_cfg, render_cfg=render_cfg, train_cfg=train_cfg, scene_kw=scene_kw,
+             seed=seed, steps=DDP_STAGE1_STEPS, check=check),
+        dict(cfg=cfg, stages=stages, params=params, dataset_kw=dataset_kw, mesh_path=mesh_path,
+             tex_res=tex_res, seed=seed, steps=DDP_STAGE2_STEPS, prologue=DDP_VIS_PROLOGUE),
+        device="cuda", timeout_s=DDP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    s1 = [r["stage1"] for r in ranks]
+    s2 = [r["stage2"] for r in ranks]
+
+    # ddp_stage1
+    print(f"ddp_stage1: {DDP_RANKS} ranks, backend {s1[0]['backend']} on {s1[0]['device']} "
+          f"(shared: nccl takes one rank a device); spawn and both phases {spawn_s:.1f} s wall",
+          flush=True)
+    want = {"K1": render_cfg.up_sample_steps, "K3": 1, "K4": 1}
+    for r, res in enumerate(s1):
+        per = _per_step(res["run"], DDP_STAGE1_STEPS)
+        print(f"  rank {r}: launches a step {per}; steps 3-{DDP_STAGE1_STEPS} median "
+              f"{float(np.median(res['ms'][2:])):.3f} ms (CUDA events around run(1)); first "
+              f"{res['ms'][0]:.3f} ms; loss {res['metrics'][0]['loss']:.5f} -> "
+              f"{res['metrics'][-1]['loss']:.5f}; throughput {res['rays_per_s']:.0f} rays/s "
+              f"(global batch {n1}); one gradient all-reduce alone {res['all_reduce_ms']:.3f} ms",
+              flush=True)
+        if per != want:
+            raise RuntimeError(f"ddp_stage1 rank {r}: launches a step {per}, expected {want}")
+    if any(res["checksums"] != s1[0]["checksums"] for res in s1):
+        raise RuntimeError("ddp_stage1: the replicas differ")
+    one_m, one_g = step_grads(None, *check)
+    worst = {}
+    for r, res in enumerate(s1):
+        m, g = res["check"]
+        if not abs(m["loss"] - one_m["loss"]) <= LOSS_RTOL * abs(one_m["loss"]):
+            raise RuntimeError(f"ddp_stage1 rank {r}: loss {m['loss']} vs {one_m['loss']}")
+        for k, ref in one_g.items():
+            rel = float(np.abs(g[k] - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+            worst[k] = max(worst.get(k, 0.0), rel)
+    name = max(worst, key=worst.get)
+    print(f"ddp_stage1: replicas bit-equal ({len(s1[0]['checksums'])} leaves); the {DDP_RANKS}-"
+          f"rank step vs the one-process step on the card (global batch {n1}, one jitter): loss "
+          f"{s1[0]['check'][0]['loss']:.8f} vs {one_m['loss']:.8f}; worst gradient {name} "
+          f"{worst[name]:.3e} of its largest entry (limit {GRAD_TOL})", flush=True)
+    if not worst[name] <= GRAD_TOL:
+        raise RuntimeError(f"ddp_stage1: gradient {name} {worst[name]:.3e} > {GRAD_TOL}")
+    run1 = _sum_runs([res["run"] for res in s1])
+
+    # ddp_stage2
+    bake = [res["bake"] for res in s2]
+    if any(b["checksum"] != dp.bit_checksum(grid) for b in bake):
+        raise RuntimeError("ddp_stage2: a rank's grid differs from the one process's bake")
+    print(f"ddp_stage2: each rank baked the grid ({cfg.grid.resolution}^3, "
+          f"{_per_step(bake[0]['run'], 1)} launches, {bake[0]['s']:.2f} s), bit-equal across "
+          f"the ranks and to the one process's bake", flush=True)
+    one = stage2_runners(cfg, stages, params, shadow_scene(**dataset_kw), seed, None,
+                         tex_sampler)
+    for r in one.values():
+        r.grid_values = grid
+    # the ranks' generators passed through the prologue's draws: so does
+    # this one's; the fit itself is rank 0's
+    one["vis"].fit_energy_prologue(DDP_VIS_PROLOGUE)
+    with torch.no_grad():
+        for path, p in flatten_with_paths(one["vis"].params["gamma"]["energy"]).items():
+            p.copy_(torch.as_tensor(flatten_with_paths(s2[0]["energy"])[path]))
+    one_check = {}
+    for name, r in check_runners(cfg, stages, params, one["vis"].dataset, seed, None,
+                                 grid).items():
+        r.run(1)
+        one_check[name] = _grads(r.params)
+    failed = []
+    for name in ("cesr", "vis", "pbr", "norm"):
+        res = [r[name] for r in s2]
+        if any(x["checksums"] != res[0]["checksums"] for x in res):
+            raise RuntimeError(f"ddp_stage2 {name}: the replicas differ")
+        ref = _stage2_steps(one[name], DDP_STAGE2_STEPS)
+        worst, where = max(_worst_metric(x["metrics"], ref["metrics"]) for x in res)
+        grad_name, grad_err = _worst_grad(res[0]["grads"], ref["grads"])
+        # the gradient check's run: Norm's own (nothing on its path stores
+        # bf16), the others' in ``check_runners``
+        if name == "norm":
+            check_name, check_err = grad_name, grad_err
+        else:
+            check_name, check_err = _worst_grad(s2[0]["check"][name], one_check[name])
+        moved, within = _params_agree(res[0]["params"], ref["params"])
+        lr = stages[name].opt.lr
+        for r, x in enumerate(res):
+            print(f"  {name} rank {r}: launches a step {_per_step(x['run'], DDP_STAGE2_STEPS)} "
+                  f"(by shape {launched(x['run'])}); steps "
+                  + ", ".join(f"{t:.3f}" for t in x["ms"]) + " ms; loss "
+                  + ", ".join(f"{m.get('loss', m.get('radiance_loss')):.5f}"
+                              for m in x["metrics"]), flush=True)
+        print(f"  {name}: replicas bit-equal ({len(res[0]['checksums'])} leaves); against the "
+              f"one process: every step's metrics within {worst:.2e} (relative, worst {where}; "
+              f"limit {LOSS_RTOL}); the weights after {DDP_STAGE2_STEPS} steps within "
+              f"{moved:.3e} (limit 2 x lr x steps = {2 * lr * DDP_STAGE2_STEPS:.1e}), "
+              f"{within:.5f} of the entries within {PARAM_AGREE_ATOL} (limit "
+              f"{PARAM_AGREE_FRAC}); step 1's summed gradients within {grad_err:.3e} of the "
+              f"largest entry (worst {grad_name}) at hotdog.json's storage, "
+              f"{check_err:.3e} (worst {check_name}; limit {DDP_GRAD_TOL}) in the check's run",
+              flush=True)
+        if not worst <= LOSS_RTOL:
+            failed.append(f"{name}: {where} {worst:.3e} from the one process's > {LOSS_RTOL}")
+        if not check_err <= DDP_GRAD_TOL:
+            failed.append(f"{name}: step 1's gradient {check_name} {check_err:.3e} > "
+                          f"{DDP_GRAD_TOL}")
+        if not (moved <= 2 * lr * DDP_STAGE2_STEPS and within >= PARAM_AGREE_FRAC):
+            failed.append(f"{name}: the weights after {DDP_STAGE2_STEPS} steps differ from the "
+                          f"one process's: max {moved}, {within} within {PARAM_AGREE_ATOL}")
+    if failed:
+        raise RuntimeError("ddp_stage2 against the one process: " + "; ".join(failed))
+    if any(n for by in _sum_runs([r["norm"]["run"] for r in s2]).values() for n in by.values()):
+        raise RuntimeError("ddp_stage2: the Norm steps launched a kernel")
+    run2 = _sum_runs([r[k]["run"] for r in s2 for k in ("cesr", "vis", "pbr", "norm")]
+                     + [b["run"] for b in bake])
+    # the one-rank-a-GPU layout, which this machine holds at a world of one
+    one_rank = dryrun_multichip.dryrun(1, "cuda")
+    print(f"the dry run at one rank on the card: backend {one_rank['backend']} on "
+          f"{one_rank['device']}, loss {one_rank['metrics']['loss']:.6f}", flush=True)
+    if one_rank["backend"] != "nccl":
+        raise RuntimeError(f"one rank on its own GPU took {one_rank['backend']}, not nccl")
+    entries = hold_path_kernels("ddp_stage1", run1, plans1, None, frozen=False, gen=gen)
+    entries.update(hold_path_kernels("ddp_stage2", launched(run2), plans2,
+                                     (grid, cfg.grid, one["vis"].dataset), frozen=True, gen=gen))
+    return {"ddp_stage1": run1, "ddp_stage2": run2}, entries
+
+
+def drive_sampling_bf16(model_cfg, render_cfg, train_cfg, scene, steps: int, seed: int, plans1,
+                        gen):
+    """``sampling_bf16``: stage 1 with ``sampling_dtype="bfloat16"`` for
+    ``steps`` steps (the counts set to 0 just before: 0 K1, 1 K3 and 1 K4 a
+    step); the sampling phase's bf16 query (one bf16 GEMM a layer) on
+    seeded weights held to the CPU's bf16 route and to the fp32 trunk (K1)
+    as BF16_*_ULPS say (in bf16 roundoffs of the largest |sdf|; it must
+    differ from K1 by bf16's rounding), and timed against K1 at the first
+    query's rows; ``throughput`` of both settings."""
+    bf16 = dataclasses.replace(render_cfg, sampling_dtype="bfloat16")
+    trainer = NeusTrainer(scene, model_cfg, bf16, train_cfg, seed=seed, device="cuda")
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, metrics = _timed_run(trainer, steps)
+        run = shapes()
+        rays_s = trainer.throughput(n_steps=5, warmup=2, reps=3)
+    finally:
+        trainer.close()
+    per, want = _per_step(run, steps), {"K3": 1, "K4": 1}
+    if per != want:
+        raise RuntimeError(f"sampling_bf16: launches a step {per}, expected {want}")
+    fp32 = NeusTrainer(scene, model_cfg, render_cfg, train_cfg, seed=seed, device="cuda")
+    try:
+        rays_s32 = fp32.throughput(n_steps=5, warmup=2, reps=3)
+    finally:
+        fp32.close()
+    rows = train_cfg.batch_size * render_cfg.n_samples
+    params = seeded_neus(model_cfg, seed)
+    x = torch.rand(rows, 3, generator=gen, device="cuda") * 2.4 - 1.2
+    model, cpu = NeuS(params, model_cfg, "cuda"), NeuS(params, model_cfg, "cpu")
+    with torch.no_grad():
+        got = model.sdf(x, torch.bfloat16)
+        want_bf = cpu.sdf(x.cpu(), torch.bfloat16).cuda()
+        k1 = model.sdf(x)
+        scale = float(k1.abs().max())
+        err = float((got - want_bf).abs().max())
+        gap = float((got - k1).abs().max())
+        bf_ms = cuda_ms(lambda: model.sdf(x, torch.bfloat16), 10)
+        k1_ms_ = cuda_ms(lambda: model.sdf(x), 10)
+    print(f"sampling_bf16: {steps} steps, launches a step {per} (no K1: the sampling phase's "
+          f"4 queries run one torch.mm(bf16, bf16, out_dtype=float32) a layer); steps 3-{steps} "
+          f"median {float(np.median(ms[2:])):.3f} ms; loss {metrics[0]['loss']:.5f} -> "
+          f"{metrics[-1]['loss']:.5f}; throughput {rays_s:.0f} rays/s, fp32 sampling (K1) "
+          f"{rays_s32:.0f} rays/s", flush=True)
+    ulp = scale / 256
+    print(f"sampling_bf16 query at {rows} rows (the first query of a step), in bf16 roundoffs "
+          f"of the largest |sdf| (2^-8 x {scale:.3f} = {ulp:.3e}): card vs CPU bf16 route max "
+          f"{err:.3e} = {err / ulp:.3f} (limit {BF16_CPU_ULPS}), vs the fp32 trunk (K1) "
+          f"{gap:.3e} = {gap / ulp:.3f} (limits {BF16_MIN_GAP_ULPS} to {BF16_ULPS}); "
+          f"{bf_ms:.3f} ms (bf16 GEMMs), K1 {k1_ms_:.3f} ms", flush=True)
+    if not (err <= BF16_CPU_ULPS * ulp and BF16_MIN_GAP_ULPS * ulp <= gap <= BF16_ULPS * ulp):
+        raise RuntimeError(f"sampling_bf16: the card's bf16 query is {err / ulp:.3f} roundoffs "
+                           f"from the CPU's, {gap / ulp:.3f} from the fp32 trunk")
+    return run, hold_path_kernels("sampling_bf16", launched(run), plans1, None, frozen=False,
+                                  gen=gen)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -3737,6 +4262,24 @@ def main() -> None:
             dataset, stage_cfg, plan1, gen)
         entries.update(alt_entries)
         cli_runs.update(alt_runs)
+
+        # data parallelism over two ranks on the card, and bf16 sampling
+        t0 = time.perf_counter()
+        ddp_stages = {"cesr": build_stage_config(CESRStageConfig, raw["cesr"]),
+                      "vis": vis_stage, "pbr": pbr_stage, "norm": norm_stage}
+        ddp_runs, ddp_entries = drive_ddp(
+            model_cfg, render_cfg, train_cfg, dataset_cfg, cesr_cfg, ddp_stages, params,
+            args.seed, mesh_path, texture_resolution(raw), tex, runner.grid_values, plan1,
+            plan2, gen)
+        entries.update(ddp_entries)
+        cli_runs.update(ddp_runs)
+        bf16_run, bf16_entries = drive_sampling_bf16(model_cfg, render_cfg, train_cfg,
+                                                     train_scene, args.steps, args.seed, plan1,
+                                                     gen)
+        entries.update(bf16_entries)
+        cli_runs["sampling_bf16"] = bf16_run
+        print(f"ddp_stage1, ddp_stage2 and sampling_bf16: {time.perf_counter() - t0:.1f} s wall",
+              flush=True)
 
     # each entry counts its kernel's launches on its path, at its shape (or
     # at every shape: stage 1's entries, timed at the path's largest rows;

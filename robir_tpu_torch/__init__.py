@@ -12,7 +12,9 @@ the import of reference checkpoints, from the command line as the JAX
 package does (``python -m robir_tpu_torch.cli``, ``cli.py``) on scenes
 read from disk; it reads and writes the JAX package's checkpoints, and
 ``tools/shadow_pipeline.py`` scores the whole chain on the procedural
-shadow scene. Its dense trunks (the SDF trunk, the CESR normal net) and
+shadow scene. ``core/mesh.py`` spreads one scene's stage-1 and stage-2
+steps over several GPUs, one process a rank under ``torch.distributed``
+(``mesh=``). Its dense trunks (the SDF trunk, the CESR normal net) and
 the grid tracer's march run through hand-written CUDA kernels for Hopper
 (``csrc/``, built with ``nvcc`` at first use), whose plain PyTorch
 versions serve CPU tensors only.

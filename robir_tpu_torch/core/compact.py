@@ -18,10 +18,21 @@ from typing import Callable, Sequence
 import torch
 
 
-def effective_chunk(n: int, chunk: int) -> int:
-    """The chunk to compact a batch of ``n`` rows at, or 0 to run it dense
-    (one device): compaction pays only when ``n > chunk``."""
-    return chunk if 0 < chunk < n else 0
+def effective_chunk(n: int, chunk: int, shards: int = 1) -> int:
+    """The chunk to compact a rank's ``n`` rows at, or 0 to run them dense:
+    the JAX package's gate per shard (``robir_tpu/core/compact.py:94-117``,
+    with ``n`` its rows a shard). Compaction pays only when ``n > chunk``;
+    over several ``shards`` (ranks), where the chunk was sized for a
+    whole batch, it lowers to half the rank's rows from 64 rows up rather
+    than fall back to dense. Compaction itself stays local: no rank waits
+    for another's rows."""
+    if chunk <= 0 or n <= 0:
+        return 0
+    if n > chunk:
+        return chunk
+    if shards > 1 and n >= 64:
+        return max(32, n // 2)
+    return 0
 
 
 def compact_apply(fn: Callable, need: torch.Tensor, inputs: Sequence[torch.Tensor]):

@@ -195,8 +195,7 @@ def build_stage_config(dc_type, d: dict | None, **overrides):
     """A stage config (``NormStageConfig``, ``VisStageConfig``,
     ``PBRStageConfig``, ``CESRStageConfig``) from its section, with the
     nested ``opt`` and ``loss`` sections built from plain dicts (the Vis stage's loss is an
-    ``IllumLossConfig``). Unknown keys raise KeyError; ``VisStageConfig``
-    refuses ``shard_fan: true``."""
+    ``IllumLossConfig``). Unknown keys raise KeyError."""
     d = {**(d or {}), **overrides}
     if isinstance(d.get("opt"), dict):
         d["opt"] = _build(StageOptConfig, d["opt"])

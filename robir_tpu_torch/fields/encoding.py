@@ -2,8 +2,10 @@
 
 Feature layout is [x, sin(f0 x), cos(f0 x), sin(f1 x), ...] with
 per-frequency 3-vectors interleaved sin-then-cos and log-spaced frequencies
-2^0..2^(L-1), the JAX package's order. ``integrated_pos_enc`` is the
-mip-NeRF encoding of a diagonal Gaussian (the stage-2 normal head's input).
+2^0..2^(L-1), the JAX package's order; ``alpha`` eases the bands in one
+at a time under ``cosine_easing_window`` (the nerfies schedule).
+``integrated_pos_enc`` is the mip-NeRF encoding of a diagonal Gaussian (the
+stage-2 normal head's input).
 """
 
 from __future__ import annotations
@@ -34,14 +36,30 @@ def pe_freq_bands(cfg: PEConfig) -> np.ndarray:
     return np.linspace(2.0 ** 0.0, 2.0 ** max_freq, cfg.num_freqs)
 
 
-def positional_encoding(x: torch.Tensor, cfg: PEConfig) -> torch.Tensor:
+def cosine_easing_window(num_bands: int, alpha) -> torch.Tensor:
+    """The weight of each of ``num_bands`` frequency bands at window
+    position ``alpha`` (0 .. num_bands): 0.5 (1 + cos(pi clip(alpha - i, 0,
+    1) + pi)) for band i, so the bands ease in one at a time
+    (``PE.cosine_easing_window``; ``robir_tpu/fields/encoding.py:69-74``)."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32)
+    bands = torch.linspace(0.0, num_bands - 1.0, num_bands, device=alpha.device)
+    x = torch.clamp(alpha - bands, 0.0, 1.0)
+    return 0.5 * (1 + torch.cos(np.pi * x + np.pi))
+
+
+def positional_encoding(x: torch.Tensor, cfg: PEConfig, alpha=None) -> torch.Tensor:
     """NeRF positional encoding over the last axis, shape-polymorphic over
-    the leading ones."""
+    the leading ones. ``alpha`` (a window position, 0 .. num_freqs) scales
+    each band's (sin, cos) pair by ``cosine_easing_window``."""
     feats = [x] if cfg.include_input else []
-    for f in pe_freq_bands(cfg):
+    window = None if alpha is None else cosine_easing_window(cfg.num_freqs, alpha).to(x.device)
+    for i, f in enumerate(pe_freq_bands(cfg)):
         xf = x * float(np.float32(f))
-        feats.append(torch.sin(xf))
-        feats.append(torch.cos(xf))
+        s, c = torch.sin(xf), torch.cos(xf)
+        if window is not None:
+            s, c = s * window[i], c * window[i]
+        feats.append(s)
+        feats.append(c)
     return torch.cat(feats, dim=-1)
 
 

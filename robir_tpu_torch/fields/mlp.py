@@ -61,20 +61,40 @@ def _store(dtype) -> torch.dtype | None:
 
 
 def apply_linear(params: Params, x: torch.Tensor,
-                 storage_dtype=None) -> torch.Tensor:
+                 storage_dtype=None, compute_dtype=None) -> torch.Tensor:
     """``x @ w + b``. With ``storage_dtype="bfloat16"`` the operands are
     rounded to bf16 and the output is returned in bf16, as the JAX package's
-    storage path does (the colour net in ``configs/neus_blender.json``)."""
-    return apply_linear_parts(params, [x], storage_dtype)
+    storage path does (the colour net in ``configs/neus_blender.json``).
+    With ``compute_dtype`` (bf16) the operands are rounded to it and the
+    product summed and returned in fp32 (``low_precision_mm``)."""
+    return apply_linear_parts(params, [x], storage_dtype, compute_dtype=compute_dtype)
+
+
+def low_precision_mm(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``a @ b`` on operands rounded to ``dtype``, summed in fp32, fp32 out
+    (JAX's ``dot_general(preferred_element_type=float32)``). On the card
+    one GEMM on ``dtype`` operands (``torch.mm(..., out_dtype=float32)``);
+    on the CPU, where torch has no such product, the rounded operands are
+    multiplied in fp32."""
+    a2, b2 = a.reshape(-1, a.shape[-1]).to(dtype), b.to(dtype)
+    if a.is_cuda:
+        y = torch.mm(a2, b2, out_dtype=torch.float32)
+    else:
+        y = a2.to(torch.float32) @ b2.to(torch.float32)
+    return y.reshape(a.shape[:-1] + (b.shape[-1],))
 
 
 def apply_linear_parts(params: Params, parts: list[torch.Tensor],
                        storage_dtype=None,
-                       pre_scale: float | None = None) -> torch.Tensor:
+                       pre_scale: float | None = None,
+                       compute_dtype=None) -> torch.Tensor:
     """``apply_linear(params, concat(parts, -1) * pre_scale)`` as a sum of
     partial products over the weight's row blocks (equal up to fp32
-    reassociation over the contracted dim)."""
+    reassociation over the contracted dim). ``storage_dtype`` and
+    ``compute_dtype`` as for ``apply_linear``; storage wins where both are
+    given, as in the JAX package."""
     store = _store(storage_dtype)
+    compute = None if store is not None else _store(compute_dtype)
     w = effective_weight(params)
     b = params["b"]
     off = 0
@@ -87,6 +107,8 @@ def apply_linear_parts(params: Params, parts: list[torch.Tensor],
             p = p * pre_scale
         if store is not None:
             t = p.to(store) @ wp.to(store)
+        elif compute is not None:
+            t = low_precision_mm(p, wp, compute)
         else:
             t = p @ wp
         y = t if y is None else y + t

@@ -75,10 +75,12 @@ class NeuS(nn.Module):
         self.cfg = cfg
         self.params = from_jax(params, resolve_device(device))
 
-    def sdf(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, 3] -> [N, 1]: the sdf column of the full trunk output."""
+    def sdf(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        """[N, 3] -> [N, 1]: the sdf column of the full trunk output (K1),
+        or with ``compute_dtype`` of the trunk layer by layer on operands
+        of that type with fp32 sums (``sdf_apply``)."""
         return sdf_apply(self.params["sdf_network"], self.cfg.sdf, x,
-                         out_cols=1)
+                         out_cols=1, compute_dtype=compute_dtype)
 
     def full_with_grad(self, x: torch.Tensor):
         """(sdf+features, sdf spatial gradient) sharing one forward."""
@@ -125,7 +127,9 @@ class HashNeuS(NeuS):
     def _full(self, x: torch.Tensor) -> torch.Tensor:
         return hash_sdf_apply(self.params["sdf_network"], self.cfg.hash_sdf, x)
 
-    def sdf(self, x: torch.Tensor) -> torch.Tensor:
+    def sdf(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+        """The sdf column; ``compute_dtype`` changes nothing here (the hash
+        encoding is gathers, as in the JAX package)."""
         return self._full(x)[..., :1]
 
     def full_with_grad(self, x: torch.Tensor):

@@ -5,15 +5,23 @@ PE-encoded input, 8x256 trunk with a concat-skip at layer 4 (divided by
 sqrt(2)), SAL geometric initialization (sphere of radius ``bias``),
 softplus(beta=100) activations, output = [sdf / scale, geometry feature].
 
-In the port the trunk always goes through the two fused ops of
-``render/cuda``: ``fused_mlp`` (K1, with its recompute backward K2) for
-the value and ``fused_value_grad`` (K3, with its hand VJP K4) for value +
-spatial gradient. They launch the
-CUDA kernels for CUDA tensors and run their plain versions for CPU tensors.
-So ``fused_kernel``, ``fused_block_rows``, ``grad_mode`` and
-``storage_dtype`` stay accepted keys (configs load unchanged) but select
-nothing: the SDF's ``storage_dtype`` has no effect on this path, exactly as
-in the JAX package's fused path.
+In the port the trunk goes through the two fused ops of ``render/cuda``:
+``fused_mlp`` (K1, with its recompute backward K2) for the value and
+``fused_value_grad`` (K3, with its hand VJP K4) for value + spatial
+gradient, in fp32. They launch the CUDA kernels for CUDA tensors and run
+their plain versions for CPU tensors. So ``fused_kernel``,
+``fused_block_rows``, ``grad_mode`` and ``storage_dtype`` stay accepted
+keys (configs load unchanged) but select nothing. That is a difference
+from the JAX package, whose default path (``fused_kernel=False``) runs the
+trunk layer by layer and, at every shipped config's ``storage_dtype:
+"bfloat16"``, stores each layer's activations in bf16; only its fused path
+(``fused_kernel=True``) is fp32 as the port is (ROADMAP C).
+
+``sdf_apply(compute_dtype=bf16)`` is the sampling phase's low-precision
+path (``NeusRenderConfig.sampling_dtype``): the trunk layer by layer on
+bf16 operands with fp32 sums and fp32 activations, as the JAX package's
+``compute_dtype`` path without storage (its Pallas kernel is skipped
+there too): one bf16 GEMM a layer on the card, no K1.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from ..render.cuda.fused_mlp import (fold_weight_norm, fused_mlp, pack_weights,
 from ..render.cuda.fused_value_grad import fused_value_grad
 from .encoding import (PEConfig, positional_encoding,
                        positional_encoding_vjp)
-from .mlp import Params, init_linear
+from .mlp import (Params, apply_linear, apply_linear_parts, effective_weight, init_linear,
+                  softplus_beta)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,17 +148,45 @@ def _encode(cfg: SDFConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def sdf_apply(params: Params, cfg: SDFConfig, x: torch.Tensor,
-              out_cols: int | None = None) -> torch.Tensor:
+              out_cols: int | None = None, compute_dtype=None) -> torch.Tensor:
     """[N, 3] -> [N, d_out] = [sdf, features] through K1 (and K2 in the
     backward, when the weights or x need a gradient). All columns are
-    computed and then sliced to ``out_cols``, as the JAX fused path does."""
+    computed and then sliced to ``out_cols``, as the JAX fused path does.
+    With ``compute_dtype`` (bf16): ``_layers_apply``, no kernel."""
     if x.dim() != 2:
         raise ValueError(f"sdf_apply takes [N, {cfg.d_in}] points, got {tuple(x.shape)}")
+    if compute_dtype is not None:
+        return _layers_apply(params, cfg, x, compute_dtype, out_cols)
     plan = plan_from_sdf_config(cfg)
     ws, bs = fold_weight_norm(params, plan.n_layers)
     h = fused_mlp(plan, _encode(cfg, x), ws, bs)
     out = torch.cat([h[..., :1] / cfg.scale, h[..., 1:]], dim=-1)
     return out[..., :out_cols] if out_cols is not None else out
+
+
+def _layers_apply(params: Params, cfg: SDFConfig, x: torch.Tensor, compute_dtype,
+                  out_cols: int | None) -> torch.Tensor:
+    """The trunk layer by layer (the JAX package's ``sdf_apply`` without
+    its kernel, robir_tpu/fields/sdf.py:183-210), each product on
+    ``compute_dtype`` operands summed in fp32 (``low_precision_mm``), the
+    skip layer's two parts scaled by 1/sqrt(2) before the rounding, the
+    activations fp32. ``out_cols`` keeps that many output columns of the
+    last layer (exact: the weight-norm fold is per column)."""
+    inputs = _encode(cfg, x)
+    h = inputs
+    num_layers = len(cfg.dims)
+    for layer in range(num_layers - 1):
+        lin = params[f"lin{layer}"]
+        if out_cols is not None and layer == num_layers - 2:
+            lin = {"w": effective_weight(lin)[:, :out_cols], "b": lin["b"][:out_cols]}
+        if layer in cfg.skip_in:
+            h = apply_linear_parts(lin, [h, inputs], pre_scale=float(1.0 / np.sqrt(2)),
+                                   compute_dtype=compute_dtype)
+        else:
+            h = apply_linear(lin, h, compute_dtype=compute_dtype)
+        if layer < num_layers - 2:
+            h = softplus_beta(h, 100.0)
+    return torch.cat([h[..., :1] / cfg.scale, h[..., 1:]], dim=-1)
 
 
 def frozen_sdf(params: Params, cfg: SDFConfig, out_cols: int | None = None):

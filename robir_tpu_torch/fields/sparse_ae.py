@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..core.mesh import DataMesh, batch_mean
 from .mlp import Params, apply_linear, init_linear
 
 
@@ -104,3 +105,15 @@ def sparse_ae_apply(params: Params, cfg: SparseAEConfig, x: torch.Tensor,
         out = torch.sigmoid(out)
         out_xi = torch.sigmoid(out_xi)
     return out, out_xi
+
+
+def ae_kl_divergence(raw_latent: torch.Tensor, rho: float = 0.05,
+                     mesh: Optional[DataMesh] = None) -> torch.Tensor:
+    """KL sparsity of sigmoid(latent)'s batch means against ``rho``
+    (sg_envmap_material.py:101-105). Under a ``mesh`` the batch mean is over
+    every rank's rows (``batch_mean``) and the KL is divided by the world
+    size, so the ranks' terms and gradients add up to the global ones."""
+    rho_hat = batch_mean(mesh, torch.sigmoid(raw_latent))
+    world = 1 if mesh is None else mesh.world
+    return torch.mean(rho * torch.log(rho / (rho_hat + 1e-4))
+                      + (1 - rho) * torch.log((1 - rho) / (1 - rho_hat + 1e-4))) / world

@@ -282,7 +282,7 @@ def render_mip(draws: Optional[Draws], rays: Rays, model_fn: MipModelFn,
     t_vals = weights = None
     for level in range(cfg.n_levels):
         u = (None if is_eval
-             else draws.uniform(f"mip_u{level}", (batch, cfg.num_samples + 1)))
+             else draws.uniform(f"mip_u{level}", (batch, cfg.num_samples + 1), rows=True))
         if level == 0:
             t_vals, (means, covs) = sample_along_rays(
                 u, rays.origins, rays.directions, rays.radii, cfg.num_samples,

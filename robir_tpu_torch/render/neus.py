@@ -2,7 +2,10 @@
 alpha compositing (counterpart of ``robir_tpu/render/neus.py``).
 
 The sampling phase (``sample_z_vals``) runs under ``torch.no_grad`` (the
-JAX package wraps it in ``stop_gradient``) and queries the SDF through K1;
+JAX package wraps it in ``stop_gradient``) and queries the SDF through K1,
+or with ``sampling_dtype="bfloat16"`` layer by layer on bf16 operands with
+fp32 sums (``fields/sdf.py:sdf_apply``'s ``compute_dtype``: a bf16 GEMM on
+the card, no K1);
 ``render_samples`` shades those samples, and its ``render_core`` queries
 value + spatial gradient through K3, whose backward is K4. With
 ``n_outside`` > 0 the NeRF++ background shell (``render_core_outside``, a
@@ -11,7 +14,9 @@ unit sphere and ``n_outside`` more beyond it (``outside_z_vals``).
 Noise (``t_rand`` for the stratified jitter, ``t_rand_outside`` for the
 shell's, ``u`` for stochastic inverse-CDF draws) can be handed in as
 tensors, so a test can feed both packages the same numbers; when absent
-it is drawn from a ``torch.Generator``.
+it is drawn from a ``torch.Generator``. Under data parallelism (a ``mesh``,
+``core/mesh.py``) the eikonal term's mean over the samples inside the
+relaxed sphere is this rank's sum over the global count.
 """
 
 from __future__ import annotations
@@ -21,7 +26,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core.mesh import DataMesh, global_sum
 from ..fields.neus_model import NeuS
+
+SAMPLING_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
 class Rays(NamedTuple):
@@ -42,14 +50,14 @@ class NeusRenderConfig:
     up_sample_steps: int = 4
     white_bkgd: bool = True
     perturb: float = 1.0
-    # the JAX package's low-precision sampling-phase option; the port's
-    # sampling phase always runs the fp32 kernel
+    # "bfloat16": the no-grad sampling phase's SDF queries on bf16 operands
+    # with fp32 sums (None: fp32, through K1)
     sampling_dtype: str | None = None
 
     def __post_init__(self):
-        if self.sampling_dtype is not None:
-            raise NotImplementedError("sampling_dtype is not supported by the "
-                                      "port's fp32 sampling kernel")
+        if self.sampling_dtype not in SAMPLING_DTYPES:
+            raise ValueError(f"sampling_dtype {self.sampling_dtype!r} not in "
+                             f"{sorted(SAMPLING_DTYPES, key=str)}")
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
@@ -149,14 +157,15 @@ def merge_sorted(a, b, vals_a=None, vals_b=None):
 
 
 def cat_z_vals(model: NeuS, rays_o, rays_d, z_vals, new_z_vals, sdf,
-               last: bool):
-    """Merge sample positions, querying the SDF at the new ones (K1)."""
+               last: bool, compute_dtype=None):
+    """Merge sample positions, querying the SDF at the new ones (K1, or at
+    ``compute_dtype`` layer by layer)."""
     batch_size, _ = z_vals.shape
     _, n_importance = new_z_vals.shape
     if last:
         return merge_sorted(z_vals, new_z_vals), sdf
     pts = rays_o[:, None, :] + rays_d[:, None, :] * new_z_vals[..., :, None]
-    new_sdf = model.sdf(pts.reshape(-1, 3)).reshape(batch_size, n_importance)
+    new_sdf = model.sdf(pts.reshape(-1, 3), compute_dtype).reshape(batch_size, n_importance)
     return merge_sorted(z_vals, new_z_vals, sdf, new_sdf)
 
 
@@ -189,8 +198,10 @@ def render_core_outside(rays_o, rays_d, z_vals, sample_dist, model: NeuS,
 
 def render_core(rays_o, rays_d, z_vals, sample_dist, model: NeuS,
                 background_alpha=None, background_sampled_color=None,
-                background_rgb=None, cos_anneal_ratio=0.0):
+                background_rgb=None, cos_anneal_ratio=0.0,
+                mesh: Optional[DataMesh] = None):
     """Core NeuS compositing; the SDF value + gradient go through K3/K4.
+    ``gradient_error`` divides by the count over ``mesh``'s ranks.
     With the shell's ``background_alpha`` and ``background_sampled_color``
     ([B, n + n_outside], the shell at the sorted feed of both sets of
     samples), its alpha and colour replace the SDF's outside the sphere and
@@ -245,7 +256,7 @@ def render_core(rays_o, rays_d, z_vals, sample_dist, model: NeuS,
     grad_norm = torch.sqrt(torch.sum(
         gradients.reshape(batch_size, n_samples, 3) ** 2, dim=-1) + 1e-12)
     gradient_error = torch.sum(relax_inside * (grad_norm - 1.0) ** 2) / (
-        torch.sum(relax_inside) + 1e-5)
+        global_sum(mesh, torch.sum(relax_inside)) + 1e-5)
 
     return {
         "color": color,
@@ -267,7 +278,8 @@ def sample_z_vals(rays: Rays, model: NeuS, cfg: NeusRenderConfig,
     """The sample positions along each ray, [B, n_samples + n_importance],
     without gradients: stratified (with perturbation, jittered by ``t_rand``
     [B, 1] in [-0.5, 0.5) if given, else drawn from ``generator``), then the
-    importance rounds, which query the SDF through K1."""
+    importance rounds, which query the SDF through K1 (at
+    ``cfg.sampling_dtype`` layer by layer)."""
     perturb = 0.0 if is_eval else cfg.perturb
     rays_o, rays_d = rays.origins, rays.directions
     near, far = rays.near, rays.far
@@ -284,16 +296,18 @@ def sample_z_vals(rays: Rays, model: NeuS, cfg: NeusRenderConfig,
 
     # importance sampling (no grad, like the reference's torch.no_grad block)
     if cfg.n_importance > 0:
+        dtype = SAMPLING_DTYPES[cfg.sampling_dtype]
         with torch.no_grad():
             z_vals = z_vals.detach()
             pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., :, None]
-            sdf = model.sdf(pts.reshape(-1, 3)).reshape(batch_size, cfg.n_samples)
+            sdf = model.sdf(pts.reshape(-1, 3), dtype).reshape(batch_size, cfg.n_samples)
             for i in range(cfg.up_sample_steps):
                 new_z = up_sample(rays_o, rays_d, z_vals, sdf,
                                   cfg.n_importance // cfg.up_sample_steps,
                                   64 * 2 ** i, model.radius())
                 z_vals, sdf = cat_z_vals(model, rays_o, rays_d, z_vals, new_z,
-                                         sdf, last=(i + 1 == cfg.up_sample_steps))
+                                         sdf, last=(i + 1 == cfg.up_sample_steps),
+                                         compute_dtype=dtype)
     return z_vals
 
 
@@ -322,11 +336,12 @@ def outside_z_vals(rays: Rays, cfg: NeusRenderConfig, is_eval: bool = False,
 
 def render_samples(rays: Rays, z_vals: torch.Tensor, model: NeuS,
                    cos_anneal_ratio, cfg: NeusRenderConfig,
-                   z_outside: Optional[torch.Tensor] = None) -> dict:
+                   z_outside: Optional[torch.Tensor] = None,
+                   mesh: Optional[DataMesh] = None) -> dict:
     """Shade and composite the given sample positions (``render_core``),
     with the background shell at the sorted feed of ``z_vals`` and
     ``z_outside`` where ``cfg.n_outside`` > 0: the part of ``render_neus``
-    that gradients flow through."""
+    that gradients flow through. ``mesh`` as for ``render_core``."""
     rays_o, rays_d = rays.origins, rays.directions
     near, far = rays.near, rays.far
     sample_dist = 2.0 / cfg.n_samples
@@ -341,7 +356,7 @@ def render_samples(rays: Rays, z_vals: torch.Tensor, model: NeuS,
               "background_sampled_color": out["sampled_color"]}
     ret_fine = render_core(rays_o, rays_d, z_vals, sample_dist, model,
                            background_rgb=background_rgb,
-                           cos_anneal_ratio=cos_anneal_ratio, **bg)
+                           cos_anneal_ratio=cos_anneal_ratio, mesh=mesh, **bg)
 
     weights = ret_fine["weights"]
     acc = torch.sum(weights, dim=-1)
@@ -365,9 +380,11 @@ def render_neus(rays: Rays, model: NeuS, cos_anneal_ratio,
                 cfg: NeusRenderConfig = NeusRenderConfig(),
                 is_eval: bool = False, t_rand: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                t_rand_outside: Optional[torch.Tensor] = None) -> dict:
+                t_rand_outside: Optional[torch.Tensor] = None,
+                mesh: Optional[DataMesh] = None) -> dict:
     """Top-level NeuS render: ``sample_z_vals`` and ``outside_z_vals``
-    (which take the noise), then ``render_samples``."""
+    (which take the noise), then ``render_samples`` (``mesh`` as for
+    ``render_core``)."""
     z_vals = sample_z_vals(rays, model, cfg, is_eval, t_rand, generator)
     z_outside = outside_z_vals(rays, cfg, is_eval, t_rand_outside, generator)
-    return render_samples(rays, z_vals, model, cos_anneal_ratio, cfg, z_outside)
+    return render_samples(rays, z_vals, model, cos_anneal_ratio, cfg, z_outside, mesh)

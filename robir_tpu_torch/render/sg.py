@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.draws import Draws
+from ..core.mesh import DataMesh, batch_mean
 
 TINY = 1e-6
 MU_COS = 32.7080
@@ -230,22 +231,23 @@ def get_specular_visibility(points: torch.Tensor, normals: torch.Tensor,
 
 def kl_divergence(x: torch.Tensor, mu: float = 0.05,
                   weight: Optional[torch.Tensor] = None,
-                  lobe_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  lobe_weight: Optional[torch.Tensor] = None,
+                  mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """Bernoulli KL of the (weighted) batch-mean rate against ``mu``
     (reference ``utils/utils.py:14-17``); ``lobe_weight`` reweights the
-    final mean over lobes, normalised to mean 1."""
-    if weight is None:
-        rho_hat = torch.mean(x, dim=0)
-    else:
-        w = weight.reshape((-1,) + (1,) * (x.dim() - 1))
-        rho_hat = torch.sum(x * w, dim=0) / torch.clamp(torch.sum(w, dim=0), min=1.0)
+    final mean over lobes, normalised to mean 1. Under a ``mesh`` the batch
+    mean is over every rank's rows (``batch_mean``) and the KL is divided
+    by the world size: the ranks' terms add up to the KL, and so do their
+    gradients."""
+    rho_hat = batch_mean(mesh, x, weight)
     rho = mu
     kl = (rho * torch.log(rho / (rho_hat + 1e-4))
           + (1 - rho) * torch.log((1 - rho) / (1 - rho_hat + 1e-4)))
+    world = 1 if mesh is None else mesh.world
     if lobe_weight is None:
-        return torch.mean(kl)
+        return torch.mean(kl) / world
     lw = lobe_weight / torch.clamp(torch.mean(lobe_weight), min=1e-9)
-    return torch.mean(kl * lw)
+    return torch.mean(kl * lw) / world
 
 
 def specular_sg(normal, viewdirs, roughness, specular_reflectance,
@@ -373,8 +375,8 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
     if comp_vis or vis_fn is not None:
         brdf_vis = get_specular_visibility(
             points, normal, viewdirs, vis_fn, warp_lambdas[:, 0],
-            draws.uniform(draw_prefix + "spec_theta", (N, specular_nsamp)),
-            draws.uniform(draw_prefix + "spec_phi", (N, specular_nsamp)),
+            draws.uniform(draw_prefix + "spec_theta", (N, specular_nsamp), rows=True),
+            draws.uniform(draw_prefix + "spec_phi", (N, specular_nsamp), rows=True),
             inv=not comp_vis, argmax_vis=argmax_vis)
         lgt_mus_spec = origin_mus * brdf_vis[:, None, None]
     else:

@@ -28,6 +28,15 @@ in stage-2 coordinates with no scale (``sdf`` K1, ``sdf_gradient`` K3);
 ``borrow_color`` evaluates the rendering network at the surface point
 (one K3 call for the full output and the gradient). Not ported yet:
 ``neus_bridge_render``.
+
+Under data parallelism (``Stage2Model(mesh=)``, ``core/mesh.py``) each rank
+holds its own pixels: the compaction gate is the rank's
+(``effective_chunk`` of its rows), and a compacted render's per-row draws
+are this rank's rows of the draw for every rank's surface rows in rank
+order (one all-reduce of the counts), so that a row gets the draw it gets
+in one process. Each rank traces the secondary fan of its own pixels: the
+JAX package's ``shard_fan`` (the fan's own axis spread over the chips) is
+what one process per rank does already.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 from .. import resolve_device
 from ..core.compact import compact_apply, effective_chunk
 from ..core.draws import Draws
+from ..core.mesh import DataMesh, mesh_shards, row_split
 from ..core.params import ParamTree, from_jax
 from ..fields.envmap_material import (EnvmapMaterialConfig, MaterialOutput,
                                       envmap_material_apply)
@@ -96,10 +106,12 @@ class Stage2Model:
     used as it is (so gradients reach it); anything else is copied there by
     ``from_jax``. ``grid_values`` is the baked [R, R, R] grid that
     ``tracer="grid"`` marches. Runs on ``cuda`` unless ``device="cpu"`` is
-    passed."""
+    passed. ``mesh``: the data-parallel ranks the batch is spread over
+    (None: one process)."""
 
     def __init__(self, params: Params, cfg: Stage2Config, device="cuda",
-                 grid_values: Optional[torch.Tensor] = None):
+                 grid_values: Optional[torch.Tensor] = None,
+                 mesh: Optional[DataMesh] = None):
         device = resolve_device(device)
         if not (isinstance(params, ParamTree) and all(
                 p.device.type == device.type for p in params.parameters())):
@@ -107,6 +119,7 @@ class Stage2Model:
         self.params = params
         self.cfg = cfg
         self.grid_values = grid_values
+        self.mesh = mesh
 
     def _sdf_params(self):
         if not self.cfg.use_neus:
@@ -208,15 +221,16 @@ class Stage2Model:
         n = points.shape[0]
         return envmap_material_apply(
             self.params["envmap_material_network"], env, points,
-            spec_noise=(draws.normal("spec_ae", env.spec_brdf_ae.noise_shape(n))
+            spec_noise=(draws.normal("spec_ae", env.spec_brdf_ae.noise_shape(n), rows=True)
                         if draws else None),
-            normal_noise=(draws.normal("normal_ae", env.normal_ae.noise_shape(n))
+            normal_noise=(draws.normal("normal_ae", env.normal_ae.noise_shape(n), rows=True)
                           if draws else None),
             train_spec=train_spec, spec_var=spec_var)
 
     def indirect(self, points, hdr_shift, draws: Optional[Draws] = None):
         ind = self.cfg.indirect
-        noise = (draws.normal("indirect_ae", ind.integral_ae.noise_shape(points.shape[0]))
+        noise = (draws.normal("indirect_ae", ind.integral_ae.noise_shape(points.shape[0]),
+                              rows=True)
                  if draws else None)
         return indirect_apply(self.params["indirect_illum_network"], ind, points,
                               hdr_shift, noise)
@@ -313,8 +327,8 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
 
     With ``compact_chunk`` below N the render runs on the surface rows only
     (``core/compact.py``; the reference shades ``points[surface_mask]``,
-    implicit_differentiable_renderer.py:396-400), called with
-    ``row_outputs=True``: its outputs must all be per-row. Its per-row
+    implicit_differentiable_renderer.py:396-400): the render's outputs
+    must all be per-row. Its per-row
     draws then have one row per surface pixel; per-light draws are the
     dense render's. Otherwise every lane is shaded."""
     cam_loc = inp["points"].reshape(-1, 3)
@@ -352,12 +366,16 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
         return out
 
     render = sg_render_fn or default_sg_render
-    if effective_chunk(n, compact_chunk):
+    if effective_chunk(n, compact_chunk, mesh_shards(model.mesh)):
+        # per-row draws of this rank's surface rows: its part of every
+        # rank's, when the draws are split over the ranks
+        row_draws = (draws if draws.split is None else
+                     draws.with_split(row_split(model.mesh, int(surface_mask.sum()))))
+
         def row_render(pts, vdirs, isgs, iint, h):
-            r = render(model, draws, pts, vdirs, isgs, indir_integral=iint,
+            r = render(model, row_draws, pts, vdirs, isgs, indir_integral=iint,
                        train_spec=train_spec, lin_diff=lin_diff, hdr_shift=h,
-                       surface_mask=torch.ones_like(pts[:, 0], dtype=torch.bool),
-                       row_outputs=True, **sg_kwargs)
+                       surface_mask=torch.ones_like(pts[:, 0], dtype=torch.bool), **sg_kwargs)
             bad = [k for k, v in r.items() if v.dim() == 0 or v.shape[0] != pts.shape[0]]
             if bad:
                 raise ValueError(f"stage2_forward(compact_chunk=...) needs per-row render "
@@ -396,8 +414,8 @@ def spherical_uniform(draws: Draws, shape) -> torch.Tensor:
     (IDRNetwork.trace_radiance:583-590), from the draws ``sphere_u`` (the
     z coordinate) and ``sphere_t`` (the azimuth), each U[0, 1) of
     ``shape``."""
-    u = draws.uniform("sphere_u", shape) * 2 - 1
-    t = draws.uniform("sphere_t", shape) * 2 * math.pi
+    u = draws.uniform("sphere_u", shape, rows=True) * 2 - 1
+    t = draws.uniform("sphere_t", shape, rows=True) * 2 * math.pi
     r = torch.sqrt(torch.clamp(1 - u ** 2, min=0.0))
     return torch.stack([r * torch.cos(t), r * torch.sin(t), u], -1)
 
@@ -454,7 +472,7 @@ def trace_radiance(model: Stage2Model, draws: Draws, forward_out: dict, nsamp: i
     d_flat = fan["dirs"]
     sec_t, sec_hit, sec_x = model.trace(fan["origins"], d_flat) if traced is None else traced
     need = sec_hit & ~back_cull.reshape(-1) & points_mask[:, None].expand(n, nsamp).reshape(-1)
-    chunk = effective_chunk(n * nsamp, compact_chunk)
+    chunk = effective_chunk(n * nsamp, compact_chunk, mesh_shards(model.mesh))
     with torch.no_grad():
         if chunk:
             color = compact_apply(lambda x, d: {"color": model.borrow_color(x, d, chunk)},

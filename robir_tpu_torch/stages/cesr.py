@@ -19,7 +19,11 @@ the step runs in row mode: the render shades the surface pixels only and
 returns the supervision's per-row ingredients, which the step reduces
 (the weighted means equal the dense ones). The runner switches to the
 dense step while the measured surface fraction is above
-``compact_max_surface_frac``, as the JAX runner does.
+``compact_max_surface_frac``, as the JAX runner does. The dense step, too,
+takes the supervision's per-row ingredients from the render and reduces
+them in the step (without the row mode's lobe weights, as JAX's dense
+render): under data parallelism (``mesh=``) its KL is of the global mean
+rate, which no rank's render can take alone.
 
 ``cesr_plot_to_disk`` writes the stage's diagnostic grid of one view.
 """
@@ -33,7 +37,9 @@ import os
 import numpy as np
 import torch
 
+from ..core.compact import effective_chunk
 from ..core.draws import Draws
+from ..core.mesh import DataMesh, global_sum, mesh_shards
 from ..core.params import ParamTree
 from ..data.syn_dataset import SynDataset
 from ..fields.encoding import PEConfig, positional_encoding
@@ -140,15 +146,12 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
                    indir_lgt_sgs, indir_integral=None, *, shadow_params,
                    normal_params, stage_cfg: CESRStageConfig, prefit: str,
                    use_new_normal: bool, spec_var=None, train_spec=True,
-                   surface_mask=None, diffuse_vis_grad: bool = True,
-                   row_outputs: bool = False, **_) -> dict:
-    """CESR get_sg_render (train_cesr.py:465-544). Dense, the supervision
-    terms (shadow-net KL, normal consistency) are weighted by
-    ``surface_mask``, as the reference shades surface points only.
-    ``row_outputs=True`` returns per-row outputs only: the supervision's
-    ingredients ``supervise_x`` [N, M] (|gt - vis|) and ``normal_sq``
-    [N, 3] in place of its scalar, for the step to reduce outside a
-    surface-pixel compaction (``white_loss`` moves to the step too)."""
+                   diffuse_vis_grad: bool = True, **_) -> dict:
+    """CESR get_sg_render (train_cesr.py:465-544), with per-row outputs
+    only: the supervision (shadow-net KL, normal consistency, white light)
+    comes out as its per-row ingredients ``supervise_x`` [N, M] (|gt -
+    vis|) and ``normal_sq`` [N, 3], which ``cesr_loss`` reduces over the
+    surface rows, outside a surface-pixel compaction and over the ranks."""
     view_dirs = view_dirs / (torch.linalg.norm(view_dirs, dim=-1, keepdim=True) + 1e-6)
     normals = model.sdf_gradient(points)
     normals = normals / torch.clamp(torch.linalg.norm(normals, dim=-1, keepdim=True),
@@ -159,7 +162,6 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
 
     diffuse_vis = shadow_net_vis(shadow_params, stage_cfg, points, mat.lgt_sgs.shape[0])
     normal_new = normal_net_apply(normal_params, stage_cfg, points)
-    sv_weight = None if surface_mask is None else surface_mask.to(torch.float32)
     sg_ret = sg_lib.render_with_all_sg(
         draws, points.detach(), normal_new if use_new_normal else normal_map,
         view_dirs, mat.lgt_sgs, torch.abs(mat.specular_reflectance), mat.roughness,
@@ -167,11 +169,11 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
         indir_integral=indir_integral, vis_fn=model.vis_logits,
         vis_outer_fn=model.vis_logits_outer, lin_diff=True,
         diffuse_vis=diffuse_vis, prefit=prefit, argmax_vis=stage_cfg.argmax_vis,
-        diffuse_sweep_chunk=model.cfg.sweep_light_chunk, supervise_weight=sv_weight,
-        supervise_rows=row_outputs, diffuse_vis_grad=diffuse_vis_grad)
+        diffuse_sweep_chunk=model.cfg.sweep_light_chunk, supervise_rows=True,
+        diffuse_vis_grad=diffuse_vis_grad)
 
     albedo = mat.diffuse_albedo / np.pi
-    out = {
+    return {
         "normals": normals,
         "sg_rgb": sg_ret.sg_diffuse_rgb * albedo + sg_ret.sg_specular_rgb,
         "indir_rgb": sg_ret.indir_diffuse_rgb * albedo + sg_ret.indir_specular_rgb,
@@ -185,35 +187,26 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
         "random_xi_roughness": mat.random_xi_roughness,
         "random_xi_metallic": mat.random_xi_metallic,
         "random_xi_diffuse_albedo": mat.random_xi_diffuse_albedo,
+        "supervise_x": sg_ret.supervise,
+        "normal_sq": (normal_map - normal_new) ** 2,
     }
-    sq = (normal_map - normal_new) ** 2
-    if row_outputs:
-        out["supervise_x"] = sg_ret.supervise
-        out["normal_sq"] = sq
-        return out
-    supervise = sg_ret.supervise
-    if stage_cfg.white_light and prefit != "warmup":
-        supervise = supervise + white_loss(mat.lgt_sgs)
-    if sv_weight is None:
-        supervise = supervise + torch.mean(sq)
-    else:
-        w = sv_weight[:, None]
-        supervise = supervise + torch.sum(w * sq) / torch.clamp(torch.sum(w) * 3, min=1.0)
-    out["gradient_error"] = supervise
-    out["supervise"] = supervise
-    return out
 
 
 def cesr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: CESRStageConfig,
               spec_var: torch.Tensor, batch: dict, draws: Draws, prefit: str,
               use_new_normal: bool, use_rgb_loss: bool, traced=None,
-              grid_values=None):
+              grid_values=None, mesh: DataMesh | None = None):
     """The CESR step's loss (make_cesr_step's ``loss_fn``) -> (total,
     metrics): in row mode where ``stage2_forward`` compacts at
-    ``stage_cfg.compact_chunk``, else dense. ``traced`` as in
-    ``stage2_forward``; ``grid_values`` is the grid tracer's baked grid."""
-    model = Stage2Model(params, cfg, batch["dirs"].device, grid_values)
+    ``stage_cfg.compact_chunk``, else dense; either way the supervision is
+    reduced here from its per-row ingredients. ``traced`` as in
+    ``stage2_forward``; ``grid_values`` is the grid tracer's baked grid.
+    Under a ``mesh``, ``batch`` is this rank's rows, the loss and every
+    metric but ``psnr`` (global) this rank's share."""
+    model = Stage2Model(params, cfg, batch["dirs"].device, grid_values, mesh)
     n = batch["dirs"].shape[0]
+    world = 1 if mesh is None else mesh.world
+    compacted = bool(effective_chunk(n, stage_cfg.compact_chunk, mesh_shards(mesh)))
     inp = {"points": batch["points"], "dirs": batch["dirs"],
            "object_mask": batch["object_mask"],
            "hdr_shift": as_input(params["gamma"]).expand(n, 1)}
@@ -226,45 +219,46 @@ def cesr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: CESRStageConfig,
         # the warmup step without the rgb term never reads the sampled
         # visibility's gradient: sweep it without a graph there
         diffuse_vis_grad=use_rgb_loss or prefit != "warmup")
-    if "supervise_x" in out:   # row mode
-        # the supervision from its per-row ingredients: weighted means over
-        # the surface rows, as the dense step's (miss rows weigh 0)
-        w = out["surface_mask"].to(torch.float32)
-        lgt = params["envmap_material_network"]["lgtSGs"]
-        lobe_w = None
-        if stage_cfg.ambient_anchor > 0:
-            lobe_w = 1.0 + stage_cfg.ambient_anchor / (1.0 + torch.abs(lgt[:, 3].detach()))
-        sv = sg_lib.kl_divergence(out["supervise_x"], 0.01, weight=w, lobe_weight=lobe_w)
-        sv = sv * {"warmup": 0.1, "project": 0.2}.get(prefit, 1.0)
-        if stage_cfg.white_light and prefit != "warmup":
-            sv = sv + white_loss(lgt)
-        w1 = w[:, None]
-        sv = sv + torch.sum(w1 * out["normal_sq"]) / torch.clamp(torch.sum(w1) * 3, min=1.0)
-        total = sv * stage_cfg.sv_weight
-    else:
-        total = out["supervise"] * stage_cfg.sv_weight
+    # the supervision from its per-row ingredients: weighted means over the
+    # surface rows (miss rows weigh 0), the lobe weights in row mode only
+    w = out["surface_mask"].to(torch.float32)
+    lgt = params["envmap_material_network"]["lgtSGs"]
+    lobe_w = None
+    if stage_cfg.ambient_anchor > 0 and compacted:
+        lobe_w = 1.0 + stage_cfg.ambient_anchor / (1.0 + torch.abs(lgt[:, 3].detach()))
+    sv = sg_lib.kl_divergence(out["supervise_x"], 0.01, weight=w, lobe_weight=lobe_w,
+                              mesh=mesh)
+    sv = sv * {"warmup": 0.1, "project": 0.2}.get(prefit, 1.0)
+    if stage_cfg.white_light and prefit != "warmup":
+        # a term of the parameters alone: every rank's share of it
+        sv = sv + white_loss(lgt) / world
+    w1 = w[:, None]
+    sv = sv + torch.sum(w1 * out["normal_sq"]) / torch.clamp(
+        global_sum(mesh, torch.sum(w1)) * 3, min=1.0)
+    total = sv * stage_cfg.sv_weight
     metrics = {"sv_loss": total}
     mask = out["network_object_mask"] & out["object_mask"]
     if use_rgb_loss:
         pred = hdr2ldr(params["gamma"], cfg.tonemap, out["sg_rgb"] + out["indir_rgb"])
-        sg_rgb_loss = rgb_loss(stage_cfg.loss, pred, batch["rgb"], mask)
+        sg_rgb_loss = rgb_loss(stage_cfg.loss, pred, batch["rgb"], mask, mesh)
         if prefit == "project":
             smooth_w, kl_w = stage_cfg.proj_smooth, stage_cfg.proj_kl
         else:
             smooth_w, kl_w = stage_cfg.explore_smooth, stage_cfg.explore_kl
         kl = masked_spec_kl(params["envmap_material_network"], cfg.envmap, out["points"],
-                            mask, var=spec_var) * stage_cfg.loss.kl_weight * kl_w
+                            mask, var=spec_var, mesh=mesh) * stage_cfg.loss.kl_weight * kl_w
         smooth = latent_smooth_loss(
             out["diffuse_albedo"], out["roughness"], out["random_xi_diffuse_albedo"],
-            out["random_xi_roughness"]) * stage_cfg.loss.latent_smooth_weight * smooth_w
+            out["random_xi_roughness"], mesh) * stage_cfg.loss.latent_smooth_weight * smooth_w
         total = total + stage_cfg.loss.sg_rgb_weight * sg_rgb_loss + kl + smooth
-        w = mask.to(torch.float32)[:, None]
-        mse = torch.sum(w * (pred - batch["rgb"]) ** 2) / torch.clamp(torch.sum(w) * 3,
-                                                                     min=1.0)
+        with torch.no_grad():
+            w = mask.to(torch.float32)[:, None]
+            sq, n_w = global_sum(mesh, torch.sum(w * (pred - batch["rgb"]) ** 2), torch.sum(w))
+            mse = sq / torch.clamp(n_w * 3, min=1.0)
         metrics.update({"rgb_loss": sg_rgb_loss, "kl": kl, "smooth": smooth,
                         "psnr": -10 / np.log(10) * torch.log(mse + 1e-12)})
     metrics["loss"] = total
-    metrics["surface_frac"] = torch.mean(mask.to(torch.float32))
+    metrics["surface_frac"] = torch.sum(mask.to(torch.float32)) / (n * world)
     return total, metrics
 
 
@@ -274,14 +268,15 @@ class CESRRunner(MaterialRunner):
     checkpoint (``load_pbr_checkpoint``). With ``tracer="grid"`` call
     ``bake_grid()`` first.
 
-    Runs on ``cuda`` unless ``device="cpu"`` is passed."""
+    Runs on ``cuda`` unless ``device="cpu"`` is passed; with a ``mesh``,
+    one rank of a data-parallel run (``MaterialRunner``)."""
 
     stage_name = "CESR"
     TRAINABLE = ("gamma", "envmap_material_network", "shadow_net", "normal_net")
 
     def __init__(self, cfg: Stage2Config, params: dict, dataset: SynDataset,
                  stage_cfg: CESRStageConfig = CESRStageConfig(), seed: int = 0,
-                 device="cuda", log_dir: str | None = None):
+                 device="cuda", log_dir: str | None = None, mesh: DataMesh | None = None):
         if stage_cfg.num_lights != cfg.envmap.num_lgt_sgs:
             # the one-hot label width is the envmap's number of SG lights
             stage_cfg = dataclasses.replace(stage_cfg, num_lights=cfg.envmap.num_lgt_sgs)
@@ -293,7 +288,7 @@ class CESRRunner(MaterialRunner):
         gen = torch.Generator().manual_seed(seed + 77)
         params["shadow_net"] = init_sdf(gen, stage_cfg.shadow_cfg)
         params["normal_net"] = init_sdf(gen, stage_cfg.normal_cfg)
-        super().__init__(cfg, params, dataset, stage_cfg, seed, device, log_dir)
+        super().__init__(cfg, params, dataset, stage_cfg, seed, device, log_dir, mesh)
         self.spec_var = torch.zeros((cfg.envmap.latent_dim,), device=self.device)
 
     def load_pbr_checkpoint(self, path: str) -> None:
@@ -313,7 +308,8 @@ class CESRRunner(MaterialRunner):
             self.params, self.cfg, self.step_config(), self.spec_var, batch, draws,
             prefit=sc.prefit_option(self.cur_iter),
             use_new_normal=self.cur_iter > sc.normal_switch_iter,
-            use_rgb_loss=self.cur_iter > sc.warmup_iters, grid_values=self.grid_values)
+            use_rgb_loss=self.cur_iter > sc.warmup_iters, grid_values=self.grid_values,
+            mesh=self.mesh)
         metrics = self._update(loss, metrics)
         if sc.dropout_iter > 0 and self.cur_iter % sc.dropout_iter == 0:
             # latent dropout resample (train_cesr.py:639-641)
@@ -336,8 +332,7 @@ def cesr_plot_to_disk(runner: CESRRunner, dataset, idx: int = 0, plots_dir: str 
     sc = runner.stage_cfg
     render = functools.partial(cesr_sg_render, stage_cfg=sc,
                                prefit=sc.prefit_option(runner.cur_iter),
-                               use_new_normal=runner.cur_iter > sc.normal_switch_iter,
-                               row_outputs=True)
+                               use_new_normal=runner.cur_iter > sc.normal_switch_iter)
     out = render_view(runner.model(), dataset, idx, sg_render_fn=render,
                       draws=lambda _: Draws(runner.generator, device=runner.device),
                       chunk=chunk, shadow_params=runner.params["shadow_net"],

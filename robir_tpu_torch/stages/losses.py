@@ -2,8 +2,17 @@
 reference's ``model/loss.py``): InvLoss's terms of the Material stages,
 ``robir_tpu/stages/pbr.py:white_loss``, and the Vis stage's IllumLoss
 (the indirect SGs against the traced radiance, the indirect integral, and
-the visibility cross-entropy). Boolean-indexed reductions are
-mask-weighted dense sums with the reference's normalisers.
+the visibility cross-entropy). The AE latent KL is
+``fields/sparse_ae.py:ae_kl_divergence``.
+Boolean-indexed reductions are mask-weighted dense sums with the
+reference's normalisers.
+
+Under data parallelism (a ``mesh``, ``core/mesh.py``) each normaliser is
+the global count (``global_sum``) and each sum this rank's, and each
+batch statistic that a loss takes non-linearly (the KL terms' mean rates)
+is the global one, the term divided by the world size; so the ranks'
+losses add up to the global batch's loss. A term of the parameters alone
+(``white_loss``) is divided by the world size by its caller.
 
 Not ported yet: eikonal, mask and normal-consistency.
 """
@@ -14,6 +23,7 @@ import dataclasses
 
 import torch
 
+from ..core.mesh import DataMesh, batch_mean, global_sum
 from ..fields.encoding import positional_encoding
 from ..fields.sparse_ae import encode as ae_encode
 
@@ -30,8 +40,14 @@ class InvLossConfig:
     loss_type: str = "L1"
 
 
-def rgb_loss(cfg: InvLossConfig, rgb_pred, rgb_gt, mask) -> torch.Tensor:
-    """Masked image loss / n_rays (loss.py:31-42); mask [N] bool."""
+def _world(mesh: DataMesh | None) -> int:
+    return 1 if mesh is None else mesh.world
+
+
+def rgb_loss(cfg: InvLossConfig, rgb_pred, rgb_gt, mask,
+             mesh: DataMesh | None = None) -> torch.Tensor:
+    """Masked image loss / n_rays (loss.py:31-42); mask [N] bool; n_rays
+    of every rank under a ``mesh``."""
     diff = rgb_pred - rgb_gt.reshape(-1, 3)
     if cfg.loss_type == "L1":
         err = torch.abs(diff)
@@ -39,27 +55,35 @@ def rgb_loss(cfg: InvLossConfig, rgb_pred, rgb_gt, mask) -> torch.Tensor:
         err = diff ** 2
     else:
         raise ValueError(cfg.loss_type)
-    return torch.sum(err * mask[:, None]) / rgb_pred.shape[0]
+    return torch.sum(err * mask[:, None]) / (rgb_pred.shape[0] * _world(mesh))
 
 
-def latent_smooth_loss(diffuse_albedo, roughness, xi_diffuse, xi_roughness):
-    """L1(albedo pair) + 0.2 * L1(roughness pair) (loss.py:61-67)."""
-    return (torch.mean(torch.abs(diffuse_albedo - xi_diffuse))
-            + torch.mean(torch.abs(roughness[..., 0] - xi_roughness[..., 0])) * 0.2)
+def _mean(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
+    """The mean of every rank's ``x`` (of one shape on each), as this
+    rank's share: its sum over the global count."""
+    return torch.sum(x) / (x.numel() * _world(mesh))
+
+
+def latent_smooth_loss(diffuse_albedo, roughness, xi_diffuse, xi_roughness,
+                       mesh: DataMesh | None = None):
+    """L1(albedo pair) + 0.2 * L1(roughness pair) (loss.py:61-67); under a
+    ``mesh`` this rank's share."""
+    return (_mean(torch.abs(diffuse_albedo - xi_diffuse), mesh)
+            + _mean(torch.abs(roughness[..., 0] - xi_roughness[..., 0]), mesh) * 0.2)
 
 
 def masked_spec_kl(envmap_params, envmap_cfg, points, mask, var=None,
-                   rho: float = 0.05) -> torch.Tensor:
+                   rho: float = 0.05, mesh: DataMesh | None = None) -> torch.Tensor:
     """Bernoulli KL sparsity of the spec-BRDF encoder's latents at surface
     points (loss.py:85-95 on points[network_object_mask]), as a
-    mask-weighted batch mean."""
+    mask-weighted batch mean (under a ``mesh`` over every rank's rows, the
+    KL divided by the world size)."""
     latent = ae_encode(envmap_params["spec_brdf_encoder_layer"],
                        envmap_cfg.spec_brdf_ae,
                        positional_encoding(points, envmap_cfg.pe), var=var)
-    w = mask.to(torch.float32)[:, None]
-    rho_hat = torch.sum(torch.sigmoid(latent) * w, 0) / torch.clamp(torch.sum(w), min=1.0)
+    rho_hat = batch_mean(mesh, torch.sigmoid(latent), mask)
     return torch.mean(rho * torch.log(rho / (rho_hat + 1e-4)) + (1 - rho)
-                      * torch.log((1 - rho) / (1 - rho_hat + 1e-4)))
+                      * torch.log((1 - rho) / (1 - rho_hat + 1e-4))) / _world(mesh)
 
 
 def white_loss(lgt_sgs: torch.Tensor) -> torch.Tensor:
@@ -89,7 +113,7 @@ class IllumLossConfig:
 
 def illum_loss(cfg: IllumLossConfig, *, indirect_sgs, indir_integral, network_object_mask,
                trace_radiance, sample_dirs, gt_vis, pred_vis, indir_mask, gt_integral,
-               anneal_t: float = 0.0):
+               anneal_t: float = 0.0, mesh: DataMesh | None = None):
     """(radiance_loss, visibility_loss) of IllumLoss.forward (loss.py:156-179).
 
     N rays, S secondary directions: indirect_sgs [N, L, 7], indir_integral
@@ -99,7 +123,8 @@ def illum_loss(cfg: IllumLossConfig, *, indirect_sgs, indir_integral, network_ob
     [N, 3]. The radiance loss sums the SG radiance term over the needed
     rays and the integral term over the surface pixels; the visibility
     loss is the cross-entropy over every direction of the surface pixels,
-    label 1 (visible) where the ray did not hit."""
+    label 1 (visible) where the ray did not hit. Under a ``mesh`` the three
+    counts are every rank's (one all-reduce)."""
     if cfg.loss_type == "L1":
         err = lambda a, b: torch.abs(a - b)  # noqa: E731
     elif cfg.loss_type == "L2":
@@ -108,15 +133,16 @@ def illum_loss(cfg: IllumLossConfig, *, indirect_sgs, indir_integral, network_ob
         raise ValueError(cfg.loss_type)
     pred_rad = query_indir_illum(indirect_sgs, sample_dirs)
     w = (indir_mask & network_object_mask[:, None]).to(pred_rad.dtype)[..., None]
-    radiance = torch.sum(err(trace_radiance + anneal_t, pred_rad) * w) / torch.clamp(
-        torch.sum(w) * 3, min=1.0)
     wi = network_object_mask.to(pred_rad.dtype)[:, None]
-    integral = torch.sum(err(gt_integral, indir_integral) * wi) / torch.clamp(
-        torch.sum(wi) * 3, min=1.0)
     labels = (~gt_vis).to(torch.int64)
     logp = torch.log_softmax(pred_vis, dim=-1)
     ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
     wv = network_object_mask.to(ce.dtype)[:, None]
-    visibility = torch.sum(ce * wv) / torch.clamp(torch.sum(wv * torch.ones_like(ce)),
-                                                  min=1.0)
+    n_w, n_wi, n_wv = global_sum(mesh, torch.sum(w), torch.sum(wi),
+                                 torch.sum(wv * torch.ones_like(ce)))
+    radiance = torch.sum(err(trace_radiance + anneal_t, pred_rad) * w) / torch.clamp(
+        n_w * 3, min=1.0)
+    integral = torch.sum(err(gt_integral, indir_integral) * wi) / torch.clamp(
+        n_wi * 3, min=1.0)
+    visibility = torch.sum(ce * wv) / torch.clamp(n_wv, min=1.0)
     return radiance + integral, visibility

@@ -27,13 +27,22 @@ model. Ragged scenes (Multicam) render each view at its own
 
 Checkpoints hold the parameters, the step and the Adam moments in the JAX
 trainer's layout (``NeusTrainer.state``), so that either package resumes
-from the other's file with its moments.
+from the other's file with its moments. ``NeusTrainer.throughput`` gives
+the rays/s of chained steps on one batch and leaves the trainer as it was.
 
-Not ported yet: ``throughput``.
+Data parallelism (``NeusTrainer(mesh=)``, ``core/mesh.py``; the JAX
+package's ``make_train_step(mesh=)``): every rank draws the global ray
+batch and the global draws from the shared seed and keeps its rows; the
+parameters start as rank 0's; each mean of the loss is this rank's sum over
+the global count (``neus_loss``), so the summed gradients, reduced in one
+all-reduce, are the global batch's; every rank applies the same Adam
+update. Rank 0 alone writes checkpoints, logs and meshes; the eval render
+splits each chunk's rays over the ranks and gathers them.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Callable, Iterable, NamedTuple, Optional
@@ -44,6 +53,8 @@ import torch
 from .. import resolve_device
 from ..core import checkpoint as ckpt_lib
 from ..core.draws import Draws
+from ..core.mesh import (DataMesh, all_reduce_grads, batch_split, gather_rows, global_max,
+                         global_sum, is_writer, pad_to_multiple, replicate)
 from ..core.schedule import log_lerp_lr
 from ..core.tree import flatten_with_paths
 from ..data.blender import BlenderScene, Prefetcher, RayBatch
@@ -106,24 +117,32 @@ def batch_to_rays(batch: RayBatch) -> tuple[Rays, torch.Tensor]:
 
 
 def neus_loss(out: dict, mask: torch.Tensor, pixels: torch.Tensor,
-              cfg: NeusTrainConfig) -> tuple[torch.Tensor, dict]:
+              cfg: NeusTrainConfig, mesh: DataMesh | None = None) -> tuple[torch.Tensor, dict]:
     """Masked MSE + eikonal + silhouette (+ the optional Cauchy-log weight
     sparsity and the (sim - 1)^2 similarity terms, regular.py:18-29).
-    Density renderers (mip) have no SDF gradient, so no eikonal term."""
-    mask_sum = torch.sum(mask) + 1e-5
+    Density renderers (mip) have no SDF gradient, so no eikonal term.
+
+    Each mean over the batch is a sum over the batch's count. Under a
+    ``mesh`` the sums are this rank's and the counts global (the mask's by
+    one all-reduce, the batch's the rank's rows times the world size; the
+    eikonal term's comes so from the renderer), so the ranks' losses and
+    metrics add up to the global batch's; ``psnr`` is then of this rank's
+    share of the mse (``train_step`` puts the global one in its place)."""
+    n = mask.shape[0] * (mesh.world if mesh is not None else 1)
+    mask_sum = global_sum(mesh, torch.sum(mask)) + 1e-5
     mse = torch.sum(mask * (out["rgb"] - pixels) ** 2) / mask_sum
     eikonal = (out["gradient_error"] * cfg.eikonal_weight if "gradient_error" in out
                else torch.zeros((), device=mse.device))
-    silhouette = torch.mean((out["acc"] - mask[..., 0]) ** 2) * cfg.silhouette_weight
+    silhouette = torch.sum((out["acc"] - mask[..., 0]) ** 2) / n * cfg.silhouette_weight
     loss = mse + eikonal + silhouette
     metrics = {"mse": mse, "psnr": mse_to_psnr(mse),
                "eikonal": eikonal, "silhouette": silhouette}
     if cfg.sparsity_weight > 0:
-        sparsity = torch.mean(torch.sum(torch.log(1 + 2 * out["weights"] ** 2), -1))
+        sparsity = torch.sum(torch.log(1 + 2 * out["weights"] ** 2)) / n
         loss = loss + sparsity * cfg.sparsity_weight
         metrics["sparsity"] = sparsity
     if cfg.similarity_weight > 0 and "similarity" in out:
-        sim = torch.mean(torch.sum((out["similarity"] - 1) ** 2, -1))
+        sim = torch.sum((out["similarity"] - 1) ** 2) / n
         loss = loss + sim * cfg.similarity_weight
         metrics["similarity"] = sim
     metrics["loss"] = loss
@@ -151,16 +170,16 @@ def neus_render_binding(render_cfg: NeusRenderConfig):
     """render="neus" (volume_render/interface.py:20-34), for NeuS and the
     hash-grid NeuS: the stratified jitter ``t_rand`` ([B, 1] in [0, 1),
     less 0.5) and the shell's ``t_rand_outside`` ([B, n_outside]) asked of
-    ``draws`` in training."""
-    def render_fn(draws, rays, model, cos_anneal, is_eval=False):
+    ``draws`` in training. ``mesh``: the eikonal term's count is global."""
+    def render_fn(draws, rays, model, cos_anneal, is_eval=False, mesh=None):
         t_rand = t_out = None
         if not is_eval and render_cfg.perturb > 0:
             b = rays.origins.shape[0]
-            t_rand = draws.uniform("t_rand", (b, 1)) - 0.5
+            t_rand = draws.uniform("t_rand", (b, 1), rows=True) - 0.5
             if render_cfg.n_outside > 0:
-                t_out = draws.uniform("t_rand_outside", (b, render_cfg.n_outside))
+                t_out = draws.uniform("t_rand_outside", (b, render_cfg.n_outside), rows=True)
         return render_neus(rays, model, cos_anneal, render_cfg, is_eval, t_rand=t_rand,
-                           t_rand_outside=t_out)
+                           t_rand_outside=t_out, mesh=mesh)
     return render_fn
 
 
@@ -169,7 +188,8 @@ def mip_render_binding(render_cfg):
     finest level (the reference's ``mip_render_fn``, interface.py:8-17);
     the 'sim' and 'raw' compositors feed ``similarity`` to the loss
     (trainer.py:129). 'sdf' needs an SDF model, which a density field is
-    not: refused with the JAX package's ValueError."""
+    not: refused with the JAX package's ValueError. Its outputs are per
+    ray, so a ``mesh`` changes nothing here."""
     mode = render_cfg.mode
     if mode == "sdf":
         raise ValueError(
@@ -178,7 +198,7 @@ def mip_render_binding(render_cfg):
             "or call render.mip.similarity_process directly with an SDF "
             "model adapter.")
 
-    def render_fn(draws, rays, model, cos_anneal, is_eval=False):
+    def render_fn(draws, rays, model, cos_anneal, is_eval=False, mesh=None):
         out = render_mip(draws, rays, model, render_cfg, is_eval=is_eval,
                          cos_anneal_ratio=cos_anneal)[-1]
         if mode != "mip":
@@ -217,24 +237,33 @@ def make_stage1_bindings(model_type: str, render: str, model_cfg,
 def train_step(model, optimizer: torch.optim.Optimizer,
                lr_fn: Callable[[int], float], batch: RayBatch, step: int,
                train_cfg: NeusTrainConfig, render_cfg, draws: Draws,
-               render_fn: Optional[Callable] = None) -> dict:
+               render_fn: Optional[Callable] = None,
+               mesh: DataMesh | None = None) -> dict:
     """One update of ``model``'s parameters in place; returns the metrics
     (detached tensors). ``render_fn`` (a ``Stage1Bindings.render``;
-    default: the NeuS renderer's) asks ``draws`` for the step's draws."""
+    default: the NeuS renderer's) asks ``draws`` for the step's draws.
+    Under a ``mesh``, ``batch`` is this rank's rows of the global batch;
+    the gradients and metrics are summed over the ranks in one all-reduce
+    before the clip and the update, and the metrics returned are the
+    global batch's."""
     rays, pixels = batch_to_rays(batch)
     if render_fn is None:
         render_fn = neus_render_binding(render_cfg)
-    out = render_fn(draws, rays, model, cos_anneal_ratio(step, train_cfg.anneal_end))
-    loss, metrics = neus_loss(out, rays.lossmult, pixels, train_cfg)
+    out = render_fn(draws, rays, model, cos_anneal_ratio(step, train_cfg.anneal_end),
+                    mesh=mesh)
+    loss, metrics = neus_loss(out, rays.lossmult, pixels, train_cfg, mesh)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    metrics = all_reduce_grads(mesh, params, {k: v.detach() for k, v in metrics.items()},
+                               shared=("psnr",))
+    metrics["psnr"] = mse_to_psnr(metrics["mse"])
     if train_cfg.grad_max_norm > 1e-10:
-        clip_by_global_norm_([p for g in optimizer.param_groups
-                              for p in g["params"]], train_cfg.grad_max_norm)
+        clip_by_global_norm_(params, train_cfg.grad_max_norm)
     for group in optimizer.param_groups:
         group["lr"] = lr_fn(step)
     optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return metrics
 
 
 def eval_render(model, render_cfg, batch: RayBatch,
@@ -257,21 +286,32 @@ class NeusTrainer:
     asked for and absent. ``save`` and ``restore`` use ``log_dir``.
     ``bindings`` (``make_stage1_bindings``; default: NeuS under the NeuS
     renderer) give the model, its init and its render.
+
+    With a ``mesh`` (``core/mesh.py:create_mesh``) the trainer is one rank
+    of a data-parallel run on ``mesh.device``: ``batch_size`` is the global
+    batch, which must split evenly over the ranks. Every rank calls ``run``
+    and the eval methods alike (they hold collectives); rank 0 alone
+    writes checkpoints, logs and meshes, so each rank may pass a
+    ``logger``.
     """
 
     def __init__(self, scene: BlenderScene, model_cfg: NeuSConfig,
                  render_cfg: NeusRenderConfig, train_cfg: NeusTrainConfig,
                  seed: int = 0, device="cuda", log_dir: str | None = None,
-                 bindings: Stage1Bindings | None = None):
+                 bindings: Stage1Bindings | None = None, mesh: DataMesh | None = None):
         self.scene = scene
         self.log_dir = log_dir
         self.model_cfg = model_cfg
         self.render_cfg = render_cfg
         self.train_cfg = train_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self._rows = (mesh.local_slice(train_cfg.batch_size) if mesh is not None
+                      else slice(None))
         self.bindings = bindings or make_stage1_bindings("neus", "neus", model_cfg, render_cfg)
         self.model = self.bindings.model(self.bindings.init(torch.Generator().manual_seed(seed)),
                                          self.device)
+        replicate(mesh, self.model.parameters())
         self.optimizer, self.lr_fn = make_optimizer(self.model.parameters(),
                                                     train_cfg)
         self.step = 0
@@ -283,8 +323,20 @@ class NeusTrainer:
         return self.scene.sample(self._rng, self.train_cfg.batch_size)
 
     def _put(self, batch: RayBatch) -> RayBatch:
-        return RayBatch(*[torch.as_tensor(np.asarray(x), device=self.device)
+        """This rank's rows of a global batch, on its device."""
+        return RayBatch(*[torch.as_tensor(np.asarray(x)[self._rows], device=self.device)
                           for x in batch])
+
+    def _draws(self) -> Draws:
+        """A step's draws: from the trainer's generator, per-ray draws of
+        the global batch cut to this rank's rows."""
+        local = self._rows.stop - self._rows.start if self.mesh is not None else 0
+        return Draws(self._noise, device=self.device, split=batch_split(self.mesh, local))
+
+    def _train_step(self, batch: RayBatch, step: int) -> dict:
+        return train_step(self.model, self.optimizer, self.lr_fn, batch, step,
+                          self.train_cfg, self.render_cfg, self._draws(),
+                          self.bindings.render, self.mesh)
 
     def run(self, n_steps: int, log_every: int = 0,
             metrics_cb: Callable[[int, dict], None] | None = None,
@@ -300,10 +352,7 @@ class NeusTrainer:
         cfg = self.train_cfg
         last, metrics = {}, {}
         for _ in range(n_steps):
-            batch = self._put(next(self._prefetch))
-            metrics = train_step(self.model, self.optimizer, self.lr_fn, batch, self.step,
-                                 cfg, self.render_cfg, Draws(self._noise, device=self.device),
-                                 self.bindings.render)
+            metrics = self._train_step(self._put(next(self._prefetch)), self.step)
             self.step += 1
             if log_every and self.step % log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
@@ -319,14 +368,17 @@ class NeusTrainer:
         """The periodic test render and mesh (trainer.py:75-81): with a
         ``logger``, test view ``step % n_images`` as ``test_rgb_<step>.png``
         with its PSNR and MSE, and the mesh at ``mesh_resolution`` as
-        ``meshes/mesh_<step>.ply`` (none for a density model)."""
+        ``meshes/mesh_<step>.ply`` (none for a density model). Under a mesh
+        every rank renders its share; rank 0 writes."""
         if logger is None:
             return
+        writer = is_writer(self.mesh)
         if test_scene is not None:
             out = self.render_image(self.step % test_scene.n_images, scene=test_scene)
-            logger.log_image(self.step, "test_rgb", np.clip(out["rgb"], 0, 1))
-            logger.log_scalars(self.step, "test", psnr=out["psnr"], mse=out["mse"])
-        if self.bindings.sdf is not None:
+            if writer:
+                logger.log_image(self.step, "test_rgb", np.clip(out["rgb"], 0, 1))
+                logger.log_scalars(self.step, "test", psnr=out["psnr"], mse=out["mse"])
+        if self.bindings.sdf is not None and writer:
             logger.log_mesh(self.step, self.extract_mesh())
 
     def test(self, test_scene: BlenderScene, n_frames: int | None = None,
@@ -348,7 +400,7 @@ class NeusTrainer:
         rays_per_sec = sum(f.shape[0] * f.shape[1] for f in frames) / render_time
         metrics = {"mean_psnr": float(np.mean(psnrs)), "mean_mse": float(np.mean(mses)),
                    "render_time": render_time, "rays_per_sec": rays_per_sec}
-        if logger is not None:
+        if logger is not None and is_writer(self.mesh):
             if len({f.shape for f in frames}) == 1:
                 logger.log_video("test_frames", frames)
             else:  # ragged (Multicam): a video needs frames of one size
@@ -390,11 +442,12 @@ class NeusTrainer:
         the JAX package's format, so that either package's trainer resumes
         from it and either package's stage 2 reads its parameters
         (``stage2_runner.load_neus_checkpoint``, ``robir_tpu/cli.py``).
-        Returns the path."""
+        Returns the path; under a mesh rank 0 alone writes it."""
         if not self.log_dir:
             raise ValueError("NeusTrainer.save needs a log_dir")
         path = ckpt_lib.step_path(self.log_dir, self.step)
-        ckpt_lib.save(path, self.state(), step=self.step)
+        if is_writer(self.mesh):
+            ckpt_lib.save(path, self.state(), step=self.step)
         return path
 
     def restore(self, path: str | None = None) -> None:
@@ -439,6 +492,47 @@ class NeusTrainer:
                             resolution=resolution or self.train_cfg.mesh_resolution,
                             device=self.device)
 
+    def throughput(self, n_steps: int = 20, warmup: int = 3, reps: int = 4) -> float:
+        """Rays/s sustained, as the JAX trainer's: ``batch_size`` (the
+        global batch) over the best time a step of ``reps`` runs of
+        ``n_steps`` chained train steps on one batch, after ``warmup``
+        steps; each run timed with CUDA events on the card (the host clock
+        on the CPU). The batch comes from its own RNG, and afterwards the
+        parameters, the Adam state, the step and the draws' generator are
+        as they were: the trainer does not move. Under a mesh every rank
+        runs the steps and the slowest rank's best time counts."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        saved = ([p.detach().clone() for p in params],
+                 copy.deepcopy(self.optimizer.state_dict()), self._noise.get_state())
+        batch = self._put(self.scene.sample(np.random.default_rng(self.step),
+                                            self.train_cfg.batch_size))
+        cuda = self.device.type == "cuda"
+
+        def chain(k: int) -> float:
+            """Seconds for ``k`` steps, to the device's end of them."""
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            t0 = time.perf_counter()
+            for i in range(k):
+                self._train_step(batch, self.step + i)
+            if cuda:
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3
+            return time.perf_counter() - t0
+
+        try:
+            chain(max(1, warmup))
+            best = min(chain(n_steps) / n_steps for _ in range(reps))
+        finally:
+            with torch.no_grad():
+                for p, v in zip(params, saved[0]):
+                    p.copy_(v)
+            self.optimizer.load_state_dict(saved[1])
+            self._noise.set_state(saved[2])
+        return self.train_cfg.batch_size / global_max(self.mesh, best)
+
     def close(self) -> None:
         """Stop the prefetch thread."""
         if self._prefetch is not None:
@@ -447,11 +541,15 @@ class NeusTrainer:
 
     def render_image(self, idx: int = 0, scene: BlenderScene | None = None) -> dict:
         """Chunked whole-image render of one view, with its MSE and PSNR
-        against the view's image."""
+        against the view's image. Under a mesh each chunk (``eval_chunk``
+        rounded up to a multiple of the world size) is split over the ranks
+        and gathered: every rank returns the whole image."""
         scene = scene or self.scene
         full = scene.image_rays(idx)
         n = full.origins.shape[0]
-        chunk = self.train_cfg.eval_chunk
+        world = self.mesh.world if self.mesh is not None else 1
+        chunk = pad_to_multiple(self.train_cfg.eval_chunk, world)
+        rows = slice(None) if self.mesh is None else self.mesh.local_slice(chunk)
         outs = []
         for i in range(0, n, chunk):
             sl = RayBatch(*[np.asarray(x[i:i + chunk]) for x in full])
@@ -460,9 +558,11 @@ class NeusTrainer:
             if pad:
                 sl = RayBatch(*[np.concatenate([x, np.repeat(x[-1:], pad, 0)])
                                 for x in sl])
-            out = eval_render(self.model, self.render_cfg, self._put(sl),
-                              self.bindings.render)
-            outs.append({k: v[:valid].cpu().numpy() for k, v in out.items()})
+            # this rank's share of the chunk, then every rank's gathered
+            local = RayBatch(*[torch.as_tensor(x[rows], device=self.device) for x in sl])
+            out = eval_render(self.model, self.render_cfg, local, self.bindings.render)
+            outs.append({k: gather_rows(self.mesh, v)[:valid].cpu().numpy()
+                         for k, v in out.items()})
         # per-image shapes for ragged scenes (Multicam); others have h, w
         h, w = scene.image_shape(idx) if hasattr(scene, "image_shape") else (scene.h, scene.w)
         img = {k: np.concatenate([o[k] for o in outs], 0) for k in outs[0]}

@@ -21,9 +21,11 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from ..core.draws import Draws
+from ..core.mesh import DataMesh, global_sum
 from ..core.params import ParamTree
 from ..fields.encoding import integrated_pos_enc
 from ..fields.sparse_ae import sparse_ae_apply
@@ -53,20 +55,22 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
 
 
 def norm_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: NormStageConfig, batch: dict,
-              cur_iter: int, draws: Draws):
+              cur_iter: int, draws: Draws, mesh: DataMesh | None = None):
     """The Norm step's loss (``make_norm_step``'s ``loss_fn``) on ``batch``
     (``BATCH_KEYS``) at step ``cur_iter`` -> (total, metrics): ``loss``,
     ``normal_loss`` and ``smooth_loss``. The smoothness term counts from
-    ``cur_iter > smooth_after``; its noise is the draw ``normal_ae``."""
+    ``cur_iter > smooth_after``; its noise is the draw ``normal_ae``. Under
+    a ``mesh``, ``batch`` is this rank's rows and both means are over the
+    global count of masked points (each rank's share)."""
     env = cfg.envmap
     points = batch["points"]
     mask = batch["object_mask"].to(points.dtype)[:, None]
     pts_ipe = integrated_pos_enc(points, torch.full_like(points, 1e-5), env.ipe)
-    noise = draws.normal("normal_ae", env.normal_ae.noise_shape(points.shape[0]))
+    noise = draws.normal("normal_ae", env.normal_ae.noise_shape(points.shape[0]), rows=True)
     normal, xi_normal = sparse_ae_apply(
         params["envmap_material_network"]["normal_decoder_layer"], env.normal_ae, pts_ipe, noise)
     normal, xi_normal = _unit(normal), _unit(xi_normal)
-    denom = torch.clamp(torch.sum(mask) * 3, min=1.0)
+    denom = torch.clamp(global_sum(mesh, torch.sum(mask)) * 3, min=1.0)
     normal_loss = torch.sum(mask * (normal - batch["normals"]) ** 2) / denom
     smooth_loss = torch.sum(mask * torch.abs(normal - xi_normal)) / denom
     use_smooth = float(cur_iter > stage_cfg.smooth_after)
@@ -82,7 +86,8 @@ class NormRunner(Stage2RunnerBase):
     stage's parameters (as ``robir_tpu/cli.py:cmd_vis`` restores them) and
     ``PBRRunner.load_norm_checkpoint`` read.
 
-    Runs on ``cuda`` unless ``device="cpu"`` is passed."""
+    Runs on ``cuda`` unless ``device="cpu"`` is passed; with a ``mesh``,
+    one rank of a data-parallel run (``Stage2RunnerBase``)."""
 
     stage_name = "Norm"
     TRAINABLE = ("envmap_material_network/normal_decoder_layer",)
@@ -90,8 +95,8 @@ class NormRunner(Stage2RunnerBase):
     def __init__(self, cfg: Stage2Config, params: dict,
                  tex_space_sampler: TexSpaceSampler | None,
                  stage_cfg: NormStageConfig = NormStageConfig(), seed: int = 0, device="cuda",
-                 log_dir: str | None = None):
-        super().__init__(cfg, params, seed, device, log_dir)
+                 log_dir: str | None = None, mesh: DataMesh | None = None):
+        super().__init__(cfg, params, seed, device, log_dir, mesh)
         self.stage_cfg = stage_cfg
         self.sampler = tex_space_sampler
         self.optimizer, self.lr_fn = make_adam(self.trainable, stage_cfg.opt)
@@ -103,19 +108,21 @@ class NormRunner(Stage2RunnerBase):
     def _batch(self) -> dict:
         """``num_pixels`` texture-space samples from the numpy RNG, on the
         runner's device; the points and normals in float32, as the JAX
-        runner puts them on its device (the samples are float64 numpy)."""
+        runner puts them on its device (the samples are float64 numpy);
+        this rank's rows of them under a mesh."""
         b = self.sampler.simple_data_batch(self.rng, self.stage_cfg.num_pixels)
-        return {k: torch.as_tensor(b[k], device=self.device,
-                                   dtype=torch.bool if k == "object_mask" else torch.float32)
-                for k in BATCH_KEYS}
+        return self._local({k: np.asarray(b[k], dtype=bool if k == "object_mask"
+                                          else np.float32) for k in BATCH_KEYS})
 
     def step(self, batch: dict, draws: Draws) -> dict:
-        """One Adam update at ``cur_iter``'s learning rate; then
-        ``cur_iter`` + 1. Returns the metrics (detached)."""
+        """One Adam update at ``cur_iter``'s learning rate (the gradients and
+        metrics summed over a mesh's ranks first); then ``cur_iter`` + 1.
+        Returns the metrics (detached)."""
         loss, metrics = norm_loss(self.params, self.cfg, self.stage_cfg, batch, self.cur_iter,
-                                  draws)
+                                  draws, self.mesh)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = self._reduce(metrics)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_fn(self.cur_iter)
         self.optimizer.step()
@@ -124,7 +131,8 @@ class NormRunner(Stage2RunnerBase):
 
 
 def get_neus_surface(model: Stage2Model, points: torch.Tensor, view_dirs: torch.Tensor,
-                     pred_normals: torch.Tensor, n_samp: int = 32, dist: float = 0.05):
+                     pred_normals: torch.Tensor, n_samp: int = 32, dist: float = 0.05,
+                     mesh: DataMesh | None = None):
     """Short-segment NeuS integration of the surface position and normal
     (NormalTrainRunner.get_neus_surface, train_normal.py:239-286): march
     ``dist`` back along each view ray from its surface point in ``n_samp``
@@ -132,7 +140,9 @@ def get_neus_surface(model: Stage2Model, points: torch.Tensor, view_dirs: torch.
     with the NeuS alpha weights (alpha clipped to [0.01, 0.99]), and give
     the residual weight to (points, pred_normals). ``model`` is the
     stage-2 model of the frozen NeuS. Returns (final_x [N, 3],
-    final_normal [N, 3], gradient_error scalar)."""
+    final_normal [N, 3], gradient_error scalar); under a ``mesh`` the
+    gradient error's count of samples inside the relaxed sphere is every
+    rank's (this rank's share of the global mean)."""
     if not model.cfg.use_neus:
         raise ValueError(IDR_REFUSAL)
     t = torch.linspace(0.0, dist, n_samp, dtype=points.dtype, device=points.device)[:, None]
@@ -159,7 +169,7 @@ def get_neus_surface(model: Stage2Model, points: torch.Tensor, view_dirs: torch.
     pts_norm = torch.linalg.norm(flat, dim=-1).reshape(-1, n_samp)
     relax = (pts_norm < 1.2).to(points.dtype)
     grad_err = torch.sum(relax * (torch.linalg.norm(normals, dim=-1) - 1.0) ** 2) / (
-        torch.sum(relax) + 1e-5)
+        global_sum(mesh, torch.sum(relax)) + 1e-5)
     return final_x, final_normal, grad_err
 
 

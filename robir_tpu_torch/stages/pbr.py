@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.draws import Draws
+from ..core.mesh import DataMesh, global_sum
 from ..core.params import ParamTree
 from ..data.syn_dataset import SynDataset
 from ..render import sg as sg_lib
@@ -97,14 +98,16 @@ def pbr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs, indir_lgt
 
 
 def pbr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: PBRStageConfig, batch: dict,
-             draws: Draws, traced=None, grid_values=None):
+             draws: Draws, traced=None, grid_values=None, mesh: DataMesh | None = None):
     """The PBR step's loss (``make_pbr_step``'s ``loss_fn``) on ``batch``
     (``BATCH_KEYS``) -> (total, metrics): ``loss``, ``rgb_loss``, ``kl``,
     ``smooth``, ``white``, ``psnr`` and ``surface_frac``. In row mode where
     ``stage2_forward`` compacts at ``stage_cfg.compact_chunk``, else dense.
     ``traced`` as in ``stage2_forward``; ``grid_values`` is the grid
-    tracer's baked grid."""
-    model = Stage2Model(params, cfg, batch["dirs"].device, grid_values)
+    tracer's baked grid. Under a ``mesh``, ``batch`` is this rank's rows,
+    the loss and every metric but ``psnr`` (global) this rank's share."""
+    model = Stage2Model(params, cfg, batch["dirs"].device, grid_values, mesh)
+    world = 1 if mesh is None else mesh.world
     n = batch["dirs"].shape[0]
     inp = {"points": batch["points"], "dirs": batch["dirs"],
            "object_mask": batch["object_mask"],
@@ -115,23 +118,25 @@ def pbr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: PBRStageConfig, ba
     loss_cfg = stage_cfg.loss
     pred = hdr2ldr(params["gamma"], cfg.tonemap, out["sg_rgb"] + out["indir_rgb"])
     mask = out["network_object_mask"] & out["object_mask"]
-    sg_rgb_loss = rgb_loss(loss_cfg, pred, batch["rgb"], mask)
+    sg_rgb_loss = rgb_loss(loss_cfg, pred, batch["rgb"], mask, mesh)
     env = params["envmap_material_network"]
-    kl = masked_spec_kl(env, cfg.envmap, out["points"], mask) * loss_cfg.kl_weight
+    kl = masked_spec_kl(env, cfg.envmap, out["points"], mask, mesh=mesh) * loss_cfg.kl_weight
     # the reference's (latent_smooth_weight * smooth) * 0.1 (loss.py:122,
     # train_pbr.py:333)
     smooth = latent_smooth_loss(out["diffuse_albedo"], out["roughness"],
-                                out["random_xi_diffuse_albedo"],
-                                out["random_xi_roughness"]) * loss_cfg.latent_smooth_weight * 0.1
-    wl = white_loss(env["lgtSGs"])
+                                out["random_xi_diffuse_albedo"], out["random_xi_roughness"],
+                                mesh) * loss_cfg.latent_smooth_weight * 0.1
+    # a term of the parameters alone: every rank's share of it
+    wl = white_loss(env["lgtSGs"]) / world
     total = loss_cfg.sg_rgb_weight * sg_rgb_loss + kl + smooth + wl
     with torch.no_grad():
         w = mask.to(pred.dtype)[:, None]
-        mse = torch.sum(w * (pred - batch["rgb"]) ** 2) / torch.clamp(torch.sum(w) * 3, min=1.0)
+        sq, n_w = global_sum(mesh, torch.sum(w * (pred - batch["rgb"]) ** 2), torch.sum(w))
+        mse = sq / torch.clamp(n_w * 3, min=1.0)
         metrics = {"loss": total.detach(), "rgb_loss": sg_rgb_loss.detach(), "kl": kl.detach(),
                    "smooth": smooth.detach(), "white": wl.detach(),
                    "psnr": -10 / np.log(10) * torch.log(mse + 1e-12),
-                   "surface_frac": torch.mean(mask.to(torch.float32))}
+                   "surface_frac": torch.sum(mask.to(torch.float32)) / (mask.shape[0] * world)}
     return total, metrics
 
 
@@ -141,15 +146,16 @@ class PBRRunner(MaterialRunner):
     with ``tracer="grid"``, then ``run(n)``: n steps, each in row mode or
     dense as ``step_config`` picks.
 
-    Runs on ``cuda`` unless ``device="cpu"`` is passed."""
+    Runs on ``cuda`` unless ``device="cpu"`` is passed; with a ``mesh``,
+    one rank of a data-parallel run (``MaterialRunner``)."""
 
     stage_name = "PBR"
     TRAINABLE = ("gamma", "envmap_material_network")
 
     def __init__(self, cfg: Stage2Config, params: dict, dataset: SynDataset,
                  stage_cfg: PBRStageConfig = PBRStageConfig(), seed: int = 0, device="cuda",
-                 log_dir: str | None = None):
-        super().__init__(cfg, params, dataset, stage_cfg, seed, device, log_dir)
+                 log_dir: str | None = None, mesh: DataMesh | None = None):
+        super().__init__(cfg, params, dataset, stage_cfg, seed, device, log_dir, mesh)
 
     def load_norm_checkpoint(self, path: str) -> None:
         """The normal decoder of the Norm stage's checkpoint
@@ -165,7 +171,7 @@ class PBRRunner(MaterialRunner):
     def step(self, batch: dict, draws: Draws) -> dict:
         """One update at ``cur_iter``; returns the metrics (detached)."""
         loss, metrics = pbr_loss(self.params, self.cfg, self.step_config(), batch, draws,
-                                 grid_values=self.grid_values)
+                                 grid_values=self.grid_values, mesh=self.mesh)
         return self._update(loss, metrics)
 
     def render_view(self, idx: int, dataset=None, chunk: int = 8000) -> dict:

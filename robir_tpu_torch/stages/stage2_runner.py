@@ -11,6 +11,16 @@ checkpoints in the JAX package's format: the runner's own (``save``,
 common loop (``MaterialRunner``); ``render_view``, the chunked eval
 render of a whole view, and ``map_view``, the chunking under it that the
 stages' plots share.
+
+Data parallelism (``mesh=``, ``core/mesh.py``; the JAX runners'
+``mesh=``/``shard_batch``): the parameters are rank 0's; every rank draws
+the global pixel batch and the global draws from the shared seed and
+keeps its rows; the losses take global counts; the gradients and metrics
+are summed in one all-reduce; every rank applies the same update. Each
+rank bakes the grid itself (K1 forward, no atomics: the same bits on
+every rank, which ``bake_grid`` checks with one all-gather of a checksum)
+rather than receive rank 0's, which would move the whole grid. Rank 0
+alone writes checkpoints (and, by the callers, plots).
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from ..fields.neus_model import init_neus
 from ..fields.radiance import init_rendering
 from ..fields.sdf import init_sdf
 from ..core.draws import Draws
+from ..core.mesh import (DataMesh, all_reduce_grads, batch_split, check_replicas, is_writer,
+                         replicate)
 from ..fields.visibility import init_indirect, init_visnet
 from ..render.color import as_input, hdr2ldr, init_tonemap
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
@@ -100,17 +112,23 @@ class Stage2RunnerBase:
     frozen, the host RNG for batches, the device generator for the step's
     draws, the grid tracer's baked grid (``bake_grid``), checkpoints
     under ``log_dir/<stage_name>/checkpoints``, and ``run(n)`` over the
-    subclass's ``step`` and ``_batch``."""
+    subclass's ``step`` and ``_batch``.
+
+    With a ``mesh`` the runner is one rank of a data-parallel run on
+    ``mesh.device``; the stage's ``num_pixels`` is the global batch, which
+    must split evenly over the ranks; every rank calls the same methods."""
 
     stage_name = "Base"
     TRAINABLE: Sequence[str] = ()
 
     def __init__(self, cfg: Stage2Config, params: dict, seed: int = 0, device="cuda",
-                 log_dir: str | None = None):
+                 log_dir: str | None = None, mesh: DataMesh | None = None):
         self.cfg = cfg
         self.log_dir = log_dir
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.params = from_jax(params, self.device)
+        replicate(mesh, self.params.parameters())
         self.trainable = freeze(self.params, self.TRAINABLE)
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -130,6 +148,28 @@ class Stage2RunnerBase:
         model = Stage2Model(self.params, self.cfg, self.device)
         self.grid_values = build_sdf_grid(model.frozen_sdf(), self.cfg.grid,
                                           device=self.device)
+        check_replicas(self.mesh, "the baked grid", [self.grid_values])
+
+    def _local(self, batch: dict) -> dict:
+        """This rank's rows of a global batch of numpy arrays, on its
+        device."""
+        rows = (slice(None) if self.mesh is None
+                else self.mesh.local_slice(self.stage_cfg.num_pixels))
+        return {k: torch.as_tensor(np.asarray(v)[rows], device=self.device)
+                for k, v in batch.items()}
+
+    def _draws(self) -> Draws:
+        """A step's draws from the runner's generator; per-row draws of the
+        global batch cut to this rank's rows."""
+        local = self.stage_cfg.num_pixels // (self.mesh.world if self.mesh is not None else 1)
+        return Draws(self.generator, device=self.device, split=batch_split(self.mesh, local))
+
+    def _reduce(self, metrics: dict) -> dict:
+        """Sum the trainable gradients and the metrics (detached; ``psnr``
+        is global already) over the ranks in one all-reduce; returns the
+        metrics, global."""
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return all_reduce_grads(self.mesh, self.trainable, metrics, shared=("psnr",))
 
     # -- checkpoints ------------------------------------------------------
 
@@ -142,10 +182,11 @@ class Stage2RunnerBase:
         """Write the parameters and ``cur_iter`` to ``ckpt_<step>.npz`` and
         ``latest.npz`` of ``ckpt_dir()`` (the JAX runner's two files);
         returns the step file's path. Optimizer moments are not written, as
-        in the JAX package."""
+        in the JAX package. Under a mesh rank 0 alone writes."""
         path = ckpt_lib.step_path(self.ckpt_dir(), self.cur_iter)
-        for p in (path, os.path.join(self.ckpt_dir(), "latest.npz")):
-            ckpt_lib.save(p, self.params, step=self.cur_iter, extra=extra)
+        if is_writer(self.mesh):
+            for p in (path, os.path.join(self.ckpt_dir(), "latest.npz")):
+                ckpt_lib.save(p, self.params, step=self.cur_iter, extra=extra)
         return path
 
     def restore_surgical(self, path: str, keep: Callable[[str], bool]) -> None:
@@ -180,7 +221,7 @@ class Stage2RunnerBase:
         JAX runners do)."""
         last, metrics = {}, {}
         for _ in range(n_iters):
-            metrics = self.step(self._batch(), Draws(self.generator, device=self.device))
+            metrics = self.step(self._batch(), self._draws())
             if log_every and self.cur_iter % log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
                 if log_fn:
@@ -196,8 +237,8 @@ class MaterialRunner(Stage2RunnerBase):
     ``guard_every`` steps. Subclasses define ``step``."""
 
     def __init__(self, cfg: Stage2Config, params: dict, dataset, stage_cfg, seed: int = 0,
-                 device="cuda", log_dir: str | None = None):
-        super().__init__(cfg, params, seed, device, log_dir)
+                 device="cuda", log_dir: str | None = None, mesh: DataMesh | None = None):
+        super().__init__(cfg, params, seed, device, log_dir, mesh)
         self.stage_cfg = stage_cfg
         self.dataset = dataset
         self.optimizer, self.lr_fn = make_adam(self.trainable, stage_cfg.opt)
@@ -221,25 +262,27 @@ class MaterialRunner(Stage2RunnerBase):
     def _batch(self) -> dict:
         """``num_pixels`` pixels of a random camera (``BATCH_KEYS``, on the
         runner's device), drawn from the numpy RNG in the JAX runners'
-        order."""
+        order; this rank's rows of them under a mesh."""
         idx = int(self.rng.integers(self.dataset.n_cameras))
         b = self.dataset.sample_pixels(self.rng, idx, self.stage_cfg.num_pixels)
-        return {k: torch.as_tensor(b[k], device=self.device) for k in BATCH_KEYS}
+        return self._local({k: b[k] for k in BATCH_KEYS})
 
     def _update(self, loss: torch.Tensor, metrics: dict) -> dict:
-        """The Adam update of ``loss`` at ``cur_iter``'s learning rate; then
+        """The Adam update of ``loss`` at ``cur_iter``'s learning rate (the
+        gradients and metrics summed over a mesh's ranks first); then
         ``cur_iter`` + 1, and every ``guard_every`` steps the surface
-        fraction read (a wait for the device). Returns the metrics
-        detached."""
+        fraction read (a wait for the device; global, so every rank picks
+        the same step). Returns the metrics detached."""
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = self._reduce(metrics)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_fn(self.cur_iter)
         self.optimizer.step()
         self.cur_iter += 1
         if self.cur_iter % self.stage_cfg.guard_every == 0:
             self.surface_frac = float(metrics["surface_frac"])
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
 
 def render_view(model: Stage2Model, dataset, idx: int, sg_render_fn=None,

@@ -17,7 +17,16 @@ On the card the step runs the grid march twice (the 256 primary rays and
 the 131,072-ray fan) and K3 in the borrowed colour (one launch per slice
 of ``fan_compact_chunk`` needed rays); K1, K2 and K4 not at all.
 ``vis_plot_to_disk`` writes the stage's diagnostic grid of one view.
-Not ported yet: ``shard_fan`` (multi-device).
+
+Data parallelism (``VisRunner(mesh=)``): each rank holds its pixels and so
+traces, and borrows the colour of, its own pixels' fan. ``shard_fan``, the
+JAX package's spreading of the fan's own axis over the chips
+(``robir_tpu/render/stage2.py:485-535``), is therefore what one process per
+rank does already: ``shard_fan=True`` computes what ``False`` computes, as
+in the JAX package without a mesh (``robir_tpu/stages/vis.py:133-135``).
+Every rank fits the energy prologue from the same draws; rank 0's fit is
+then broadcast, so the replicas hold one energy net whatever order the
+device summed in.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core.draws import Draws
+from ..core.mesh import DataMesh, all_reduce_grads, global_sum, replicate
 from ..core.params import ParamTree
 from ..core.tree import flatten_with_paths
 from ..data.syn_dataset import SynDataset
@@ -47,21 +57,20 @@ class VisStageConfig:
     opt: StageOptConfig = StageOptConfig(lr=5e-4)
     loss: IllumLossConfig = IllumLossConfig(loss_type="L1")
     anneal_t: float = 0.0
+    # the fan over the ranks: each rank's fan is its own pixels' already
+    # (one process a rank), so True and False compute the same
     shard_fan: bool = False
     # the borrowed colour runs on the needed rays in slices of this many
     # (0: dense, on the whole fan in one call)
     fan_compact_chunk: int = 4096
-
-    def __post_init__(self):
-        if self.shard_fan:
-            raise NotImplementedError("shard_fan (the fan over several devices) is not ported")
 
 
 BATCH_KEYS = ("points", "dirs", "object_mask", "hdr_shift")
 
 
 def vis_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: VisStageConfig, batch: dict,
-             draws: Draws, grid_values=None, traced=None, fan_traced=None):
+             draws: Draws, grid_values=None, traced=None, fan_traced=None,
+             mesh: DataMesh | None = None):
     """(radiance + visibility loss, metrics) of one Vis step on ``batch``
     (``BATCH_KEYS``, [N, ...] on the parameters' device). ``traced`` is the
     primary trace's (t, hit) and ``fan_traced`` the fan's (t, hit, x), each
@@ -71,8 +80,10 @@ def vis_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: VisStageConfig, ba
     front-facing lit directions and the occluded ones, ``vis_conf_lit`` and
     ``vis_conf_occ``) and four counts: ``surface_pixels``, and the fan's
     rays that face the front (``fan_front``), that hit (``fan_hits``) and
-    whose colour was borrowed (``fan_need``)."""
-    model = Stage2Model(params, cfg, batch["dirs"].device, grid_values)
+    whose colour was borrowed (``fan_need``). Under a ``mesh``, ``batch``
+    is this rank's rows and the losses and metrics this rank's shares of
+    the global ones (global counts)."""
+    model = Stage2Model(params, cfg, batch["dirs"].device, grid_values, mesh)
     fwd = stage2_forward(model, draws, {k: batch[k] for k in BATCH_KEYS},
                          trainstage="Illum", traced=traced)
     tr = trace_radiance(model, draws, fwd, nsamp=stage_cfg.nsamp,
@@ -81,7 +92,8 @@ def vis_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: VisStageConfig, ba
         stage_cfg.loss, indirect_sgs=fwd["indirect_sgs"], indir_integral=fwd["indir_integral"],
         network_object_mask=fwd["network_object_mask"], trace_radiance=tr["trace_radiance"],
         sample_dirs=tr["sample_dirs"], gt_vis=tr["gt_vis"], pred_vis=tr["pred_vis"],
-        indir_mask=tr["indir_mask"], gt_integral=tr["gt_integral"], anneal_t=stage_cfg.anneal_t)
+        indir_mask=tr["indir_mask"], gt_integral=tr["gt_integral"], anneal_t=stage_cfg.anneal_t,
+        mesh=mesh)
     with torch.no_grad():
         p_vis = torch.softmax(tr["pred_vis"], -1)[..., 1]
         nrm = fwd["normals"]
@@ -90,26 +102,33 @@ def vis_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: VisStageConfig, ba
         surf = fwd["network_object_mask"][:, None]
         lit = (surf & front & ~tr["gt_vis"]).to(p_vis.dtype)
         occ = (surf & tr["gt_vis"]).to(p_vis.dtype)
+        n_lit, n_occ = global_sum(mesh, torch.sum(lit), torch.sum(occ))
         metrics = {
             "radiance_loss": rad.detach(), "visibility_loss": vis.detach(),
-            "vis_conf_lit": torch.sum(p_vis * lit) / torch.clamp(torch.sum(lit), min=1.0),
-            "vis_conf_occ": torch.sum(p_vis * occ) / torch.clamp(torch.sum(occ), min=1.0),
+            "vis_conf_lit": torch.sum(p_vis * lit) / torch.clamp(n_lit, min=1.0),
+            "vis_conf_occ": torch.sum(p_vis * occ) / torch.clamp(n_occ, min=1.0),
             "surface_pixels": torch.sum(surf), "fan_front": torch.sum(front),
             "fan_hits": torch.sum(tr["hit"]), "fan_need": torch.sum(tr["need"])}
     return rad + vis, metrics
 
 
 def make_vis_step(cfg: Stage2Config, stage_cfg: VisStageConfig,
-                  vis_opt: torch.optim.Optimizer, illum_opt: torch.optim.Optimizer):
+                  vis_opt: torch.optim.Optimizer, illum_opt: torch.optim.Optimizer,
+                  mesh: DataMesh | None = None):
     """``step(params, batch, draws, grid_values=None) -> metrics``: one
     forward and one backward of radiance + visibility loss, then an update
-    of each optimizer (the visibility net's and the indirect net's)."""
+    of each optimizer (the visibility net's and the indirect net's). Under
+    a ``mesh`` both nets' gradients and the metrics are summed over the
+    ranks in one all-reduce first."""
+    trainable = [p for opt in (vis_opt, illum_opt) for g in opt.param_groups
+                 for p in g["params"]]
 
     def step(params: ParamTree, batch: dict, draws: Draws, grid_values=None) -> dict:
-        loss, metrics = vis_loss(params, cfg, stage_cfg, batch, draws, grid_values)
+        loss, metrics = vis_loss(params, cfg, stage_cfg, batch, draws, grid_values, mesh=mesh)
         vis_opt.zero_grad(set_to_none=True)
         illum_opt.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = all_reduce_grads(mesh, trainable, metrics)
         vis_opt.step()
         illum_opt.step()
         return metrics
@@ -121,7 +140,8 @@ class VisRunner(Stage2RunnerBase):
     """The Vis loop on a dataset: ``fit_energy_prologue()`` once, then
     ``run(n)``. With ``tracer="grid"`` call ``bake_grid()`` first.
 
-    Runs on ``cuda`` unless ``device="cpu"`` is passed."""
+    Runs on ``cuda`` unless ``device="cpu"`` is passed; with a ``mesh``,
+    one rank of a data-parallel run (``Stage2RunnerBase``)."""
 
     stage_name = "Vis"
     VIS_PREFIX = ("visibility_network",)
@@ -130,8 +150,8 @@ class VisRunner(Stage2RunnerBase):
 
     def __init__(self, cfg: Stage2Config, params: dict, dataset: SynDataset,
                  stage_cfg: VisStageConfig = VisStageConfig(), seed: int = 0, device="cuda",
-                 log_dir: str | None = None):
-        super().__init__(cfg, params, seed, device, log_dir)
+                 log_dir: str | None = None, mesh: DataMesh | None = None):
+        super().__init__(cfg, params, seed, device, log_dir, mesh)
         self.stage_cfg = stage_cfg
         self.dataset = dataset
         self._make_optimizers()
@@ -143,7 +163,8 @@ class VisRunner(Stage2RunnerBase):
             [p for k in self.VIS_PREFIX for p in self.params[k].parameters()], opt)
         self.illum_opt, _ = make_adam(
             [p for k in self.ILLUM_PREFIX for p in self.params[k].parameters()], opt)
-        self._step = make_vis_step(self.cfg, self.stage_cfg, self.vis_opt, self.illum_opt)
+        self._step = make_vis_step(self.cfg, self.stage_cfg, self.vis_opt, self.illum_opt,
+                                   self.mesh)
 
     def _refresh_after_restore(self) -> None:
         super()._refresh_after_restore()
@@ -167,14 +188,16 @@ class VisRunner(Stage2RunnerBase):
         with torch.no_grad():
             for path, p in flatten_with_paths(gamma["energy"]).items():
                 p.copy_(new[path])
+        replicate(self.mesh, gamma["energy"].parameters())
 
     def _batch(self) -> dict:
         """A pixel batch of a random camera and its per-pixel ``hdr_shift``,
-        drawn from the numpy RNG in the JAX runner's order."""
+        drawn from the numpy RNG in the JAX runner's order; this rank's
+        rows of them under a mesh."""
         idx = int(self.rng.integers(self.dataset.n_cameras))
         b = self.dataset.sample_pixels(self.rng, idx, self.stage_cfg.num_pixels)
         b["hdr_shift"] = self.rng.random((b["dirs"].shape[0], 1)).astype(np.float32)
-        return {k: torch.as_tensor(b[k], device=self.device) for k in BATCH_KEYS}
+        return self._local({k: b[k] for k in BATCH_KEYS})
 
     def step(self, batch: dict, draws: Draws) -> dict:
         """One update at ``cur_iter``; returns the metrics (detached)."""

@@ -132,5 +132,9 @@ def test_render_neus_matches_jax(models, is_eval):
 
 
 def test_render_config_refuses_unported_options():
-    with pytest.raises(NotImplementedError):
-        tneus.NeusRenderConfig(sampling_dtype="bfloat16")
+    """``sampling_dtype`` is ported (bf16 sampling:
+    test_torch_sampling_dtype.py); a type the port has no route for is
+    refused."""
+    assert tneus.NeusRenderConfig(sampling_dtype="bfloat16").sampling_dtype == "bfloat16"
+    with pytest.raises(ValueError):
+        tneus.NeusRenderConfig(sampling_dtype="float16")

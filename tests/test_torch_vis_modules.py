@@ -201,13 +201,16 @@ def test_masked_pixels_matches_jax():
 
 def test_vis_config_section_matches_jax():
     """configs/hotdog.json's vis section gives the JAX package's config;
-    unknown keys and shard_fan: true are refused."""
+    unknown keys are refused; shard_fan: true is taken as JAX takes it
+    (with one process a rank it changes nothing: test_torch_dist_stage2.py)."""
     raw = load_config("configs/hotdog.json")["vis"]
     got = dataclasses.asdict(build_stage_config(VisStageConfig, raw))
     want = dataclasses.asdict(jbuild_stage_config(JVisStageConfig, raw))
     assert got == want and got["nsamp"] == 512 and got["fan_compact_chunk"] == 4096
     with pytest.raises(KeyError):
         build_stage_config(VisStageConfig, {**raw, "fan_chunk": 1})
-    with pytest.raises(NotImplementedError):
-        build_stage_config(VisStageConfig, {**raw, "shard_fan": True})
+    fan = {**raw, "shard_fan": True}
+    assert dataclasses.asdict(build_stage_config(VisStageConfig, fan)) == dataclasses.asdict(
+        jbuild_stage_config(JVisStageConfig, fan))
+    assert build_stage_config(VisStageConfig, fan).shard_fan
     assert not build_stage_config(VisStageConfig, {**raw, "shard_fan": False}).shard_fan

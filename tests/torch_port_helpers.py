@@ -397,3 +397,205 @@ def assert_grads_match(tparams, jgrads, rtol: float = 5e-4, scale_atol: float = 
         g = np.zeros_like(w) if leaf.grad is None else to_np(leaf.grad)
         np.testing.assert_allclose(g, w, rtol=rtol, atol=scale_atol * float(np.abs(w).max()),
                                    err_msg=path)
+
+
+# -- data-parallel ranks ---------------------------------------------------
+# The functions below run on spawned ranks (``core/mesh.py:spawn_ranks``),
+# which import them by path: they import nothing of JAX, and their inputs
+# and results are numpy arrays, floats and configs.
+
+def each(mesh, *calls):
+    """Run ``fn(mesh, *args)`` for each ``(fn, args)`` of ``calls`` on one
+    rank, in order; returns their results (one spawn for several runs)."""
+    return [fn(mesh, *args) for fn, args in calls]
+
+
+def flat_params(tree) -> dict:
+    from robir_tpu_torch.core.tree import flatten_with_paths
+    return {k: v.detach().cpu().numpy().copy() for k, v in flatten_with_paths(tree).items()}
+
+
+def flat_grads(tree) -> dict:
+    """Each leaf's gradient (zeros where it has none), flat."""
+    from robir_tpu_torch.core.tree import flatten_with_paths
+    return {k: (np.zeros(tuple(v.shape), np.float32) if v.grad is None
+                else v.grad.detach().cpu().numpy().copy())
+            for k, v in flatten_with_paths(tree).items()}
+
+
+def rank_train_step(mesh, params, model_cfg, render_cfg, train_cfg, batch, given, step=0):
+    """One stage-1 ``train_step`` on this rank's rows of ``batch`` (a
+    RayBatch of numpy arrays, the global batch) with the global draws
+    ``given``; returns (metrics, the summed gradients, flat)."""
+    from robir_tpu_torch.core.draws import Draws
+    from robir_tpu_torch.core.mesh import batch_split
+    from robir_tpu_torch.data.blender import RayBatch
+    from robir_tpu_torch.fields.neus_model import NeuS
+    from robir_tpu_torch.stages import neus_stage as tstage
+    model = NeuS(params, model_cfg, mesh.device)
+    opt, lr_fn = tstage.make_optimizer(model.parameters(), train_cfg)
+    rows = mesh.local_slice(len(batch[0]))
+    local = RayBatch(*[torch.as_tensor(np.asarray(x)[rows], device=mesh.device) for x in batch])
+    draws = Draws(given={k: torch.as_tensor(v) for k, v in given.items()}, device=mesh.device,
+                  split=batch_split(mesh, rows.stop - rows.start))
+    metrics = tstage.train_step(model, opt, lr_fn, local, step, train_cfg, render_cfg, draws,
+                                mesh=mesh)
+    return {k: float(v) for k, v in metrics.items()}, flat_grads(model.params)
+
+
+def rank_trainer_run(mesh, scene_kw, model_cfg, render_cfg, train_cfg, steps: int):
+    """``NeusTrainer(mesh=mesh)`` on the in-memory sphere scene for
+    ``steps`` steps; returns (its flat parameters, the last metrics)."""
+    from robir_tpu_torch.core.mesh import check_replicas
+    from robir_tpu_torch.data.synthetic import make_sphere_scene
+    from robir_tpu_torch.stages.neus_stage import NeusTrainer
+    trainer = NeusTrainer(make_sphere_scene("train", **scene_kw), model_cfg, render_cfg,
+                          train_cfg, device="cpu", mesh=mesh)
+    try:
+        metrics = trainer.run(steps)
+    finally:
+        trainer.close()
+    check_replicas(mesh, "the stage-1 parameters", trainer.model.parameters())
+    return flat_params(trainer.model.params), metrics
+
+
+def small_stage2_cfg(tracer: str = "grid"):
+    """The stage-2 widths of ``test_torch_cesr.py`` (8 SG lights, 32-wide
+    nets), with the grid tracer at configs/hotdog.json's settings at 32^3."""
+    from robir_tpu_torch.fields import sdf as tsdf
+    from robir_tpu_torch.fields.envmap_material import EnvmapMaterialConfig
+    from robir_tpu_torch.fields.neus_model import NeuSConfig
+    from robir_tpu_torch.fields.radiance import RenderingConfig
+    from robir_tpu_torch.fields.visibility import IndirIllumConfig, VisNetConfig
+    from robir_tpu_torch.render.color import ToneMapConfig
+    from robir_tpu_torch.render.stage2 import Stage2Config
+    from robir_tpu_torch.tracing.grid import GridConfig
+    return Stage2Config(
+        neus=NeuSConfig(sdf=tsdf.SDFConfig(d_out=33, d_hidden=32, n_layers=3, skip_in=(2,),
+                                           multires=3),
+                        color=RenderingConfig(d_feature=32, d_hidden=32, n_layers=2)),
+        envmap=EnvmapMaterialConfig(multires=3, num_lgt_sgs=8, encoder_dims=(48, 48),
+                                    decoder_dims=(24,), latent_dim=8),
+        indirect=IndirIllumConfig(multires=3, dims=(32, 32), num_lgt_sgs=6),
+        visnet=VisNetConfig(points_multires=3, dirs_multires=3, dims=(32, 32)),
+        tonemap=ToneMapConfig(hdr_mode=0), tracer=tracer,
+        grid=GridConfig(resolution=32, max_steps=64, storage_dtype="bfloat16", quad_rows=True))
+
+
+def small_cesr_stage(**kw):
+    """A CESR stage config with ``test_torch_cesr.py``'s narrow 3 x 96
+    shadow and normal nets (PE 10 of the points, 63 inputs)."""
+    import dataclasses
+
+    from robir_tpu_torch.fields.sdf import SDFConfig
+    from robir_tpu_torch.stages.cesr import CESRStageConfig
+
+    net = dict(d_hidden=96, n_layers=3, skip_in=(2,), multires=0)
+
+    @dataclasses.dataclass(frozen=True)
+    class Small(CESRStageConfig):
+        @property
+        def shadow_cfg(self):
+            return SDFConfig(d_in=63 + self.num_lights, d_out=2, **net)
+
+        @property
+        def normal_cfg(self):
+            return SDFConfig(d_in=63, d_out=3, **net)
+
+    return Small(**kw)
+
+
+def rank_stage2_run(mesh, stage: str, stage_kw: dict, steps: int, tex_root=None,
+                    seed: int = 0):
+    """A stage-2 runner of ``stage`` ("pbr", "cesr", "vis" or "norm") at
+    ``small_stage2_cfg`` on the shadow scene (4 views, 32 x 32) and the
+    two-sphere grid, from seeded weights, for ``steps`` steps, one rank of
+    ``mesh`` (None: one process); the Vis energy prologue 3 steps, the Norm
+    sampler the texture of ``tex_root/mesh.ply`` at 64^2, which
+    ``two_sphere_tex_sampler(tex_root, 64)`` wrote beforehand (the ranks
+    read it). Returns (its flat parameters, each step's metrics as
+    floats)."""
+    import os
+
+    from robir_tpu_torch.core.mesh import check_replicas
+    from robir_tpu_torch.data.syn_dataset import shadow_scene
+    from robir_tpu_torch.stages import cesr as tcesr
+    from robir_tpu_torch.stages import norm as tnorm
+    from robir_tpu_torch.stages import pbr as tpbr
+    from robir_tpu_torch.stages import vis as tvis
+    from robir_tpu_torch.stages.stage2_runner import StageOptConfig, init_stage2_params
+    from robir_tpu_torch.core.params import to_numpy
+    from robir_tpu_torch.texture.focus_sampler import TexSpaceSampler
+    from robir_tpu_torch.texture.pipeline import TexSampler
+
+    cfg = small_stage2_cfg()
+    params = to_numpy(init_stage2_params(torch.Generator().manual_seed(seed), cfg))
+    ds = shadow_scene(n_train=4, h=32, w=32)
+    kw = dict(stage_kw, opt=StageOptConfig(lr=1e-3))
+    if stage == "pbr":
+        runner = tpbr.PBRRunner(cfg, params, ds, tpbr.PBRStageConfig(**kw), device="cpu",
+                                mesh=mesh)
+    elif stage == "cesr":
+        runner = tcesr.CESRRunner(cfg, params, ds, small_cesr_stage(
+            num_lights=8, warmup_iters=1, explore_iter=4, proj_iter=1, normal_switch_iter=2,
+            dropout_iter=3, **kw), device="cpu", mesh=mesh)
+    elif stage == "vis":
+        runner = tvis.VisRunner(cfg, params, ds, tvis.VisStageConfig(**kw), device="cpu",
+                                mesh=mesh)
+        runner.fit_energy_prologue(3)
+    else:
+        sampler = TexSpaceSampler(TexSampler(os.path.join(tex_root, "mesh.ply"), 64), None,
+                                  None, device="cpu")
+        runner = tnorm.NormRunner(cfg, params, sampler, tnorm.NormStageConfig(**kw),
+                                  device="cpu", mesh=mesh)
+    runner.grid_values = two_sphere_grid(cfg.grid)[1]
+    metrics = [{k: float(v) for k, v in runner.run(1).items()} for _ in range(steps)]
+    check_replicas(mesh, f"the {stage} parameters", runner.params.parameters())
+    return flat_params(runner.params), metrics
+
+
+def rank_pbr_step(mesh, cfg, params, dataset_kw, batch, given, stage_kw, grid):
+    """One dense ``PBRRunner.step`` on this rank's rows of ``batch`` (numpy,
+    global) with the global draws ``given`` on ``grid``; returns (metrics,
+    the summed gradients, flat)."""
+    from robir_tpu_torch.core.draws import Draws
+    from robir_tpu_torch.core.mesh import batch_split
+    from robir_tpu_torch.data.syn_dataset import shadow_scene
+    from robir_tpu_torch.stages import pbr as tpbr
+    runner = tpbr.PBRRunner(cfg, params, shadow_scene(**dataset_kw),
+                            tpbr.PBRStageConfig(**stage_kw), device="cpu", mesh=mesh)
+    runner.grid_values = torch.as_tensor(grid)
+    rows = mesh.local_slice(stage_kw["num_pixels"])
+    local = {k: torch.as_tensor(np.asarray(v)[rows]) for k, v in batch.items()}
+    draws = Draws(given={k: torch.as_tensor(v) for k, v in given.items()},
+                  split=batch_split(mesh, rows.stop - rows.start))
+    metrics = runner.step(local, draws)
+    return {k: float(v) for k, v in metrics.items()}, flat_grads(runner.params)
+
+
+def rank_ae_kl(mesh, latent):
+    """``ae_kl_divergence`` on this rank's rows of the global ``latent`` (numpy)
+    under ``mesh``: (its value, its gradient on those rows)."""
+    from robir_tpu_torch.fields.sparse_ae import ae_kl_divergence
+    x = torch.as_tensor(np.asarray(latent)[mesh.local_slice(len(latent))]).requires_grad_(True)
+    value = ae_kl_divergence(x, 0.05, mesh)
+    value.backward()
+    return float(value), x.grad.numpy().copy()
+
+
+def rank_neus_surface(mesh, points, view_dirs, normals):
+    """``get_neus_surface``'s gradient error on this rank's rows of the
+    global ``points``, ``view_dirs`` and ``normals`` (numpy) under ``mesh``
+    (None: all of them), on a seeded NeuS at ``small_stage2_cfg``."""
+    from robir_tpu_torch.core.params import to_numpy
+    from robir_tpu_torch.render.stage2 import Stage2Model
+    from robir_tpu_torch.stages.norm import get_neus_surface
+    from robir_tpu_torch.stages.stage2_runner import init_stage2_params
+    cfg = small_stage2_cfg()
+    model = Stage2Model(to_numpy(init_stage2_params(torch.Generator().manual_seed(0), cfg)),
+                        cfg, "cpu")
+    rows = slice(None) if mesh is None else mesh.local_slice(len(points))
+    x, d, n = (torch.as_tensor(np.asarray(a)[rows]) for a in (points, view_dirs, normals))
+    with torch.no_grad():
+        return float(get_neus_surface(model, x, d, n, mesh=mesh)[2])
+
