@@ -246,8 +246,34 @@
    route and K1 (which it must differ from by bf16's rounding), timed
    beside K1; ``throughput`` of both settings. Each path's (kernel, shape)
    held to its plain version.
-30. With ``--profile STEPS``, profiles that many more steps of each path and
-   prints the device time by kernel and the device's busy share.
+30. ``neus_bridge``: ``neus_bridge_render`` (its default 64 + 64 samples,
+   eval) of the seeded NeuS at configs/hotdog.json's widths on
+   BRIDGE_RAYS (4,096) stage-2 rays of the shadow scene, BRIDGE_CALLS
+   calls, each's wall time printed; the counts set to 0 just before:
+   exactly 4 K1 (262,144 rows once, 65,536 three times) and 1 K3 (524,288
+   rows) a call; rgb, acc and dist of every BRIDGE_CPU_STRIDE-th ray
+   against the CPU's render of those rays within KERNEL_TOL of each one's
+   largest entry; K1 and K3 held to their plain versions at each shape.
+31. ``stage2_options``: ``bgr`` in IDR mode, ``borrow_color`` bit-equal to
+   the unflipped run's channels reversed, then one Vis step with ``bgr``
+   against the CPU as in 16, with the card's unflipped step as the
+   planted fault; ``vis_compute_dtype="bfloat16"`` at fp32 visibility
+   storage, the PBR diffuse sweep's logits against the CPU's bf16 route
+   and against fp32 in bf16 roundoffs (the BF16_* limits), the sweep timed
+   in bf16 and in fp32.
+32. ``vis_workload``: ``tools/vis_workload.py``'s ``build()`` at its full
+   constants (``info`` printed) and ``time_step`` (VW_STEPS x VW_REPS,
+   every rep's ms a step), counted from just before the build: 500 K1
+   for the bake, 2 marches a step, K3 for the borrowed colour; each
+   (kernel, shape) held to its plain version.
+33. With ``--profile STEPS``, profiles that many more steps of each path
+   through ``tools/profiler.py`` (a trace under ``profile_traces/``,
+   read back by ``summarize_trace``) and prints the device time and ops
+   a step by category and kernel and the device's busy share; fails if
+   the trace holds no device time, lacks the device event of a host
+   launch after its first traced one, or a kernel's events there differ
+   from its launches counted in the window by more than the launches the
+   trace dropped at its start.
 
 Prints the card's name and power limit, the build time, each check, the
 kernels line (one JSON object) and, last, the result line. Any failure
@@ -295,9 +321,11 @@ from robir_tpu_torch.render.cuda import fused_value_grad as fv
 from robir_tpu_torch.render.cuda import grid_march as gm
 from robir_tpu_torch.render import sg as sg_lib
 from robir_tpu_torch.render import stage2 as stage2_mod
-from robir_tpu_torch.render.neus import outside_z_vals, render_samples, sample_z_vals
+from robir_tpu_torch.render.neus import (NeusRenderConfig, Rays, outside_z_vals, render_samples,
+                                         sample_z_vals)
 from robir_tpu_torch.render.sg import compute_envmap
-from robir_tpu_torch.render.stage2 import Stage2Model, secondary_fan, stage2_forward
+from robir_tpu_torch.render.stage2 import (Stage2Model, neus_bridge_render, secondary_fan,
+                                           stage2_forward)
 from robir_tpu_torch.stages import pbr as pbr_mod
 from robir_tpu_torch.stages.cesr import SHADOW_PE, CESRRunner, CESRStageConfig, cesr_loss
 from robir_tpu_torch.stages.norm import NormRunner, NormStageConfig, norm_loss
@@ -314,6 +342,8 @@ from robir_tpu_torch.texture.focus_sampler import TexSpaceSampler, focus_sampler
 from robir_tpu_torch.texture import pipeline as tpipe
 from robir_tpu_torch.tools import plots as tplots
 from robir_tpu_torch.tools import dryrun_multichip
+from robir_tpu_torch.tools import profiler
+from robir_tpu_torch.tools import vis_workload
 from robir_tpu_torch.tools import relight as relight_mod
 from robir_tpu_torch.tools.shadow_pipeline import make_relight_envmap
 from robir_tpu_torch.tracing import grid as tg
@@ -430,6 +460,14 @@ DDP_GRAD_TOL = 5e-4
 # within BF16_ULPS and at least BF16_MIN_GAP_ULPS away (1.29 read there),
 # so that a route that stayed in fp32 fails
 BF16_CPU_ULPS, BF16_ULPS, BF16_MIN_GAP_ULPS = 2, 8, 0.25
+
+# the NeuS bridge render: rays a call, the calls (counted), and the stride
+# of the rays the CPU renders again (512 of them)
+BRIDGE_RAYS, BRIDGE_CALLS, BRIDGE_CPU_STRIDE = 4096, 3, 8
+# bgr's borrow_color check: seeded points
+BGR_CHECK_POINTS = 4096
+# the Vis workload's time_step (tools/vis_workload.py): steps a rep, reps
+VW_STEPS, VW_REPS = 10, 4
 
 K1, K2, K3, K4 = fm.FORWARD, fm.BACKWARD, fv.FORWARD, fv.BACKWARD
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "march": gm.MARCH}
@@ -1122,31 +1160,58 @@ def reset_counts() -> None:
         k.reset()
 
 
-def profile_steps(run, n_steps: int, what: str = "train") -> None:
-    """Device time by kernel over ``n_steps`` more steps (``run(n_steps)``),
-    from torch.profiler, and the device's busy share of the window's wall
-    time (the profiler's own host overhead lengthens the window)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# the device function that each counted entry point runs once a launch
+# with rows (K2 and K4 run wgrad_kernel besides, once a layer)
+TRACE_NAMES = {"K1": "fused_mlp_fwd", "K2": "mlp_bwd_rows_kernel", "K3": "vg_fwd_kernel",
+               "K4": "vg_bwd_rows_kernel", "march": "grid_march_kernel"}
 
+
+def profile_steps(run, n_steps: int, what: str = "train") -> None:
+    """Device time and launches by kernel over ``n_steps`` more steps
+    (``run(n_steps)``): a ``tools/profiler.py:trace`` written to
+    ``profile_traces/<what>`` and read back by ``summarize_trace``, and the
+    device's busy share of the window's wall time (the profiler's own host
+    overhead lengthens the window). Raises unless the trace holds device
+    time and a device event for every launch after its first traced one
+    (the profiler drops a few launches at a trace's start), and each
+    kernel's events there equal its wrapper's launches with rows in the
+    window, less at most those dropped at the start."""
+    log_dir = ROOT / "profile_traces" / what.replace(" ", "_")
+    before = shapes()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler.trace(str(log_dir)):
+        t0 = time.perf_counter()
         run(n_steps)
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    # kernels only: a record_function span on the device (Adam's
-    # "Optimizer.step#Adam.step") would count its kernels twice
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False)),
-                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile of {n_steps} {what} steps: device busy {busy_ms / n_steps:.3f} ms per "
-          f"step of {wall_ms / n_steps:.3f} ms wall ({100 * busy_ms / wall_ms:.1f}%), "
-          f"{sum(e.count for e in kernels) / n_steps:.0f} device ops per step", flush=True)
-    for e in kernels[:20]:
-        print(f"  {e.self_device_time_total / 1e3 / n_steps:9.3f} ms/step "
-              f"{e.count / n_steps:6.1f}x  {e.key[:90]}", flush=True)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    after = shapes()
+    summary = profiler.summarize_trace(str(log_dir), top_ops=20)
+    busy_ms, ops = summary["total_ms"], summary["counts"]["ops"]
+    lost, at_start = summary["counts"]["lost"], summary["counts"]["lost_at_start"]
+    if busy_ms <= 0 or lost:
+        raise RuntimeError(f"profile of {what}: the trace holds {busy_ms} ms of device time, and "
+                           f"{lost} host launches after its first traced one lack a device event")
+    held = {}
+    for k, fn in TRACE_NAMES.items():
+        launched = sum(n - before[k].get(s, 0) for s, n in after[k].items() if s[-1] > 0)
+        traced = sum(n for name, n in ops.items() if fn in name)
+        if not launched - at_start <= traced <= launched:
+            raise RuntimeError(f"profile of {what}: {traced} {fn} events in the trace under "
+                               f"{log_dir.relative_to(ROOT)}, {launched} {k} launches counted, "
+                               f"{at_start} launches lost at its start")
+        held[k] = f"{traced}/{launched}"
+    print(f"profile of {n_steps} {what} steps ({log_dir.relative_to(ROOT)}): device busy "
+          f"{busy_ms / n_steps:.3f} ms per step of {wall_ms / n_steps:.3f} ms wall "
+          f"({100 * busy_ms / wall_ms:.1f}%), "
+          f"{sum(summary['counts']['categories'].values()) / n_steps:.0f} device ops per step; "
+          f"kernel events / counted launches {held}; the first {at_start} launches of the "
+          f"window without a device event; "
+          "by category " + ", ".join(
+              f"{k} {v / n_steps:.3f} ms ({summary['counts']['categories'][k] / n_steps:.0f}x)"
+              for k, v in summary["categories"].items()), flush=True)
+    for name, ms in summary["top_ops"]:
+        print(f"  {ms / n_steps:9.3f} ms/step {ops[name] / n_steps:6.1f}x  {name[:90]}",
+              flush=True)
 
 
 def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
@@ -1957,7 +2022,8 @@ def check_vis_path_kernels(runner, run: dict, gen) -> dict:
     return entries
 
 
-def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> None:
+def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid,
+                               planted=None) -> None:
     """One full-width Vis step (VIS_CHECK_PIXELS on and off the object x 512
     directions) on the card against the same step on the CPU in fp32 and in
     fp64 (the visibility and colour nets without their bf16 storage), from
@@ -1969,8 +2035,9 @@ def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> 
 
     Then a planted fault: the card's step again with K3 blind to the first
     row tile of each launch of the borrowed colour (its outputs zeroed
-    there, as a kernel that skipped the tile would leave them), which the
-    loss or gradient bounds must reject."""
+    there, as a kernel that skipped the tile would leave them), or, with
+    ``planted`` = (what, change), on the config ``change(cfg)``; the loss
+    or gradient bounds must reject it."""
     cfg = dataclasses.replace(
         cfg, visnet=dataclasses.replace(cfg.visnet, storage_dtype=None),
         neus=dataclasses.replace(cfg.neus, color=dataclasses.replace(cfg.neus.color,
@@ -2008,7 +2075,7 @@ def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> 
     names = [n for n, p in runners["cpu", torch.float32].params.named_parameters()
              if p.requires_grad]
 
-    def step(dev: str, dtype=torch.float32) -> tuple:
+    def step(dev: str, dtype=torch.float32, run_cfg=cfg) -> tuple:
         runner = runners[dev, dtype]
         torch.set_default_dtype(dtype)
         try:
@@ -2017,7 +2084,7 @@ def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> 
             t0 = time.perf_counter()
             k3 = K3.launches
             loss, metrics = vis_loss(
-                runner.params, cfg, stage, inp, Draws(given=taken, device=dev), grids[dev],
+                runner.params, run_cfg, stage, inp, Draws(given=taken, device=dev), grids[dev],
                 traced=(traced[0].to(dev, dtype), traced[1].to(dev)),
                 fan_traced=(fan_traced[0].to(dev, dtype), fan_traced[1].to(dev),
                             fan_traced[2].to(dev, dtype)))
@@ -2041,11 +2108,16 @@ def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> 
     m_cpu, g_cpu, s_cpu, _ = step("cpu")
     m64, g64, _, _ = step("cpu", torch.float64)
     m_gpu, g_gpu, _, k3_launches = step("cuda")
-    try:
-        fv.vg_forward_cuda = blind_to_first_tile
-        m_fault, g_fault, _, _ = step("cuda")
-    finally:
-        fv.vg_forward_cuda = real
+    if planted is None:
+        fault_what = "K3 blind to the first row tile of each borrowed-colour launch"
+        try:
+            fv.vg_forward_cuda = blind_to_first_tile
+            m_fault, g_fault, _, _ = step("cuda")
+        finally:
+            fv.vg_forward_cuda = real
+    else:
+        fault_what, change = planted
+        m_fault, g_fault, _, _ = step("cuda", run_cfg=change(cfg))
 
     def rel(a, ref):
         return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
@@ -2072,8 +2144,8 @@ def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> 
     fault = {k: abs(m_fault[k] - m_cpu[k]) / (LOSS_RTOL * abs(m_cpu[k])) for k in losses}
     fault.update({n: rel(a, r) / bound[n] for n, a, r in zip(names, g_fault, g64)})
     caught = max(fault, key=fault.get)
-    print(f"planted fault (K3 blind to the first row tile of each borrowed-colour launch): "
-          f"worst {caught} {fault[caught]:.1f}x its bound", flush=True)
+    print(f"planted fault ({fault_what}): worst {caught} {fault[caught]:.1f}x its bound",
+          flush=True)
     if need == 0:
         raise RuntimeError("the Vis step check needed no borrowed colour")
     if not max(loss_over.values()) <= 1.0:
@@ -2082,7 +2154,7 @@ def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid) -> 
         raise RuntimeError(f"Vis gradient {worst}: card vs fp64 {errs[worst][0]:.3e} of its "
                            f"largest entry > bound {bound[worst]:.3e}")
     if not fault[caught] > 1.0:
-        raise RuntimeError("the Vis step's bounds passed the planted K3 fault")
+        raise RuntimeError(f"the Vis step's bounds passed the planted fault ({fault_what})")
 
 
 def drive_vis(runner, steps: int, profile: int = 0):
@@ -2437,14 +2509,11 @@ def drive_pbr(runner, steps: int, profile: int = 0):
     return run, shaded
 
 
-def time_pbr_sweep(runner, rows: int, gen) -> None:
-    """The PBR step's diffuse sweep alone (``get_diffuse_visibility`` as
-    ``render_with_sg`` calls it): ``rows`` points on the shadow scene's
-    larger sphere x the runner's SG lights x 32 samples through its frozen
-    visibility net, forward and the backward to ``lgtSGs``, timed by CUDA
-    events, with the peak memory it adds. No kernel of the port runs in it."""
-    model = runner.model()
-    lgt = runner.params["envmap_material_network"]["lgtSGs"]
+def diffuse_sweep(model, lgt, rows: int, gen):
+    """(the PBR step's diffuse sweep as ``render_with_sg`` calls it, forward
+    and the backward to ``lgt``; its points, lobe directions and draws):
+    ``rows`` points on the shadow scene's larger sphere x ``lgt``'s SG
+    lights x 32 samples through ``model``'s visibility net."""
     m = lgt.shape[0]
     p = torch.randn(rows, 3, generator=gen, device="cuda")
     normals = p / torch.linalg.norm(p, dim=-1, keepdim=True)
@@ -2453,10 +2522,21 @@ def time_pbr_sweep(runner, rows: int, gen) -> None:
     def sweep():
         vis = sg_lib.get_diffuse_visibility(
             0.25 * normals, normals, model.vis_logits, sg_lib._unit_lobes(lgt[:, :3]),
-            torch.abs(lgt[:, 3]), theta, phi, chunk_lights=runner.cfg.sweep_light_chunk,
+            torch.abs(lgt[:, 3]), theta, phi, chunk_lights=model.cfg.sweep_light_chunk,
             vis_outer_fn=model.vis_logits_outer)
         torch.autograd.grad(vis.sum(), lgt)
 
+    return sweep, (0.25 * normals, theta, phi)
+
+
+def time_pbr_sweep(runner, rows: int, gen) -> None:
+    """The PBR step's diffuse sweep alone (``diffuse_sweep``) at ``rows``
+    points through the runner's frozen visibility net, timed by CUDA
+    events, with the peak memory it adds. No kernel of the port runs in
+    it."""
+    lgt = runner.params["envmap_material_network"]["lgtSGs"]
+    m = lgt.shape[0]
+    sweep, _ = diffuse_sweep(runner.model(), lgt, rows, gen)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -4065,6 +4145,189 @@ def drive_sampling_bf16(model_cfg, render_cfg, train_cfg, scene, steps: int, see
                                   gen=gen)
 
 
+# -- the NeuS bridge render, the stage-2 options, the Vis workload ---------
+
+
+def bridge_rays(dataset, n: int, seed: int) -> Rays:
+    """``n`` stage-2 camera rays of the shadow scene's view 0, on the CPU:
+    unit directions, near and far where each ray meets the unit sphere's
+    shell around the origin (the stage-1 NeuS's radius 2 in stage-1
+    coordinates), near at least 0.05."""
+    b = dataset.sample_pixels(np.random.default_rng(seed), 0, n)
+    o = torch.as_tensor(b["points"])
+    d = torch.as_tensor(b["dirs"])
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    dist = torch.linalg.norm(o, dim=-1, keepdim=True)
+    ones = torch.ones_like(dist)
+    return Rays(o, d, d, 0 * ones, ones, torch.clamp(dist - 1.0, min=0.05), dist + 1.0)
+
+
+def drive_neus_bridge(dataset, seed: int, gen) -> tuple[dict, dict]:
+    """Path ``neus_bridge``: ``neus_bridge_render`` (eval, its default 64 +
+    64 samples) of the seeded stage-2 NeuS at configs/hotdog.json's widths
+    (the 9 x 256 trunk; the colour net in fp32, so that bf16 rounding does
+    not mask the comparison) on BRIDGE_RAYS rays of the shadow scene,
+    BRIDGE_CALLS times, each timed to a synchronize. The counts are set to 0
+    just before: each call must launch exactly 4 K1 (the 64 coarse samples
+    and three up-sample rounds of 16 a ray; the fourth round adds samples
+    without a query) and 1 K3 (render_core's 128 a ray), nothing else. The
+    last call's rgb, acc and dist on every BRIDGE_CPU_STRIDE-th ray are held
+    to the same render of those rays on the CPU within KERNEL_TOL of each
+    one's largest entry; K1 and K3 to their plain
+    versions at every shape launched. Returns (the launches by shape, the
+    kernels-line entries)."""
+    cfg = build_stage2_config(load_config(str(STAGE2_CONFIG))["model"])
+    cfg = dataclasses.replace(cfg, neus=dataclasses.replace(
+        cfg.neus, color=dataclasses.replace(cfg.neus.color, storage_dtype=None)))
+    params = to_numpy(init_stage2_params(torch.Generator().manual_seed(seed), cfg))
+    rays = bridge_rays(dataset, BRIDGE_RAYS, seed)
+    model = Stage2Model(params, cfg, "cuda")
+    card_rays = Rays(*[t.cuda() for t in rays])
+    walls = []
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        for _ in range(BRIDGE_CALLS):
+            t0 = time.perf_counter()
+            out = neus_bridge_render(model, card_rays)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    run = launched(shapes())
+    n, r = BRIDGE_RAYS, NeusRenderConfig()
+    want = {"K1": {(fm.MAX_WIDTH, n * r.n_samples): BRIDGE_CALLS,
+                   (fm.MAX_WIDTH, n * r.n_importance // r.up_sample_steps):
+                       BRIDGE_CALLS * (r.up_sample_steps - 1)},
+            "K3": {(fm.MAX_WIDTH, n * (r.n_samples + r.n_importance)): BRIDGE_CALLS}}
+    if run != want:
+        raise RuntimeError(f"neus_bridge launches {run}, expected {want}")
+    # each ray's render reads its own samples only, so the CPU renders every
+    # BRIDGE_CPU_STRIDE-th ray of the call
+    held = slice(None, None, BRIDGE_CPU_STRIDE)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = neus_bridge_render(Stage2Model(params, cfg, "cpu"),
+                                 Rays(*[t[held] for t in rays]))
+    cpu_s = time.perf_counter() - t0
+    err = held_to_plain("neus_bridge_render, card vs CPU", [
+        (k, out[k][held].cpu(), cpu[k]) for k in ("idr_rgb", "acc", "dist")])
+    hits = int(out["network_object_mask"].sum())
+    if not 0 < hits < n:
+        raise RuntimeError(f"neus_bridge: {hits} of {n} rays have acc > 0.5")
+    print(f"neus_bridge: neus_bridge_render of the seeded NeuS ({cfg.neus.sdf.n_layers} x "
+          f"{cfg.neus.sdf.d_hidden}, PE {cfg.neus.sdf.multires}) on {n} stage-2 rays, "
+          f"{BRIDGE_CALLS} calls: wall " + ", ".join(f"{1e3 * w:.1f}" for w in walls)
+          + f" ms; launches a call {_per_step(run, BRIDGE_CALLS)} at {sorted(run['K1'])} (K1) "
+          f"and {sorted(run['K3'])} (K3); {hits} rays with acc > 0.5; rgb, acc, dist of every "
+          f"{BRIDGE_CPU_STRIDE}th ray vs the CPU's call on them ({cpu_s:.1f} s) within "
+          f"{err:.3e} (limit {KERNEL_TOL} of each one's largest entry)", flush=True)
+    plans = {fm.MAX_WIDTH: (fm.plan_from_sdf_config(cfg.neus.sdf), cfg.neus.sdf.pe)}
+    return run, hold_path_kernels("neus_bridge", run, plans, None, frozen=False, gen=gen)
+
+
+def check_bgr_vis_step(dataset, vis_stage, seed: int) -> None:
+    """``bgr``: in IDR mode (configs/hotdog.json with ``use_neus=false`` and
+    ``bgr=true``) ``borrow_color`` on the card comes out as the channels of
+    the run without ``bgr`` reversed, on BGR_CHECK_POINTS seeded points;
+    then one Vis step with ``bgr`` held to the CPU's as
+    ``check_vis_step_against_cpu`` holds it, and a planted fault, the card's
+    step without the flip, must fail its bounds."""
+    cfg = build_stage2_config(load_config(str(STAGE2_CONFIG))["model"], use_neus=False,
+                              bgr=True)
+    params = to_numpy(init_stage2_params(torch.Generator().manual_seed(seed), cfg))
+    g = torch.Generator().manual_seed(seed)
+    x = (0.3 * torch.randn(BGR_CHECK_POINTS, 3, generator=g)).cuda()
+    d = torch.randn(BGR_CHECK_POINTS, 3, generator=g).cuda()
+    with torch.no_grad():
+        flipped = Stage2Model(params, cfg, "cuda").borrow_color(x, d)
+        plain = Stage2Model(params, dataclasses.replace(cfg, bgr=False), "cuda").borrow_color(x, d)
+    if not torch.equal(flipped, torch.flip(plain, (-1,))) or torch.equal(flipped, plain):
+        raise RuntimeError("bgr: IDR mode's borrow_color is not the unflipped run's channels "
+                           "reversed")
+    print(f"stage2_options bgr: IDR mode's borrow_color on {BGR_CHECK_POINTS} points is the "
+          f"run without bgr with its channels reversed, bit for bit", flush=True)
+    grid = tg.build_sdf_grid(two_sphere_sdf, cfg.grid, device="cuda")
+    check_vis_step_against_cpu(cfg, vis_stage, dataset, params, seed, grid, planted=(
+        "the card's step with bgr off: borrow_color unflipped",
+        lambda c: dataclasses.replace(c, bgr=False)))
+
+
+def check_vis_compute_dtype(rows: int, seed: int, gen) -> None:
+    """``vis_compute_dtype="bfloat16"`` at fp32 visibility storage: the PBR
+    diffuse sweep's visibility-net logits (``vis_logits_outer`` over its
+    lobe directions, ``rows`` points x the 128 lights x 32 samples) on the
+    card held to the CPU's bf16 route within BF16_CPU_ULPS bf16 roundoffs
+    (2^-8) of the largest fp32 logit, and at least BF16_MIN_GAP_ULPS from
+    the fp32 logits (at most BF16_ULPS), so that a route left in fp32
+    fails; then the whole sweep, forward and backward to lgtSGs, timed in
+    bf16 and in fp32 with CUDA events. Seeded weights; no kernel of the
+    port runs in it."""
+    raw = load_config(str(STAGE2_CONFIG))["model"]
+    fp32 = build_stage2_config(raw)
+    fp32 = dataclasses.replace(fp32, visnet=dataclasses.replace(fp32.visnet,
+                                                                storage_dtype=None))
+    bf16 = dataclasses.replace(fp32, vis_compute_dtype="bfloat16")
+    params = to_numpy(init_stage2_params(torch.Generator().manual_seed(seed), fp32))
+    models = {k: Stage2Model(params, c, "cuda") for k, c in (("fp32", fp32), ("bf16", bf16))}
+    lgt = models["bf16"].params["envmap_material_network"]["lgtSGs"]
+    sweeps = {}
+    for k, model in models.items():
+        sweeps[k], (pts, theta, phi) = diffuse_sweep(
+            model, model.params["envmap_material_network"]["lgtSGs"], rows,
+            torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        dirs = sg_lib.sample_lobe_dirs(sg_lib._unit_lobes(lgt[:, :3]), torch.abs(lgt[:, 3]),
+                                       theta, phi).reshape(-1, 3)
+        got = models["bf16"].vis_logits_outer(pts, dirs)
+        ref32 = models["fp32"].vis_logits_outer(pts, dirs)
+        cpu = Stage2Model(params, bf16, "cpu").vis_logits_outer(pts.cpu(), dirs.cpu())
+    ulp = float(ref32.abs().max()) / 256
+    err = float((got.cpu() - cpu).abs().max())
+    gap = float((got - ref32).abs().max())
+    times = {k: cuda_ms(f, 10) for k, f in sweeps.items()}
+    print(f"stage2_options vis_compute_dtype: the diffuse sweep's logits at {rows} rows x "
+          f"{dirs.shape[0]} directions, in bf16 roundoffs of the largest fp32 logit (2^-8 x "
+          f"{256 * ulp:.3f} = {ulp:.3e}): card bf16 vs CPU bf16 route {err / ulp:.3f} (limit "
+          f"{BF16_CPU_ULPS}), vs fp32 {gap / ulp:.3f} (limits {BF16_MIN_GAP_ULPS} to "
+          f"{BF16_ULPS}); the sweep forward and backward to lgtSGs {times['bf16']:.3f} ms in "
+          f"bf16, {times['fp32']:.3f} ms in fp32 (CUDA events)", flush=True)
+    if not (err <= BF16_CPU_ULPS * ulp and BF16_MIN_GAP_ULPS * ulp <= gap <= BF16_ULPS * ulp):
+        raise RuntimeError(f"vis_compute_dtype: the card's bf16 logits are {err / ulp:.3f} "
+                           f"roundoffs from the CPU's, {gap / ulp:.3f} from fp32")
+
+
+def drive_vis_workload(gen) -> tuple[dict, dict]:
+    """Path ``vis_workload``: ``tools/vis_workload.py``'s ``build()`` at its
+    full constants on the card (``info`` printed; its bake counted here)
+    and ``time_step`` with n_steps 10 and reps 4 (every rep's ms a step,
+    and the step's launches: per step 2 marches and K3 once per slice of
+    needed rays). Every (kernel, shape) launched held to its plain version.
+    Returns (the launches by shape, the kernels-line entries)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    runner, batch, carry, info = vis_workload.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reps = vis_workload.time_step(runner, batch, carry, n_steps=VW_STEPS, reps=VW_REPS)
+    run = launched(shapes())
+    marches = sum(run.get("march", {}).values())
+    steps = VW_STEPS * (VW_REPS + 1)
+    if marches != 2 * steps or any(k in run for k in ("K2", "K4")) or sum(
+            run["K1"].values()) != 500:
+        raise RuntimeError(f"vis_workload launches {run}: expected 500 K1 for the bake and 2 "
+                           f"marches a step over {steps} steps")
+    print(f"vis_workload: info {json.dumps(info)}; build {build_s:.1f} s (the 320^3 bake "
+          f"included); time_step ({VW_STEPS} steps x {VW_REPS} reps after a warmup chain, CUDA "
+          f"events): " + ", ".join(f"{t:.3f}" for t in reps) + " ms a step; launches "
+          f"{ {k: sum(v.values()) for k, v in run.items()} } over the build and {steps} steps",
+          flush=True)
+    cfg = runner.cfg
+    plans = {fm.MAX_WIDTH: (fm.plan_from_sdf_config(cfg.neus.sdf), cfg.neus.sdf.pe)}
+    return run, hold_path_kernels("vis_workload", run, plans,
+                                  (runner.grid_values, cfg.grid, runner.dataset), frozen=True,
+                                  gen=gen)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -4280,6 +4543,25 @@ def main() -> None:
         cli_runs["sampling_bf16"] = bf16_run
         print(f"ddp_stage1, ddp_stage2 and sampling_bf16: {time.perf_counter() - t0:.1f} s wall",
               flush=True)
+
+        # the NeuS bridge render, the stage-2 options bgr and
+        # vis_compute_dtype, and the canonical Vis workload
+        phase_s = {}
+        t0 = time.perf_counter()
+        cli_runs["neus_bridge"], bridge_entries = drive_neus_bridge(dataset, args.seed, gen)
+        entries.update(bridge_entries)
+        phase_s["neus_bridge"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check_bgr_vis_step(dataset, vis_stage, args.seed)
+        check_vis_compute_dtype(int(np.median(pbr_shaded)), args.seed, gen)
+        phase_s["stage2_options"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_runs["vis_workload"], vw_entries = drive_vis_workload(gen)
+        entries.update(vw_entries)
+        phase_s["vis_workload"] = time.perf_counter() - t0
+        print("neus_bridge, stage2_options and vis_workload wall time: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in phase_s.items()) + f"; {sum(phase_s.values()):.1f} s "
+            "in all", flush=True)
 
     # each entry counts its kernel's launches on its path, at its shape (or
     # at every shape: stage 1's entries, timed at the path's largest rows;

@@ -22,10 +22,8 @@ switch packages between any two stages. ``neus`` trains every stage-1
 model and renderer the JAX CLI trains (``model.type`` neus, hash or vnerf;
 ``render.type`` neus or mip; the NeRF background shell) on every dataset
 type it reads (blender, neus_npz, llff, multicam); stage 2 runs in IDR
-mode (``model.use_neus=false``) too. Where a config asks for a piece the
-port lacks, the command raises NotImplementedError naming its ROADMAP.md
-item. Errors of a plot or of the logger are raised, not
-printed: on the card they may be a failed kernel launch.
+mode (``model.use_neus=false``) too. Errors of a plot or of the logger
+are raised, not printed: on the card they may be a failed kernel launch.
 """
 
 from __future__ import annotations

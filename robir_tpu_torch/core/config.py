@@ -107,6 +107,11 @@ def build_neus_config(d: dict) -> NeuSConfig:
                       radius=d.get("radius", 2.0))
 
 
+def build_neus_render_config(d: dict | None) -> NeusRenderConfig:
+    """The NeuS renderer's section (``render``) as a ``NeusRenderConfig``."""
+    return _build(NeusRenderConfig, d)
+
+
 def stage1_dispatch(cfg: dict):
     """(model_type, render_type, model_cfg, render_cfg) of a stage-1 config
     dict, as the JAX ``build_stage1_configs``: ``model.type`` "neus" (its
@@ -134,7 +139,7 @@ def stage1_dispatch(cfg: dict):
     else:
         raise KeyError(f"unknown stage-1 model.type {model_type!r}")
     if render_type == "neus":
-        render_cfg = _build(NeusRenderConfig, render_d)
+        render_cfg = build_neus_render_config(render_d)
     elif render_type == "mip":
         render_cfg = _build(MipRenderConfig, render_d)
     else:

@@ -6,11 +6,15 @@ stage-boundary surgery keeps or drops subtrees by top-level path prefix,
 as the reference filters state-dict keys (``training/train_pbr.py:157-203``),
 and a partial restore merges a loaded tree into a base one
 (``merge_trees``, the reference's ``load_state_dict(strict=False)``).
+``tree_size_bytes`` sums a tree's leaves; ``tangent_space`` is the
+reference's per-normal tangent frame (``utils/utils.py:20-38``).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping
+
+import torch
 
 from .params import ParamTree
 
@@ -76,3 +80,24 @@ def merge_trees(base: Params, override: Params) -> dict:
         raise KeyError(f"override contains paths not in base: {sorted(unknown)[:5]} ...")
     flat.update(over)
     return unflatten_paths(flat)
+
+
+def tree_size_bytes(tree: Params) -> int:
+    """Bytes of every leaf of a nested tree (tensors or numpy arrays)."""
+    return sum(int(x.numel() * x.element_size()) if torch.is_tensor(x)
+               else int(x.size * x.dtype.itemsize)
+               for x in flatten_with_paths(tree).values())
+
+
+def tangent_space(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """An orthonormal tangent frame per normal: n rotated 90 degrees about
+    x, crossed with n twice, each normalised with a 1e-4 clamp of its
+    length. n [..., 3] -> (b, c), each [..., 3]."""
+    rot = torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]],
+                       dtype=n.dtype, device=n.device)
+    a = torch.einsum("ij,...j->...i", rot, n)
+    b = torch.linalg.cross(a, n, dim=-1)
+    c = torch.linalg.cross(b, n, dim=-1)
+    b = b / torch.clamp(torch.linalg.norm(b, dim=-1, keepdim=True), min=1e-4)
+    c = c / torch.clamp(torch.linalg.norm(c, dim=-1, keepdim=True), min=1e-4)
+    return b, c

@@ -9,7 +9,8 @@ same cameras from the same seed, the same files): ``transforms_<split>.json``
 and RGBA PNGs for the train, test and val splits, the test split's
 ``_rgba.png`` copies and its relit ground truth under ``test_rli/``.
 ``make_sphere_scene`` builds the sphere scene's split in memory instead,
-without writing PNGs.
+without writing PNGs; ``sphere_scene`` writes it and reads the train split
+back.
 """
 
 from __future__ import annotations
@@ -219,6 +220,13 @@ def make_shadow_dataset(out_dir: str, n_train: int = 20, n_test: int = 3,
               for sp, n in (("train", n_train), ("test", n_test), ("val", 2))]
     return _write_scene(out_dir, splits, camera_angle_x, lambda c2w, ld: render_two_sphere_gt(
         c2w, h, w, focal, albedos=albedos, **({} if ld is None else {"light_dir": ld})))
+
+
+def sphere_scene(tmp_dir: str, **kwargs) -> BlenderScene:
+    """``make_sphere_dataset(tmp_dir, **kwargs)``, then its train split as
+    a ``BlenderScene``."""
+    make_sphere_dataset(tmp_dir, **kwargs)
+    return BlenderScene(BlenderConfig(dataset_dir=tmp_dir), "train")
 
 
 def make_sphere_scene(split: str = "train", n_train: int = 20,

@@ -5,7 +5,9 @@ per-frequency 3-vectors interleaved sin-then-cos and log-spaced frequencies
 2^0..2^(L-1), the JAX package's order; ``alpha`` eases the bands in one
 at a time under ``cosine_easing_window`` (the nerfies schedule).
 ``integrated_pos_enc`` is the mip-NeRF encoding of a diagonal Gaussian (the
-stage-2 normal head's input).
+stage-2 normal head's input; ``ipe_isotropic`` at one variance).
+``grid_embed`` is the learnable trilinear feature grid of
+``neus/model/embedders.py`` (Grid, :107-124).
 """
 
 from __future__ import annotations
@@ -105,3 +107,37 @@ def integrated_pos_enc(mean: torch.Tensor, var_diag: torch.Tensor,
     y_var = (var_diag[..., None, :] * scales[:, None] ** 2).reshape(shape)
     atten = torch.exp(-0.5 * y_var)
     return torch.cat([atten * torch.sin(y), atten * torch.cos(y)], dim=-1)
+
+
+def ipe_isotropic(x: torch.Tensor, cfg: IPEConfig, var: float = 0.005) -> torch.Tensor:
+    """IPE at an isotropic covariance ``var`` (``neus/model/neus_fields.py``
+    ``ipe_embedder``)."""
+    return integrated_pos_enc(x, torch.full_like(x, var), cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridEmbedConfig:
+    """A learnable [C, N, N, N] feature grid sampled trilinearly at coords
+    in [-1, 1]."""
+    n_cells: int = 128
+    out_dim: int = 3
+
+    @property
+    def feature_dim(self) -> int:
+        return self.out_dim
+
+
+def init_grid_embed(gen: torch.Generator, cfg: GridEmbedConfig) -> dict:
+    """``{"grid": N(0, 1) [C, N, N, N]}`` from a CPU generator."""
+    return {"grid": torch.randn((cfg.out_dim,) + (cfg.n_cells,) * 3, generator=gen)}
+
+
+def grid_embed(params: dict, cfg: GridEmbedConfig, x: torch.Tensor) -> torch.Tensor:
+    """[..., 3] coords in [-1, 1] -> [..., out_dim] trilinear features:
+    ``grid_sample`` with align_corners=False and zero padding outside, x
+    walking the grid's last axis, as the reference samples it."""
+    g = params["grid"]
+    pts = x.reshape(1, -1, 1, 1, 3).to(g.dtype)
+    out = torch.nn.functional.grid_sample(g[None], pts, mode="bilinear",
+                                          padding_mode="zeros", align_corners=False)
+    return out.reshape(cfg.out_dim, -1).t().reshape(x.shape[:-1] + (cfg.out_dim,))

@@ -70,15 +70,33 @@ def apply_linear(params: Params, x: torch.Tensor,
     return apply_linear_parts(params, [x], storage_dtype, compute_dtype=compute_dtype)
 
 
+class _LowPrecisionMM(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)`` on low-precision operands, whose
+    derivative torch does not define: the backward is the CPU route's (the
+    fp32 product's gradients, rounded to the operands' dtype)."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.t().to(g.dtype)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = (a.t().to(g.dtype) @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def low_precision_mm(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``a @ b`` on operands rounded to ``dtype``, summed in fp32, fp32 out
     (JAX's ``dot_general(preferred_element_type=float32)``). On the card
-    one GEMM on ``dtype`` operands (``torch.mm(..., out_dtype=float32)``);
-    on the CPU, where torch has no such product, the rounded operands are
-    multiplied in fp32."""
+    one GEMM on ``dtype`` operands (``torch.mm(..., out_dtype=float32)``,
+    differentiable through ``_LowPrecisionMM``); on the CPU, where torch
+    has no such product, the rounded operands are multiplied in fp32."""
     a2, b2 = a.reshape(-1, a.shape[-1]).to(dtype), b.to(dtype)
     if a.is_cuda:
-        y = torch.mm(a2, b2, out_dtype=torch.float32)
+        y = _LowPrecisionMM.apply(a2, b2)
     else:
         y = a2.to(torch.float32) @ b2.to(torch.float32)
     return y.reshape(a.shape[:-1] + (b.shape[-1],))

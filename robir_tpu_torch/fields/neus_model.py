@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from ..core.params import from_jax
+from ..core.params import ParamTree, from_jax
 from .mlp import Params
 from .hashgrid import HashSDFConfig, hash_sdf_apply, init_hash_sdf
 from .radiance import (NeRFBgConfig, RenderingConfig, init_nerf_bg, init_rendering,
@@ -68,12 +68,22 @@ class NeuS(nn.Module):
     ``color``, ``inv_s`` and ``radius`` over one parameter tree.
 
     The parameters live on ``cuda`` unless ``device="cpu"`` is passed;
-    raises if CUDA is asked for and absent."""
+    raises if CUDA is asked for and absent. ``over`` wraps a ``ParamTree``
+    without copying it."""
 
     def __init__(self, params: Params, cfg: NeuSConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.params = from_jax(params, resolve_device(device))
+
+    @classmethod
+    def over(cls, params: ParamTree, cfg: NeuSConfig) -> "NeuS":
+        """The model over ``params`` as they are, on their own device: not a
+        copy, so a caller's graph reaches them."""
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        model.cfg, model.params = cfg, params
+        return model
 
     def sdf(self, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
         """[N, 3] -> [N, 1]: the sdf column of the full trunk output (K1),

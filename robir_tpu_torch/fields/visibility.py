@@ -7,6 +7,9 @@
   layer splits into point rows and direction rows. With
   ``storage_dtype="bfloat16"`` (``configs/hotdog.json``) every layer's
   operands and output are bf16, as in the JAX package; logits return fp32.
+  ``compute_dtype`` (bf16) rounds the operands only and sums in fp32
+  (``apply_linear``); storage wins where both are set, as in the JAX
+  package, so at ``hotdog.json`` it changes nothing.
 - ``indirect_apply``: PE(x) (+ hdr shift) -> 24 SG lobes (theta/phi by
   sigmoid, lambda = sigmoid * 30 + 0.1, mu = relu) and the indirect
   integral from a softplus-latent SparseAE; the reference uses that AE's
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from .encoding import PEConfig, positional_encoding
-from .mlp import Params, _store, apply_linear, effective_weight, init_linear
+from .mlp import (Params, _store, apply_linear, effective_weight, init_linear,
+                  low_precision_mm)
 from .sparse_ae import SparseAEConfig, init_sparse_ae, sparse_ae_apply
 
 
@@ -49,37 +53,47 @@ def init_visnet(gen: torch.Generator, cfg: VisNetConfig) -> Params:
             for i in range(len(dims) - 1)}
 
 
-def _relu_trunk(params: Params, cfg: VisNetConfig, h: torch.Tensor, first: int):
+def _relu_trunk(params: Params, cfg: VisNetConfig, h: torch.Tensor, first: int,
+                compute_dtype=None):
     n = len(cfg.dims) + 1
     for i in range(first, n):
-        h = apply_linear(params[f"lin{i}"], h, cfg.storage_dtype)
+        h = apply_linear(params[f"lin{i}"], h, cfg.storage_dtype, compute_dtype)
         if i < n - 1:
             h = torch.relu(h)
-    return h if cfg.storage_dtype is None else h.to(torch.float32)
+    return h.to(torch.float32)
 
 
 def visnet_apply(params: Params, cfg: VisNetConfig, points: torch.Tensor,
-                 view_dirs: torch.Tensor) -> torch.Tensor:
-    """[..., 3], [..., 3] -> [..., 2] logits."""
+                 view_dirs: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """[..., 3], [..., 3] -> [..., 2] fp32 logits; ``compute_dtype`` as in
+    the module's docstring."""
     h = torch.cat([positional_encoding(points, cfg.p_pe),
                    positional_encoding(view_dirs, cfg.d_pe)], dim=-1)
-    return _relu_trunk(params, cfg, h, 0)
+    return _relu_trunk(params, cfg, h, 0, compute_dtype)
 
 
 def visnet_outer_apply(params: Params, cfg: VisNetConfig, points: torch.Tensor,
-                       dirs: torch.Tensor) -> torch.Tensor:
+                       dirs: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """Points [N, 3] x dirs [K, 3] -> logits [N, K, 2]: the first layer on
-    N + K rows, nothing of size [N, K] until its output."""
+    N + K rows, nothing of size [N, K] until its output. Its operands are
+    in the storage dtype, else ``compute_dtype``, and it sums in that dtype
+    only under storage (fp32 otherwise), as the JAX package does."""
     p = positional_encoding(points, cfg.p_pe)
     d = positional_encoding(dirs, cfg.d_pe)
     w0 = effective_weight(params["lin0"])
     b0 = params["lin0"]["b"]
     wp, wd = w0[:p.shape[-1]], w0[p.shape[-1]:]
     store = _store(cfg.storage_dtype)
+    compute = _store(compute_dtype)
     if store is not None:
         p, wp, d, wd, b0 = (t.to(store) for t in (p, wp, d, wd, b0))
-    h = torch.relu((p @ wp)[:, None, :] + (d @ wd + b0)[None, :, :])
-    return _relu_trunk(params, cfg, h, 1)
+        hp, hd = p @ wp, d @ wd
+    elif compute is not None:
+        hp, hd = low_precision_mm(p, wp, compute), low_precision_mm(d, wd, compute)
+    else:
+        hp, hd = p @ wp, d @ wd
+    h = torch.relu(hp[:, None, :] + (hd + b0)[None, :, :])
+    return _relu_trunk(params, cfg, h, 1, compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)

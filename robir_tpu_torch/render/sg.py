@@ -10,8 +10,12 @@ and ``spec_theta``/``spec_phi`` [N, S] for the specular one, prefixed
 lights into a lat-long image and ``render_envmap`` looks such an image up
 along directions.
 
-Not ported yet: ``fun_spec`` and multi-view shading (their callers are the
-relighting and texture tools).
+``render_with_sg(fun_spec=True)`` returns the specular term as a function
+of roughness (differentiable in it), and ``viewdirs`` [V, N, 3] shades the
+specular term once per view beside one shared diffuse term. The specular
+draws are made once, where the inline render makes them, and shared by
+every view and every call of the function, as the JAX package uses one
+key for all of them.
 """
 
 from __future__ import annotations
@@ -39,6 +43,12 @@ def norm_axis(x: torch.Tensor) -> torch.Tensor:
 
 def _unit_lobes(x: torch.Tensor) -> torch.Tensor:
     return x / (torch.linalg.norm(x, dim=-1, keepdim=True) + TINY)
+
+
+def split_sgs(lgt_sgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[..., 7] raw SG parameters -> (unit lobes, |lambda|, |mu|)."""
+    return (_unit_lobes(lgt_sgs[..., :3]), torch.abs(lgt_sgs[..., 3:4]),
+            torch.abs(lgt_sgs[..., -3:]))
 
 
 def render_envmap_sg(lgt_sgs: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
@@ -315,14 +325,19 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
                    vis_outer_fn=None, lin_diff: bool = False,
                    indir_integral=None, metallic=None, diffuse_vis=None,
                    prefit: Optional[str] = None, argmax_vis: bool = False,
+                   fun_spec: bool = False,
                    diffuse_nsamp: int = 32, diffuse_vis_nsamp: int = 8,
                    specular_nsamp: int = 8, diffuse_sweep_chunk: int = 0,
                    supervise_weight=None, supervise_rows: bool = False,
                    diffuse_vis_grad: bool = True, draw_prefix: str = "") -> SGRenderOutput:
     """Full SG shading for one light set (sg_render.py:343-565).
 
-    points/normal/viewdirs [N, 3]; lgt_sgs [N, M, 7] or [M, 7]; roughness
-    [N, 1]; diffuse_albedo [N, 3]; diffuse_vis (CESR) [N, M].
+    points/normal [N, 3]; viewdirs [N, 3], or [V, N, 3] to shade the
+    specular term per view (``sg_rgb`` [V, N, 3] = per-view specular +
+    the shared diffuse); lgt_sgs [N, M, 7] or [M, 7]; roughness [N, 1];
+    diffuse_albedo [N, 3]; diffuse_vis (CESR) [N, M].
+    ``fun_spec=True`` returns ``sg_specular_rgb`` as ``fn(roughness)`` and
+    ``sg_rgb`` with the diffuse term only.
     ``supervise_rows=True`` returns the supervision's per-row ingredient
     |gt - vis| [N, M] in place of its KL.
     ``diffuse_vis_grad=False`` runs the diffuse sweep without a graph, for
@@ -333,9 +348,7 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
     if lgt_sgs.dim() == 2:
         lgt_sgs = lgt_sgs[None].expand((N,) + lgt_sgs.shape)
     M = lgt_sgs.shape[1]
-    lgt_lobes = _unit_lobes(lgt_sgs[..., :3])
-    lgt_lambdas = torch.abs(lgt_sgs[..., 3:4])
-    origin_mus = torch.abs(lgt_sgs[..., -3:])
+    lgt_lobes, lgt_lambdas, origin_mus = split_sgs(lgt_sgs)
     spec_refl = specular_reflectance.reshape(1, -1).expand(N, 3)
 
     supervise = points.new_zeros(())
@@ -369,20 +382,27 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
         vis_shadow = (torch.sum(light_vis * origin_mus, dim=1) / torch.clamp(
             torch.sum(origin_mus, dim=1), min=1e-4)).detach()
 
-    warp_lobes, warp_lambdas, warp_mus = specular_sg(
-        normal, viewdirs, roughness, spec_refl, metallic=metallic,
-        diffuse_albedo=diffuse_albedo)
+    spec_u = None
     if comp_vis or vis_fn is not None:
-        brdf_vis = get_specular_visibility(
-            points, normal, viewdirs, vis_fn, warp_lambdas[:, 0],
-            draws.uniform(draw_prefix + "spec_theta", (N, specular_nsamp), rows=True),
-            draws.uniform(draw_prefix + "spec_phi", (N, specular_nsamp), rows=True),
-            inv=not comp_vis, argmax_vis=argmax_vis)
-        lgt_mus_spec = origin_mus * brdf_vis[:, None, None]
-    else:
+        spec_u = (draws.uniform(draw_prefix + "spec_theta", (N, specular_nsamp), rows=True),
+                  draws.uniform(draw_prefix + "spec_phi", (N, specular_nsamp), rows=True))
+
+    def one_view(vd, rough):
+        warp_lobes, warp_lambdas, warp_mus = specular_sg(
+            normal, vd, rough, spec_refl, metallic=metallic, diffuse_albedo=diffuse_albedo)
         lgt_mus_spec = origin_mus
-    specular_rgb = shade_with_sg_lights(normal, lgt_lobes, lgt_lambdas, lgt_mus_spec,
-                                        warp_lobes, warp_lambdas, warp_mus)
+        if spec_u is not None:
+            brdf_vis = get_specular_visibility(points, normal, vd, vis_fn, warp_lambdas[:, 0],
+                                               *spec_u, inv=not comp_vis,
+                                               argmax_vis=argmax_vis)
+            lgt_mus_spec = origin_mus * brdf_vis[:, None, None]
+        return shade_with_sg_lights(normal, lgt_lobes, lgt_lambdas, lgt_mus_spec,
+                                    warp_lobes, warp_lambdas, warp_mus)
+
+    def spec_fn(rough: torch.Tensor) -> torch.Tensor:
+        if viewdirs.dim() == 3:
+            return torch.stack([one_view(vd, rough) for vd in viewdirs])
+        return one_view(viewdirs, rough)
 
     lgt_mus_diff = origin_mus * light_vis if comp_vis else origin_mus
     diffuse = diffuse_albedo / np.pi
@@ -390,6 +410,9 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
     diffuse_rgb = diffuse_sg_integral(normal, lgt_lobes, lgt_lambdas, final_mus)
     if indir_integral is not None:
         diffuse_rgb = indir_integral if lin_diff else indir_integral * diffuse
+    if fun_spec:
+        return SGRenderOutput(diffuse_rgb, spec_fn, diffuse_rgb, vis_shadow, supervise)
+    specular_rgb = spec_fn(roughness)
     return SGRenderOutput(specular_rgb + diffuse_rgb, specular_rgb, diffuse_rgb,
                           vis_shadow, supervise)
 
@@ -410,18 +433,20 @@ def render_with_all_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
                        indir_integral=None, indir_lgt_sgs=None, vis_fn=None,
                        vis_outer_fn=None, lin_diff=False, metallic=None,
                        diffuse_vis=None, prefit=None, argmax_vis=False,
-                       diffuse_sweep_chunk: int = 0, supervise_weight=None,
-                       supervise_rows: bool = False,
+                       fun_spec: bool = False, diffuse_sweep_chunk: int = 0,
+                       supervise_weight=None, supervise_rows: bool = False,
                        diffuse_vis_grad: bool = True) -> AllSGOutput:
     """Direct (visibility-attenuated) plus indirect SG shading
-    (sg_render.py:304-337). The per-row draws (the specular sweeps') have
+    (sg_render.py:304-337); with ``fun_spec`` both specular fields are
+    functions of roughness, and ``viewdirs`` may be [V, N, 3] as for
+    ``render_with_sg``. The per-row draws (the specular sweeps') have
     one row per point, so a compacted render draws them for its rows only;
     the JAX package keys them per chunk instead (``spec_key``)."""
     direct = render_with_sg(
         draws, points, normal, viewdirs, lgt_sgs, specular_reflectance,
         roughness, diffuse_albedo, comp_vis=True, vis_fn=vis_fn,
         vis_outer_fn=vis_outer_fn, lin_diff=lin_diff, metallic=metallic,
-        diffuse_vis=diffuse_vis, prefit=prefit, argmax_vis=argmax_vis,
+        diffuse_vis=diffuse_vis, prefit=prefit, argmax_vis=argmax_vis, fun_spec=fun_spec,
         diffuse_sweep_chunk=diffuse_sweep_chunk, supervise_weight=supervise_weight,
         supervise_rows=supervise_rows, diffuse_vis_grad=diffuse_vis_grad)
     if indir_lgt_sgs is not None:
@@ -429,10 +454,10 @@ def render_with_all_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
             draws, points, normal, viewdirs, indir_lgt_sgs, specular_reflectance,
             roughness, diffuse_albedo, comp_vis=False, vis_fn=vis_fn,
             lin_diff=lin_diff, indir_integral=indir_integral, metallic=metallic,
-            argmax_vis=argmax_vis, draw_prefix="indir_")
+            argmax_vis=argmax_vis, fun_spec=fun_spec, draw_prefix="indir_")
         indir = (indirect.sg_rgb, indirect.sg_diffuse_rgb, indirect.sg_specular_rgb)
     else:
         z = torch.zeros_like(points)
-        indir = (z, z, z)
+        indir = (z, z, (lambda rough: z) if fun_spec else z)
     return AllSGOutput(direct.sg_rgb, direct.sg_specular_rgb, direct.sg_diffuse_rgb,
                        direct.vis_shadow, direct.supervise, *indir)

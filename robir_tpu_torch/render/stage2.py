@@ -26,8 +26,13 @@ runs the plain IDR pair instead of the bridge: ``implicit_network`` is the
 SDF tree itself and ``rendering_network`` a top-level colour net, queried
 in stage-2 coordinates with no scale (``sdf`` K1, ``sdf_gradient`` K3);
 ``borrow_color`` evaluates the rendering network at the surface point
-(one K3 call for the full output and the gradient). Not ported yet:
-``neus_bridge_render``.
+(one K3 call for the full output and the gradient). With ``bgr`` the
+colour net's channels are reversed (``color``), as JAX's ``Stage2Model``
+does: IDR mode's ``borrow_color`` goes through ``color`` and flips, the
+NeuS bridge's mini render calls the stage-1 colour net directly and does
+not (the reference's ``borrow_color``, neus_model.py:856-868).
+``neus_bridge_render`` renders the frozen NeuS in stage-2 coordinates
+through the stage-1 renderer (K1 in its sampling, K3 in ``render_core``).
 
 Under data parallelism (``Stage2Model(mesh=)``, ``core/mesh.py``) each rank
 holds its own pixels: the compaction gate is the rank's
@@ -55,7 +60,7 @@ from ..core.params import ParamTree, from_jax
 from ..fields.envmap_material import (EnvmapMaterialConfig, MaterialOutput,
                                       envmap_material_apply)
 from ..fields.mlp import Params
-from ..fields.neus_model import NeuSConfig, variance_apply
+from ..fields.neus_model import NeuS, NeuSConfig, variance_apply
 from ..fields.radiance import rendering_apply
 from ..fields.sdf import frozen_sdf, sdf_apply, sdf_full_and_gradient
 from ..fields.visibility import (IndirIllumConfig, VisNetConfig, indirect_apply,
@@ -64,6 +69,7 @@ from ..tracing.grid import GridConfig, f32, grid_cast
 from ..tracing.sphere import SphereTracerConfig, sphere_trace
 from . import sg as sg_lib
 from .color import ToneMapConfig, ldr2hdr
+from .neus import NeusRenderConfig, Rays, render_neus
 
 TINY = 1e-6
 
@@ -88,11 +94,9 @@ class Stage2Config:
     sphere_tracer: SphereTracerConfig = SphereTracerConfig()
 
     def __post_init__(self):
-        if self.bgr:
-            raise NotImplementedError("bgr=True (BGR-ordered images) is not ported yet")
-        if self.vis_compute_dtype is not None:
-            raise NotImplementedError("vis_compute_dtype is not ported "
-                                      "(visibility_network.storage_dtype is)")
+        if self.vis_compute_dtype not in (None, "bfloat16"):
+            raise ValueError(f"vis_compute_dtype {self.vis_compute_dtype!r} not in "
+                             "(None, 'bfloat16')")
         if self.tracer not in ("grid", "sphere"):
             raise KeyError(f"unknown tracer {self.tracer!r} (expected 'grid' or 'sphere')")
 
@@ -155,10 +159,18 @@ class Stage2Model:
 
     def color(self, points, normals, view_dirs, feature_vectors) -> torch.Tensor:
         """The colour net at stage-2 ``points``: the frozen NeuS's, or in IDR
-        mode the rendering network."""
-        return rendering_apply(self._color_params(), self.cfg.neus.color,
-                               points * self._query_scale()[0], normals, view_dirs,
-                               feature_vectors)
+        mode the rendering network; its channels reversed with ``bgr``."""
+        c = rendering_apply(self._color_params(), self.cfg.neus.color,
+                            points * self._query_scale()[0], normals, view_dirs,
+                            feature_vectors)
+        return torch.flip(c, (-1,)) if self.cfg.bgr else c
+
+    def neus(self) -> NeuS:
+        """The frozen stage-1 NeuS over this model's ``implicit_network``
+        (its parameters, not a copy: a caller's graph reaches them)."""
+        if not self.cfg.use_neus:
+            raise ValueError("IDR mode (use_neus=false) has no stage-1 NeuS")
+        return NeuS.over(self.params["implicit_network"], self.cfg.neus)
 
     def inv_s(self) -> torch.Tensor:
         """The frozen NeuS's inverse deviation, exp(10 v) clipped to
@@ -236,13 +248,14 @@ class Stage2Model:
                               hdr_shift, noise)
 
     def vis_logits(self, points, dirs):
+        """The visibility net's fp32 logits, at ``vis_compute_dtype``."""
         return visnet_apply(self.params["visibility_network"], self.cfg.visnet,
-                            points, dirs)
+                            points, dirs, compute_dtype=self.cfg.vis_compute_dtype)
 
     def vis_logits_outer(self, points, dirs):
         """[N, 3] x [K, 3] -> [N, K, 2], the diffuse sweep's shape."""
         return visnet_outer_apply(self.params["visibility_network"], self.cfg.visnet,
-                                  points, dirs)
+                                  points, dirs, compute_dtype=self.cfg.vis_compute_dtype)
 
     def frozen_sdf(self):
         """``sdf`` without a graph, the weights folded and packed once for
@@ -500,3 +513,30 @@ def trace_radiance(model: Stage2Model, draws: Draws, forward_out: dict, nsamp: i
     return {"trace_radiance": radiance, "sample_dirs": sample_dirs, "gt_vis": gt_vis,
             "pred_vis": pred_vis, "indir_mask": indir_mask, "gt_integral": gt_integral,
             "hit": sec_hit, "need": need}
+
+
+def neus_bridge_render(model: Stage2Model, rays, render_cfg=None,
+                       t_rand: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> dict:
+    """The frozen stage-1 NeuS rendered through the stage-2 model in
+    stage-2 coordinates (JAX ``render/stage2.py:neus_bridge_render``, the
+    reference's ``wrap_renderer``, sdf_render.py:377-426). ``rays`` (a
+    ``render/neus.py:Rays``) are in stage-2 coordinates: their origins and
+    near/far bounds are scaled by ``coord_scale`` into stage-1 space, and
+    ``dist`` comes back divided by it. ``render_cfg`` defaults to 64 + 64
+    samples without a shell. The JAX function's ``key`` is the jitter here:
+    ``t_rand`` ([B, 1] in [-0.5, 0.5)) or ``generator``; with neither the
+    render is an eval render, as with ``key=None`` there. Returns idr_rgb
+    and sg_rgb (the rendered colour, channels reversed with ``bgr``),
+    indir_rgb (zeros), acc, dist and network_object_mask (acc > 0.5)."""
+    render_cfg = render_cfg or NeusRenderConfig(n_samples=64, n_importance=64, n_outside=0)
+    s = model.cfg.coord_scale
+    scaled = Rays(rays.origins * s, rays.directions, rays.viewdirs, rays.radii,
+                  rays.lossmult, rays.near * s, rays.far * s)
+    out = render_neus(scaled, model.neus(), 1.0, render_cfg,
+                      is_eval=t_rand is None and generator is None, t_rand=t_rand,
+                      generator=generator)
+    rgb = torch.flip(out["rgb"], (-1,)) if model.cfg.bgr else out["rgb"]
+    return {"idr_rgb": rgb, "sg_rgb": rgb, "indir_rgb": torch.zeros_like(rgb),
+            "acc": out["acc"], "dist": out["dist"] / s,
+            "network_object_mask": out["acc"] > 0.5}

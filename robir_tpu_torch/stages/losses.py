@@ -14,7 +14,9 @@ is the global one, the term divided by the world size; so the ranks'
 losses add up to the global batch's loss. A term of the parameters alone
 (``white_loss``) is divided by the world size by its caller.
 
-Not ported yet: eikonal, mask and normal-consistency.
+``eikonal_loss``, ``mask_loss`` and ``normal_consistency_loss`` are InvLoss's
+remaining terms (loss.py:44-59, 69-73); no stage of either package calls
+them.
 """
 
 from __future__ import annotations
@@ -62,6 +64,34 @@ def _mean(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
     """The mean of every rank's ``x`` (of one shape on each), as this
     rank's share: its sum over the global count."""
     return torch.sum(x) / (x.numel() * _world(mesh))
+
+
+def eikonal_loss(grad_theta: torch.Tensor, mesh: DataMesh | None = None) -> torch.Tensor:
+    """Mean of (|grad| - 1)^2 over the rows (loss.py:44-49); under a
+    ``mesh`` this rank's share of every rank's mean."""
+    return _mean((torch.linalg.norm(grad_theta, dim=-1) - 1.0) ** 2, mesh)
+
+
+def mask_loss(cfg: InvLossConfig, sdf_output, network_object_mask, object_mask,
+              mesh: DataMesh | None = None) -> torch.Tensor:
+    """BCE on -alpha * sdf over the rays not both hit and in the object,
+    / alpha / n_rays (loss.py:51-59); n_rays of every rank under a
+    ``mesh``."""
+    sel = ~(network_object_mask & object_mask)
+    logits = -cfg.alpha * sdf_output.reshape(-1)
+    gt = object_mask.to(logits.dtype)
+    bce = torch.clamp(logits, min=0) - logits * gt + torch.log1p(torch.exp(-logits.abs()))
+    return (1.0 / cfg.alpha) * torch.sum(bce * sel) / (object_mask.shape[0] * _world(mesh))
+
+
+def normal_consistency_loss(normal_map, normals, surface_mask,
+                            mesh: DataMesh | None = None) -> torch.Tensor:
+    """Masked MSE of the AE normal map against the geometry normals
+    (loss.py:69-73): over the surface rows' entries, their count (of every
+    rank under a ``mesh``) clamped at 1."""
+    w = surface_mask[:, None].to(normal_map.dtype)
+    count = global_sum(mesh, torch.sum(w)) * normal_map.shape[-1]
+    return torch.sum(w * (normal_map - normals) ** 2) / torch.clamp(count, min=1.0)
 
 
 def latent_smooth_loss(diffuse_albedo, roughness, xi_diffuse, xi_roughness,

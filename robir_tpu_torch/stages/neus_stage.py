@@ -64,6 +64,7 @@ from ..fields.vnerf import VNeRF, init_vnerf
 from ..render.mip import render_mip
 from ..render.neus import NeusRenderConfig, Rays, render_neus
 from ..texture.mesh import Mesh, extract_mesh
+from ..tools.profiler import time_scanned_reps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -496,35 +497,25 @@ class NeusTrainer:
         """Rays/s sustained, as the JAX trainer's: ``batch_size`` (the
         global batch) over the best time a step of ``reps`` runs of
         ``n_steps`` chained train steps on one batch, after ``warmup``
-        steps; each run timed with CUDA events on the card (the host clock
-        on the CPU). The batch comes from its own RNG, and afterwards the
-        parameters, the Adam state, the step and the draws' generator are
-        as they were: the trainer does not move. Under a mesh every rank
-        runs the steps and the slowest rank's best time counts."""
+        steps (``tools/profiler.py:time_scanned_reps``: CUDA events on the
+        card, the host clock on the CPU). The batch comes from its own RNG,
+        and afterwards the parameters, the Adam state, the step and the
+        draws' generator are as they were: the trainer does not move. Under
+        a mesh every rank runs the steps and the slowest rank's best time
+        counts."""
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         saved = ([p.detach().clone() for p in params],
                  copy.deepcopy(self.optimizer.state_dict()), self._noise.get_state())
         batch = self._put(self.scene.sample(np.random.default_rng(self.step),
                                             self.train_cfg.batch_size))
-        cuda = self.device.type == "cuda"
 
-        def chain(k: int) -> float:
-            """Seconds for ``k`` steps, to the device's end of them."""
-            if cuda:
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-            t0 = time.perf_counter()
-            for i in range(k):
-                self._train_step(batch, self.step + i)
-            if cuda:
-                end.record()
-                end.synchronize()
-                return start.elapsed_time(end) / 1e3
-            return time.perf_counter() - t0
+        def one(step: int) -> int:
+            self._train_step(batch, step)
+            return step + 1
 
         try:
-            chain(max(1, warmup))
-            best = min(chain(n_steps) / n_steps for _ in range(reps))
+            best = min(time_scanned_reps(one, self.step, n_steps, reps, self.device,
+                                         warmup=warmup))
         finally:
             with torch.no_grad():
                 for p, v in zip(params, saved[0]):

@@ -578,3 +578,35 @@ def test_cli_neus_trains_and_resumes_on_the_card(dev, tmp_path):
     with open(os.path.join(run_dir, "description.json")) as f:
         assert json.load(f)["rays_per_sec"] > 0
     assert os.path.exists(os.path.join(run_dir, "meshes", "mesh_000002.ply"))
+
+
+def test_low_precision_mm_gradients_on_the_card(dev):
+    """``low_precision_mm`` on the card (one bf16 GEMM with fp32 sums) and
+    its backward against the CPU route on the same operands: the output to
+    fp32 summation order, each operand's gradient (rounded to bf16 on both
+    sides) within one bf16 step (2^-7) of its largest entry;
+    ``visnet_outer_apply`` at
+    ``compute_dtype="bfloat16"`` differentiable to its inputs."""
+    from robir_tpu_torch.fields.mlp import low_precision_mm
+    from robir_tpu_torch.fields.visibility import VisNetConfig, init_visnet, visnet_outer_apply
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(300, 96, generator=g), torch.randn(96, 40, generator=g)
+    w = torch.randn(300, 40, generator=g)
+    grads = {}
+    for d in ("cpu", dev):
+        x, y = a.to(d).requires_grad_(), b.to(d).requires_grad_()
+        out = low_precision_mm(x, y, torch.bfloat16)
+        grads[str(d)] = (out.detach().cpu(), *[t.cpu() for t in torch.autograd.grad(
+            torch.sum(out * w.to(d)), (x, y))])
+    cpu, card = grads["cpu"], grads[str(dev)]
+    _close(card[0], cpu[0])
+    for got, want in zip(card[1:], cpu[1:]):
+        assert float((got - want).abs().max()) <= float(want.abs().max()) / 128
+    cfg = VisNetConfig(points_multires=3, dirs_multires=3, dims=(32, 32))
+    params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in init_visnet(g, cfg).items()}
+    p = torch.randn(5, 3, device=dev, requires_grad=True)
+    logits = visnet_outer_apply(params, cfg, p, torch.randn(7, 3, device=dev),
+                                compute_dtype="bfloat16")
+    assert logits.dtype == torch.float32 and logits.shape == (5, 7, 2)
+    (gp,) = torch.autograd.grad(logits.sum(), p)
+    assert torch.isfinite(gp).all() and float(gp.abs().max()) > 0

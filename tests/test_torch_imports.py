@@ -45,7 +45,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "robir_tpu_torch.core.import_ref", "robir_tpu_torch.utils.resize",
             "robir_tpu_torch.data.llff", "robir_tpu_torch.data.multicam",
             "robir_tpu_torch.fields.vnerf", "robir_tpu_torch.fields.hashgrid",
-            "robir_tpu_torch.render.mip"} <= names
+            "robir_tpu_torch.render.mip", "robir_tpu_torch.tools.profiler",
+            "robir_tpu_torch.tools.vis_workload"} <= names
 
 
 def test_port_imports_no_cv2():

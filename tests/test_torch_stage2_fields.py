@@ -294,8 +294,12 @@ def test_hotdog_config_matches_jax():
         tconfig.build_stage2_config({**raw["model"], "no_such_key": 1})
     with pytest.raises(KeyError):
         tconfig.build_stage_config(tcesr.CESRStageConfig, {"no_such_key": 1})
-    with pytest.raises(NotImplementedError):  # BGR-ordered images are not ported
-        tconfig.build_stage2_config({**raw["model"], "bgr": True})
+    # bgr and vis_compute_dtype: read as JAX reads them, off by default
+    assert (got.bgr, got.vis_compute_dtype) == (want.bgr, want.vis_compute_dtype) == (False, None)
+    opts = {**raw["model"], "bgr": True, "vis_compute_dtype": "bfloat16"}
+    t_opts, j_opts = tconfig.build_stage2_config(opts), jconfig.build_stage2_config(opts)
+    assert (t_opts.bgr, t_opts.vis_compute_dtype) == (j_opts.bgr, j_opts.vis_compute_dtype) \
+        == (True, "bfloat16")
     # the light-chunked diffuse sweep: read as JAX reads it, 0 by default
     assert got.sweep_light_chunk == want.sweep_light_chunk == 0
     chunked = {**raw["model"], "sweep_light_chunk": 32}

@@ -583,6 +583,19 @@ def rank_ae_kl(mesh, latent):
     return float(value), x.grad.numpy().copy()
 
 
+def rank_inv_losses(mesh, g, sdf, net, obj, nmap):
+    """InvLoss's eikonal, mask and normal-consistency terms on this rank's
+    rows of the global numpy inputs under ``mesh`` (None: all of them):
+    their values."""
+    from robir_tpu_torch.stages import losses
+    rows = slice(None) if mesh is None else mesh.local_slice(len(g))
+    g, sdf, net, obj, nmap = (torch.as_tensor(np.asarray(a)[rows])
+                              for a in (g, sdf, net, obj, nmap))
+    return (float(losses.eikonal_loss(g, mesh)),
+            float(losses.mask_loss(losses.InvLossConfig(), sdf, net, obj, mesh)),
+            float(losses.normal_consistency_loss(nmap, g, obj, mesh)))
+
+
 def rank_neus_surface(mesh, points, view_dirs, normals):
     """``get_neus_surface``'s gradient error on this rank's rows of the
     global ``points``, ``view_dirs`` and ``normals`` (numpy) under ``mesh``
