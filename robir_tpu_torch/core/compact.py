@@ -17,6 +17,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..tools.profiler import count, span
+
 
 def effective_chunk(n: int, chunk: int, shards: int = 1) -> int:
     """The chunk to compact a rank's ``n`` rows at, or 0 to run them dense:
@@ -47,7 +49,9 @@ def compact_apply(fn: Callable, need: torch.Tensor, inputs: Sequence[torch.Tenso
     and zeroes them). Finding the needed rows (``torch.nonzero``) waits for
     the device once per call: the number of rows sets the shapes of
     everything ``fn`` launches."""
-    idx = torch.nonzero(need).squeeze(1)
+    with span("compact.wait"):
+        idx = torch.nonzero(need).squeeze(1)
+    count("compact.rows", idx.numel())
     rows = idx if idx.numel() else idx.new_zeros(1)
     out = fn(*[a.index_select(0, rows) for a in inputs])
     n, k = need.shape[0], idx.numel()

@@ -28,6 +28,7 @@ import torch
 
 from ..core.mesh import DataMesh, global_sum
 from ..fields.neus_model import NeuS
+from ..tools.profiler import span
 
 SAMPLING_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
@@ -297,7 +298,7 @@ def sample_z_vals(rays: Rays, model: NeuS, cfg: NeusRenderConfig,
     # importance sampling (no grad, like the reference's torch.no_grad block)
     if cfg.n_importance > 0:
         dtype = SAMPLING_DTYPES[cfg.sampling_dtype]
-        with torch.no_grad():
+        with torch.no_grad(), span("neus.sample"):
             z_vals = z_vals.detach()
             pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., :, None]
             sdf = model.sdf(pts.reshape(-1, 3), dtype).reshape(batch_size, cfg.n_samples)
@@ -354,9 +355,10 @@ def render_samples(rays: Rays, z_vals: torch.Tensor, model: NeuS,
         out = render_core_outside(rays_o, rays_d, z_feed, sample_dist, model)
         bg = {"background_alpha": out["alpha"],
               "background_sampled_color": out["sampled_color"]}
-    ret_fine = render_core(rays_o, rays_d, z_vals, sample_dist, model,
-                           background_rgb=background_rgb,
-                           cos_anneal_ratio=cos_anneal_ratio, mesh=mesh, **bg)
+    with span("neus.shade"):
+        ret_fine = render_core(rays_o, rays_d, z_vals, sample_dist, model,
+                               background_rgb=background_rgb,
+                               cos_anneal_ratio=cos_anneal_ratio, mesh=mesh, **bg)
 
     weights = ret_fine["weights"]
     acc = torch.sum(weights, dim=-1)

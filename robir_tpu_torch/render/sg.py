@@ -27,6 +27,7 @@ import torch
 
 from ..core.draws import Draws
 from ..core.mesh import DataMesh, batch_mean
+from ..tools.profiler import span
 
 TINY = 1e-6
 MU_COS = 32.7080
@@ -356,7 +357,8 @@ def render_with_sg(draws: Draws, points, normal, viewdirs, lgt_sgs,
     light_vis = None
     if comp_vis:
         nsamp = diffuse_nsamp if diffuse_vis is None else diffuse_vis_nsamp
-        with torch.set_grad_enabled(torch.is_grad_enabled() and diffuse_vis_grad):
+        with (torch.set_grad_enabled(torch.is_grad_enabled() and diffuse_vis_grad),
+              span("sg.diffuse_sweep")):
             light_vis_gt = get_diffuse_visibility(
                 points, normal.detach(), vis_fn, lgt_lobes[0], lgt_lambdas[0, :, 0],
                 draws.uniform(draw_prefix + "lobe_theta", (M, nsamp)),

@@ -65,6 +65,7 @@ from ..fields.radiance import rendering_apply
 from ..fields.sdf import frozen_sdf, sdf_apply, sdf_full_and_gradient
 from ..fields.visibility import (IndirIllumConfig, VisNetConfig, indirect_apply,
                                  visnet_apply, visnet_outer_apply)
+from ..tools.profiler import span
 from ..tracing.grid import GridConfig, f32, grid_cast
 from ..tracing.sphere import SphereTracerConfig, sphere_trace
 from . import sg as sg_lib
@@ -386,9 +387,11 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
                      draws.with_split(row_split(model.mesh, int(surface_mask.sum()))))
 
         def row_render(pts, vdirs, isgs, iint, h):
-            r = render(model, row_draws, pts, vdirs, isgs, indir_integral=iint,
-                       train_spec=train_spec, lin_diff=lin_diff, hdr_shift=h,
-                       surface_mask=torch.ones_like(pts[:, 0], dtype=torch.bool), **sg_kwargs)
+            with span("stage2.shade"):
+                r = render(model, row_draws, pts, vdirs, isgs, indir_integral=iint,
+                           train_spec=train_spec, lin_diff=lin_diff, hdr_shift=h,
+                           surface_mask=torch.ones_like(pts[:, 0], dtype=torch.bool),
+                           **sg_kwargs)
             bad = [k for k, v in r.items() if v.dim() == 0 or v.shape[0] != pts.shape[0]]
             if bad:
                 raise ValueError(f"stage2_forward(compact_chunk=...) needs per-row render "
@@ -400,10 +403,11 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
         ret = compact_apply(row_render, surface_mask,
                             [points, -ray_dirs, indirect_sgs, indirect_integral, hs])
     else:
-        ret = render(model, draws, points, -ray_dirs, indirect_sgs,
-                     indir_integral=indirect_integral, train_spec=train_spec,
-                     lin_diff=lin_diff, hdr_shift=hdr_shift, surface_mask=surface_mask,
-                     **sg_kwargs)
+        with span("stage2.shade"):
+            ret = render(model, draws, points, -ray_dirs, indirect_sgs,
+                         indir_integral=indirect_integral, train_spec=train_spec,
+                         lin_diff=lin_diff, hdr_shift=hdr_shift, surface_mask=surface_mask,
+                         **sg_kwargs)
 
     def masked(x):
         if x.dim() == 1:

@@ -49,6 +49,7 @@ from ..render import sg as sg_lib
 from ..render.color import as_input, hdr2ldr
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
 from ..tools import plots
+from ..tools.profiler import span
 from .losses import (InvLossConfig, latent_smooth_loss, masked_spec_kl, rgb_loss,
                      white_loss)
 from .stage2_runner import MaterialRunner, StageOptConfig, render_view
@@ -304,12 +305,13 @@ class CESRRunner(MaterialRunner):
     def step(self, batch: dict, draws: Draws) -> dict:
         """One update at ``cur_iter``; returns the metrics (detached)."""
         sc = self.stage_cfg
-        loss, metrics = cesr_loss(
-            self.params, self.cfg, self.step_config(), self.spec_var, batch, draws,
-            prefit=sc.prefit_option(self.cur_iter),
-            use_new_normal=self.cur_iter > sc.normal_switch_iter,
-            use_rgb_loss=self.cur_iter > sc.warmup_iters, grid_values=self.grid_values,
-            mesh=self.mesh)
+        with span("forward"):
+            loss, metrics = cesr_loss(
+                self.params, self.cfg, self.step_config(), self.spec_var, batch, draws,
+                prefit=sc.prefit_option(self.cur_iter),
+                use_new_normal=self.cur_iter > sc.normal_switch_iter,
+                use_rgb_loss=self.cur_iter > sc.warmup_iters, grid_values=self.grid_values,
+                mesh=self.mesh)
         metrics = self._update(loss, metrics)
         if sc.dropout_iter > 0 and self.cur_iter % sc.dropout_iter == 0:
             # latent dropout resample (train_cesr.py:639-641)

@@ -64,7 +64,7 @@ from ..fields.vnerf import VNeRF, init_vnerf
 from ..render.mip import render_mip
 from ..render.neus import NeusRenderConfig, Rays, render_neus
 from ..texture.mesh import Mesh, extract_mesh
-from ..tools.profiler import time_scanned_reps
+from ..tools.profiler import span, time_scanned_reps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,20 +250,23 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     rays, pixels = batch_to_rays(batch)
     if render_fn is None:
         render_fn = neus_render_binding(render_cfg)
-    out = render_fn(draws, rays, model, cos_anneal_ratio(step, train_cfg.anneal_end),
-                    mesh=mesh)
-    loss, metrics = neus_loss(out, rays.lossmult, pixels, train_cfg, mesh)
+    with span("forward"):
+        out = render_fn(draws, rays, model, cos_anneal_ratio(step, train_cfg.anneal_end),
+                        mesh=mesh)
+        loss, metrics = neus_loss(out, rays.lossmult, pixels, train_cfg, mesh)
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    metrics = all_reduce_grads(mesh, params, {k: v.detach() for k, v in metrics.items()},
-                               shared=("psnr",))
-    metrics["psnr"] = mse_to_psnr(metrics["mse"])
-    if train_cfg.grad_max_norm > 1e-10:
-        clip_by_global_norm_(params, train_cfg.grad_max_norm)
-    for group in optimizer.param_groups:
-        group["lr"] = lr_fn(step)
-    optimizer.step()
+    with span("backward"):
+        loss.backward()
+    with span("update"):
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        metrics = all_reduce_grads(mesh, params, {k: v.detach() for k, v in metrics.items()},
+                                   shared=("psnr",))
+        metrics["psnr"] = mse_to_psnr(metrics["mse"])
+        if train_cfg.grad_max_norm > 1e-10:
+            clip_by_global_norm_(params, train_cfg.grad_max_norm)
+        for group in optimizer.param_groups:
+            group["lr"] = lr_fn(step)
+        optimizer.step()
     return metrics
 
 
@@ -334,10 +337,10 @@ class NeusTrainer:
         local = self._rows.stop - self._rows.start if self.mesh is not None else 0
         return Draws(self._noise, device=self.device, split=batch_split(self.mesh, local))
 
-    def _train_step(self, batch: RayBatch, step: int) -> dict:
+    def _train_step(self, batch: RayBatch, step: int, draws: Draws) -> dict:
         return train_step(self.model, self.optimizer, self.lr_fn, batch, step,
-                          self.train_cfg, self.render_cfg, self._draws(),
-                          self.bindings.render, self.mesh)
+                          self.train_cfg, self.render_cfg, draws, self.bindings.render,
+                          self.mesh)
 
     def run(self, n_steps: int, log_every: int = 0,
             metrics_cb: Callable[[int, dict], None] | None = None,
@@ -353,7 +356,9 @@ class NeusTrainer:
         cfg = self.train_cfg
         last, metrics = {}, {}
         for _ in range(n_steps):
-            metrics = self._train_step(self._put(next(self._prefetch)), self.step)
+            with span("batch"):
+                batch, draws = self._put(next(self._prefetch)), self._draws()
+            metrics = self._train_step(batch, self.step, draws)
             self.step += 1
             if log_every and self.step % log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
@@ -510,7 +515,7 @@ class NeusTrainer:
                                             self.train_cfg.batch_size))
 
         def one(step: int) -> int:
-            self._train_step(batch, step)
+            self._train_step(batch, step, self._draws())
             return step + 1
 
         try:

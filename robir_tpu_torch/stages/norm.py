@@ -32,6 +32,7 @@ from ..fields.sparse_ae import sparse_ae_apply
 from ..render.stage2 import Stage2Config, Stage2Model
 from ..texture.focus_sampler import TexSpaceSampler
 from ..tools import plots
+from ..tools.profiler import span
 from .stage2_runner import Stage2RunnerBase, StageOptConfig, make_adam, map_view
 
 
@@ -118,14 +119,17 @@ class NormRunner(Stage2RunnerBase):
         """One Adam update at ``cur_iter``'s learning rate (the gradients and
         metrics summed over a mesh's ranks first); then ``cur_iter`` + 1.
         Returns the metrics (detached)."""
-        loss, metrics = norm_loss(self.params, self.cfg, self.stage_cfg, batch, self.cur_iter,
-                                  draws, self.mesh)
+        with span("forward"):
+            loss, metrics = norm_loss(self.params, self.cfg, self.stage_cfg, batch,
+                                      self.cur_iter, draws, self.mesh)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        metrics = self._reduce(metrics)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_fn(self.cur_iter)
-        self.optimizer.step()
+        with span("backward"):
+            loss.backward()
+        with span("update"):
+            metrics = self._reduce(metrics)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_fn(self.cur_iter)
+            self.optimizer.step()
         self.cur_iter += 1
         return metrics
 

@@ -41,6 +41,7 @@ from ..render import sg as sg_lib
 from ..render.color import as_input, hdr2ldr
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
 from ..tools import plots
+from ..tools.profiler import span
 from .losses import InvLossConfig, latent_smooth_loss, masked_spec_kl, rgb_loss, white_loss
 from .stage2_runner import MaterialRunner, StageOptConfig, render_view
 
@@ -170,8 +171,9 @@ class PBRRunner(MaterialRunner):
 
     def step(self, batch: dict, draws: Draws) -> dict:
         """One update at ``cur_iter``; returns the metrics (detached)."""
-        loss, metrics = pbr_loss(self.params, self.cfg, self.step_config(), batch, draws,
-                                 grid_values=self.grid_values, mesh=self.mesh)
+        with span("forward"):
+            loss, metrics = pbr_loss(self.params, self.cfg, self.step_config(), batch, draws,
+                                     grid_values=self.grid_values, mesh=self.mesh)
         return self._update(loss, metrics)
 
     def render_view(self, idx: int, dataset=None, chunk: int = 8000) -> dict:

@@ -45,6 +45,7 @@ from ..core.mesh import (DataMesh, all_reduce_grads, batch_split, check_replicas
 from ..fields.visibility import init_indirect, init_visnet
 from ..render.color import as_input, hdr2ldr, init_tonemap
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
+from ..tools.profiler import span
 from ..tracing.grid import build_sdf_grid
 
 
@@ -221,7 +222,9 @@ class Stage2RunnerBase:
         JAX runners do)."""
         last, metrics = {}, {}
         for _ in range(n_iters):
-            metrics = self.step(self._batch(), self._draws())
+            with span("batch"):
+                batch, draws = self._batch(), self._draws()
+            metrics = self.step(batch, draws)
             if log_every and self.cur_iter % log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
                 if log_fn:
@@ -274,14 +277,16 @@ class MaterialRunner(Stage2RunnerBase):
         fraction read (a wait for the device; global, so every rank picks
         the same step). Returns the metrics detached."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        metrics = self._reduce(metrics)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_fn(self.cur_iter)
-        self.optimizer.step()
-        self.cur_iter += 1
-        if self.cur_iter % self.stage_cfg.guard_every == 0:
-            self.surface_frac = float(metrics["surface_frac"])
+        with span("backward"):
+            loss.backward()
+        with span("update"):
+            metrics = self._reduce(metrics)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_fn(self.cur_iter)
+            self.optimizer.step()
+            self.cur_iter += 1
+            if self.cur_iter % self.stage_cfg.guard_every == 0:
+                self.surface_frac = float(metrics["surface_frac"])
         return metrics
 
 

@@ -45,6 +45,7 @@ from ..data.syn_dataset import SynDataset
 from ..render.color import fit_energy, init_energy, ldr2hdr
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward, trace_radiance
 from ..tools import plots
+from ..tools.profiler import span
 from .losses import IllumLossConfig, illum_loss
 from .stage2_runner import Stage2RunnerBase, StageOptConfig, make_adam, map_view
 
@@ -124,13 +125,17 @@ def make_vis_step(cfg: Stage2Config, stage_cfg: VisStageConfig,
                  for p in g["params"]]
 
     def step(params: ParamTree, batch: dict, draws: Draws, grid_values=None) -> dict:
-        loss, metrics = vis_loss(params, cfg, stage_cfg, batch, draws, grid_values, mesh=mesh)
+        with span("forward"):
+            loss, metrics = vis_loss(params, cfg, stage_cfg, batch, draws, grid_values,
+                                     mesh=mesh)
         vis_opt.zero_grad(set_to_none=True)
         illum_opt.zero_grad(set_to_none=True)
-        loss.backward()
-        metrics = all_reduce_grads(mesh, trainable, metrics)
-        vis_opt.step()
-        illum_opt.step()
+        with span("backward"):
+            loss.backward()
+        with span("update"):
+            metrics = all_reduce_grads(mesh, trainable, metrics)
+            vis_opt.step()
+            illum_opt.step()
         return metrics
 
     return step

@@ -1,8 +1,20 @@
-"""Profiling hooks: a ``torch.profiler`` trace and chained-step timing
-(counterpart of ``robir_tpu/tools/profiler.py``).
+"""Profiling hooks: a ``torch.profiler`` trace, the program's spans and
+counters on its clock, and chained-step timing (counterpart of
+``robir_tpu/tools/profiler.py``).
 
 - ``trace(log_dir)``: a ``torch.profiler`` capture of the enclosed block,
   written as a Chrome trace ``<log_dir>/<time>_<pid>.pt.trace.json``.
+- ``span(name)``: a phase of the program. While a ``torch.profiler`` runs
+  it is a ``record_function`` (a ``user_annotation`` event of the trace,
+  on the calling thread, on the device events' clock); otherwise a shared
+  no-op context, behind one check of the profiler's state.
+- ``count(name, n)``, ``count_log(name)`` and ``counts(start_us,
+  end_us)``: while a profiler runs, ``count`` logs ``n`` of ``name`` at
+  ``time.time_ns()`` in a bounded log; ``count_log`` lists a name's
+  entries; ``counts`` sums the log's entries in a window of the trace's
+  microseconds (an event's ``ts`` plus the trace's
+  ``baseTimeNanoseconds`` / 1e3: the same clock). Without a profiler,
+  ``count`` is the same one check.
 - ``summarize_trace(trace_dir)``: the device time of the newest trace under
   ``trace_dir``, by category (``kernel``, ``memcpy``, ``memset``) and by
   kernel name, with the JAX function's keys, and beside them the count of
@@ -12,14 +24,14 @@
 - ``time_scanned_reps(step_fn, init_carry)``: seconds a step of
   ``n_steps`` chained ``carry -> carry`` steps, after one warmup chain, for
   each of ``reps`` runs; each run is timed with CUDA events on the card, or
-  with the host clock on the CPU (``device="cpu"``). ``time_scanned`` is the
-  best of them.
+  with the host clock on the CPU (``device="cpu"``).
 
 Every function runs on ``cuda`` unless ``device="cpu"`` is passed, and
 raises without a card: the CUDA timers never time on the host in its place.
 ``NeusTrainer.throughput`` and ``tools/vis_workload.py`` time their steps
 with ``time_scanned_reps``; ``chip_smoke.py --profile`` traces with
-``trace`` and reads ``summarize_trace``.
+``trace`` and reads ``summarize_trace``. The spans and the counter, where
+the train loops put them, and their readers: ``PERF.md`` section 3.
 """
 
 from __future__ import annotations
@@ -41,6 +53,46 @@ from .. import resolve_device
 # torch.profiler's Chrome-trace categories of device work, by the name the
 # summary gives them
 DEVICE_CATEGORIES = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset"}
+
+# whether a profiler records: 0.3 us a call, against 17 us for a bare
+# record_function with none running
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+# (time.time_ns(), name, n) of each count made while a profiler ran
+_COUNTS: collections.deque = collections.deque(maxlen=1 << 16)
+
+
+def span(name: str):
+    """A context naming a phase of the program in a running profiler's
+    trace (``record_function``); a shared no-op context without one."""
+    if not _profiling():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int) -> None:
+    """Log ``n`` (a host number: reading it must not wait for the device)
+    of ``name`` now, if a profiler runs."""
+    if _profiling():
+        _COUNTS.append((time.time_ns(), name, n))
+
+
+def count_log(name: str) -> list[tuple[int, int]]:
+    """(time.time_ns(), n) of each count of ``name`` in the log, oldest
+    first."""
+    return [(t, n) for t, logged, n in list(_COUNTS) if logged == name]
+
+
+def counts(start_us: float, end_us: float) -> dict[str, int]:
+    """{name: sum of n} of the counts logged in [``start_us``,
+    ``end_us``], microseconds on the trace's clock (an event's ``ts`` plus
+    the trace's ``baseTimeNanoseconds`` / 1e3)."""
+    lo, hi = start_us * 1e3, end_us * 1e3
+    out: collections.Counter = collections.Counter()
+    for t, name, n in list(_COUNTS):
+        if lo <= t <= hi:
+            out[name] += n
+    return dict(out)
 
 
 @contextlib.contextmanager
@@ -142,8 +194,3 @@ def time_scanned_reps(step_fn: Callable[[Any], Any], init_carry, n_steps: int = 
     chain(max(1, n_steps if warmup is None else warmup))
     return [chain(n_steps) / n_steps for _ in range(reps)]
 
-
-def time_scanned(step_fn: Callable[[Any], Any], init_carry, n_steps: int = 20,
-                 reps: int = 4, device="cuda") -> float:
-    """The best of ``time_scanned_reps``'s seconds a step."""
-    return min(time_scanned_reps(step_fn, init_carry, n_steps, reps, device))

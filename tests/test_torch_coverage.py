@@ -81,6 +81,9 @@ COUNTERPARTS = {
         "splits"),
     "stages.losses:kl_loss": (
         "fields.sparse_ae:ae_kl_divergence", "its body is one ae_kl_divergence call"),
+    "tools.profiler:time_scanned": (
+        "tools.profiler:time_scanned_reps", "its body is min() of time_scanned_reps, whose "
+        "callers keep every run"),
     "tracing.grid:bake_march_layout": (
         "tracing.grid:build_sdf_grid", "the TPU lookup layouts (quad rows, blocked gathers); "
         "the port's march reads the baked grid as it is"),

@@ -24,7 +24,7 @@ from robir_tpu_torch.tools import vis_workload as tvw
 
 def test_time_scanned_chains_the_carry():
     """One warmup chain, then ``reps`` chains of ``n_steps`` from
-    ``init_carry``; seconds a step for each; ``time_scanned`` their best."""
+    ``init_carry``; seconds a step for each."""
     calls = []
 
     def step(c):
@@ -38,7 +38,6 @@ def test_time_scanned_chains_the_carry():
     calls.clear()
     profiler.time_scanned_reps(step, 0, n_steps=2, reps=1, device="cpu", warmup=1)
     assert calls == [0, 0, 1]
-    assert profiler.time_scanned(step, 0, n_steps=2, reps=2, device="cpu") > 0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present: the timers run")
