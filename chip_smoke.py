@@ -15,8 +15,11 @@
    tracer packs its frozen weights once for all its queries, the other
    callers at every launch): K1, K3 and K4 at the SDF trunk's
    plan and stage 1's rows (K3 and K4 also on each side of their switch
-   from 16- to 64-row tiles); K1 at the CESR tracer's rows (1,024 per query,
-   102,400 in the dense search) and K3 at the CESR step's (1,024); K1 and
+   from 16- to 64-row tiles; K3 as stage 1 runs it, keeping its state for
+   K4, and its outputs bit-equal without keeping; K4 from that state, its
+   dx bit-equal on a second backward from it); K1 at the CESR tracer's
+   rows (1,024 per query, 102,400 in the dense search) and K3 at the CESR
+   step's (1,024); K1 and
    K2 at the CESR normal net's plan (8 x 512, 1,024 rows), K2 also at the
    SDF trunk's (8,192 rows); K1 and K2 at both plans at 1,024 and 1,027
    rows and on each side of their switch from clusters of blocks per
@@ -29,7 +32,8 @@
    ``configs/neus_blender.json`` (batch 512) on an in-memory 64x64 sphere
    scene for ``--steps`` steps, then the chunked eval render of a test view.
    The launch counts are set to 0 just before and must rise by exactly
-   4 K1 + 1 K3 + 1 K4 per step and 4 K1 + 1 K3 per eval chunk.
+   4 K1 + 1 K3 + 1 K4 per step and 4 K1 + 1 K3 per eval chunk; each step's
+   K3, and none of the eval render's, keeps its state for K4.
 5. Checks one full-width CESR step (64 pixels) dense on the sphere tracer on
    the card against the same step on the CPU in fp32 and fp64, from the
    same weights (the frozen NeuS the seeded init, not the NeuS just trained,
@@ -136,7 +140,8 @@
    (counted, bit-equal to the CESR runner's grid, K1 held on a chunk), and
    PBR_STEPS (20) steps (counts set
    to 0 just before: per step one grid march at 1,024 rays and one K3 at
-   the shaded rows; no K1, K2 or K4); K3 then held to its plain version at
+   the shaded rows, which keeps no state; no K1, K2 or K4); K3 then held
+   to its plain version at
    every row count the run shaded, and the march on a PBR batch's rays;
    the diffuse sweep alone timed at the run's median rows.
 20. The eval render: ``PBRRunner.render_view`` of test view 0 of the shadow
@@ -642,51 +647,65 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
 
         x, ws, bs = trunk_inputs(plan, pe, rows_k3, gen)
         # the main path's rows, a ragged count, and each side of the switch
-        # from 16- to 64-row tiles (fused_value_grad.cu: vg_row_tile)
+        # from 16- to 64-row tiles (fused_value_grad.cu: vg_row_tile); K3
+        # both as stage 1 launches it (keeping its state for K4) and as the
+        # paths without a backward do, which must give the same outputs
         switch = VG_TALL_ROWS_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
         k34_rows = ((rows_k3, ""), (4099, " ragged"), (switch - 1, f" at {switch - 1}"),
                     (switch + 1, f" at {switch + 1}"))
         pairs = []
         for n, tag in k34_rows:
-            y, de = fv.vg_forward_cuda(plan, x[:n], ws, bs)
+            y, de, _ = fv.vg_forward_saving_cuda(plan, x[:n], ws, bs)
+            y2, de2 = fv.vg_forward_cuda(plan, x[:n], ws, bs)
+            if not (torch.equal(y, y2) and torch.equal(de, de2)):
+                raise RuntimeError(f"K3{tag}: outputs differ with and without the kept state")
             yp, dep, *_ = fv._forward_phases(plan, x[:n], ws, bs)
             pairs += [("y" + tag, y, yp), ("de" + tag, de, dep)]
         err = held_to_plain("K3", pairs)
-        del pairs, y, de, yp, dep
-        ms = cuda_ms(lambda: fv.vg_forward_cuda(plan, x, ws, bs), 5)
+        del pairs, y, de, y2, de2, yp, dep
+        ms = cuda_ms(lambda: fv.vg_forward_saving_cuda(plan, x, ws, bs), 5)
         plain = cuda_ms(lambda: fv._forward_phases(plan, x, ws, bs), 5)
-        bound = bound_ms(4.0 * nw * rows_k3, 4.0 * (rows_k3 * (2 * d0 + dout) + nw + nb))
+        state = fv.scratch_floats(plan, rows_k3, "state")
+        bound = bound_ms(4.0 * nw * rows_k3,
+                         4.0 * (rows_k3 * (2 * d0 + dout) + state + nw + nb))
         entries["K3"] = dict(
-            name="K3 fused_value_grad forward (value + d sdf/dx), stage 1", route="cuda",
+            name="K3 fused_value_grad forward (value + d sdf/dx), stage 1: keeps its state "
+                 "for K4", route="cuda",
             source="robir_tpu_torch/csrc/fused_value_grad.cu",
             replaces="robir_tpu/render/pallas/fused_value_grad.py:131",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
             bound_by=bound[1], library_ms=None, rows=rows_k3,
             kernel="K3", path="neus_stage1", shape=None)
 
-        for kernel, backward in (("K3", False), ("K4", True)):
-            n_bytes = 4 * fv.scratch_floats(plan, rows_k3, backward)
-            print(f"{kernel} global scratch at {rows_k3} rows: {n_bytes} bytes "
+        for buffer in fv.SCRATCH_BUFFERS:
+            n_bytes = 4 * fv.scratch_floats(plan, rows_k3, buffer)
+            print(f"global scratch {buffer!r} at {rows_k3} rows: {n_bytes} bytes "
                   f"({n_bytes // rows_k3} per row)", flush=True)
 
         dy = 1e-3 * torch.randn(rows_k3, dout, generator=gen, device="cuda")
         dde = 1e-3 * torch.randn(rows_k3, d0, generator=gen, device="cuda")
         pairs = []
         for n, tag in k34_rows:
-            got = fv.vg_backward_cuda(plan, x[:n], ws, bs, dy[:n], dde[:n])
+            saved = fv.vg_forward_saving_cuda(plan, x[:n], ws, bs)[2]
+            got = fv.vg_backward_cuda(plan, x[:n], ws, bs, dy[:n], dde[:n], saved=saved)
+            again = fv.vg_backward_cuda(plan, x[:n], ws, bs, dy[:n], dde[:n], saved=saved)
+            if not torch.equal(got[0], again[0]):
+                raise RuntimeError(f"K4{tag}: dx differs on a second backward from one state")
             want = fv._backward_phases(plan, x[:n], ws, bs, dy[:n], dde[:n])
             pairs.append(("dx" + tag, got[0], want[0]))
             for i in range(plan.n_layers):
                 pairs.append((f"dW{i}{tag}", got[1][i], want[1][i]))
                 pairs.append((f"db{i}{tag}", got[2][i], want[2][i]))
         err = held_to_plain("K4", pairs)
-        del pairs, got, want
-        ms = cuda_ms(lambda: fv.vg_backward_cuda(plan, x, ws, bs, dy, dde), 3)
+        del pairs, got, again, want, saved
+        saved = fv.vg_forward_saving_cuda(plan, x, ws, bs)[2]
+        ms = cuda_ms(lambda: fv.vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=saved), 3)
+        del saved
         plain = cuda_ms(lambda: fv._backward_phases(plan, x, ws, bs, dy, dde), 3)
-        bound = bound_ms(12.0 * nw * rows_k3,
-                         4.0 * (rows_k3 * (3 * d0 + dout) + 2 * (nw + nb)))
+        bound = bound_ms(8.0 * nw * rows_k3,
+                         4.0 * (rows_k3 * (2 * d0 + dout) + state + 2 * (nw + nb)))
         entries["K4"] = dict(
-            name="K4 fused_value_grad backward (hand VJP)", route="cuda",
+            name="K4 fused_value_grad backward (hand VJP), from the state K3 kept", route="cuda",
             source="robir_tpu_torch/csrc/fused_value_grad.cu",
             replaces="robir_tpu/render/pallas/fused_value_grad.py:142",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
@@ -1156,7 +1175,7 @@ def shapes() -> dict:
 
 
 def reset_counts() -> None:
-    for k in KERNELS.values():
+    for k in (*KERNELS.values(), fv.KEPT):
         k.reset()
 
 
@@ -1239,12 +1258,13 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
             losses.append(metrics["loss"])
             if not np.isfinite(metrics["loss"]):
                 raise RuntimeError(f"loss {metrics['loss']} at step {trainer.step}")
-        trained = counts()
+        trained, kept = counts(), fv.KEPT.launches
         t0 = time.perf_counter()
         img = trainer.render_image(0, scene=test_scene)
         torch.cuda.synchronize()
         render_s = time.perf_counter() - t0
         run, run_shapes = counts(), shapes()
+        kept = (kept, fv.KEPT.launches)
         neus = to_numpy(trainer.model.params)
     finally:
         trainer.close()
@@ -1255,6 +1275,10 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
     want = {k: trained[k] + v * n_chunks for k, v in per_chunk.items()}
     if run != want:
         raise RuntimeError(f"launches after the eval render {run}, expected {want}")
+    # each step's K3 keeps its state for its K4; the eval render's keep none
+    if kept != (steps, steps):
+        raise RuntimeError(f"K3 launches that kept their state, after training and after the "
+                           f"eval render: {kept}, expected {(steps, steps)}")
     if img["rgb"].shape != (test_scene.h, test_scene.w, 3) or not (
             np.isfinite(img["rgb"]).all() and np.isfinite(img["psnr"])):
         raise RuntimeError("eval render is not finite or has the wrong shape")
@@ -2449,9 +2473,9 @@ def drive_pbr(runner, steps: int, profile: int = 0):
     compacted or dense), surface rows, loss, rgb_loss and PSNR; the guard's
     choice is printed where it reads. Each step must launch the grid march
     once at the batch's rays and K3 once at the rows it shades (its surface
-    rows if compacted, else the batch); K1, K2 and K4 never. Returns the
-    launches by shape and the shaded rows of each step. Then, if
-    ``profile``, profiles that many more steps."""
+    rows if compacted, else the batch), keeping no state; K1, K2 and K4
+    never. Returns the launches by shape and the shaded rows of each step.
+    Then, if ``profile``, profiles that many more steps."""
     stage = runner.stage_cfg
     n, R = stage.num_pixels, runner.cfg.grid.resolution
     want = {k: {} for k in KERNELS}
@@ -2491,12 +2515,14 @@ def drive_pbr(runner, steps: int, profile: int = 0):
                   f"{runner.surface_frac:.4f} {'>' if dense else '<='} "
                   f"{stage.compact_max_surface_frac}: the next steps run "
                   f"{'dense' if dense else 'compacted'}", flush=True)
-    run = shapes()
+    run, kept = shapes(), fv.KEPT.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     if profile:
         profile_steps(runner.run, profile, "PBR")
     if run != want:
         raise RuntimeError(f"PBR launches {run}, expected {want}")
+    if kept:  # the frozen NeuS's K3 has no backward to keep its state for
+        raise RuntimeError(f"PBR steps: {kept} K3 launches kept their state, expected 0")
     steady = step_ms[2:] or step_ms
     print(f"PBR step ({n} pixels, {runner.cfg.envmap.num_lgt_sgs} SG lights x 32 diffuse "
           f"samples, grid {R}^3, compact_chunk {stage.compact_chunk}): median "
@@ -2776,7 +2802,7 @@ TRUNK_KERNELS = {
 def trunk_calls(kernel: str, plan, x, ws, bs, gen):
     """(kernel call, plain call) of a trunk kernel on (x, ws, bs): K2 without
     dx, as the CESR normal net needs none; K2 and K4 on seeded
-    cotangents."""
+    cotangents, K4 from the state K3 kept, as the paths run it."""
     n, d0, dout = x.shape[0], plan.dims[0], plan.out_dim
     if kernel == "K1":
         return (lambda: fm.fused_mlp_cuda(plan, x, ws, bs),
@@ -2789,7 +2815,8 @@ def trunk_calls(kernel: str, plan, x, ws, bs, gen):
         return (lambda: fm.mlp_backward_cuda(plan, x, ws, bs, dy, False)[1:],
                 lambda: fm._backward_rows(plan, x, ws, bs, dy, False)[1:])
     dde = 1e-3 * torch.randn(n, d0, generator=gen, device="cuda")
-    return (lambda: fv.vg_backward_cuda(plan, x, ws, bs, dy, dde),
+    saved = fv.vg_forward_saving_cuda(plan, x, ws, bs)[2]  # K4 starts from K3's state
+    return (lambda: fv.vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=saved),
             lambda: fv._backward_phases(plan, x, ws, bs, dy, dde))
 
 
@@ -2803,7 +2830,8 @@ def trunk_bound(kernel: str, plan, rows: int) -> tuple[float, str]:
         return k2_bound(plan, rows, False)
     if kernel == "K3":
         return bound_ms(4.0 * nw * rows, 4.0 * (rows * (2 * d0 + dout) + nw + nb))
-    return bound_ms(12.0 * nw * rows, 4.0 * (rows * (3 * d0 + dout) + 2 * (nw + nb)))
+    state = fv.scratch_floats(plan, rows, "state")
+    return bound_ms(8.0 * nw * rows, 4.0 * (rows * (2 * d0 + dout) + state + 2 * (nw + nb)))
 
 
 def flat_outputs(out) -> list:
@@ -3414,11 +3442,11 @@ def check_bg_step_against_cpu(model_cfg, render_cfg, train_cfg, scene, seed: int
     loss_gpu, _, g_gpu = step("cuda", torch.float32)
     real = fv.vg_backward_cuda
 
-    def blind_to_first_rows(plan, x, ws, bs, dy, dde):
+    def blind_to_first_rows(plan, x, ws, bs, dy, dde, saved=None):
         dy, dde = dy.clone(), dde.clone()
         dy[:FAULT_ROWS] = 0
         dde[:FAULT_ROWS] = 0
-        return real(plan, x, ws, bs, dy, dde)
+        return real(plan, x, ws, bs, dy, dde, saved=saved)
 
     try:
         fv.vg_backward_cuda = blind_to_first_rows

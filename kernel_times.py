@@ -8,7 +8,8 @@ checks, on one CUDA card, from CUDA events.
 example an unpacked parent commit) instead of this one's, so that two
 versions are compared in one call on one card: run parent, change, change,
 parent. The inputs, the timing by CUDA events, K1's weight packing and
-the shapes are ``chip_smoke.py``'s, whichever package runs. Each shape also
+the shapes are ``chip_smoke.py``'s, whichever package runs; stage 1's K3
+and K4 are timed as that package's main path runs them. Each shape also
 gets the device time of each of the port's kernels it launches (K2's rows
 kernel and its dW/db reduction apart), from the profiler: below a
 millisecond the CUDA events can time the host, which launches a
@@ -107,12 +108,17 @@ def main() -> None:
         plan, x, ws, bs, dy = inputs("sdf", rows["vg"])
         dde = 1e-3 * torch.randn(rows["vg"], plan.dims[0], generator=gen, device="cuda")
         xq = x[:rows["query"]]
+        # stage 1's K3 and K4 as the tree's main path runs them
+        if hasattr(fv, "vg_forward_saving_cuda"):  # K4 starts from the state K3 kept
+            k3 = functools.partial(fv.vg_forward_saving_cuda, plan, x, ws, bs)
+            k4 = functools.partial(fv.vg_backward_cuda, plan, x, ws, bs, dy, dde, saved=k3()[2])
+        else:  # a tree whose K4 computes the forward again
+            k3 = functools.partial(fv.vg_forward_cuda, plan, x, ws, bs)
+            k4 = functools.partial(fv.vg_backward_cuda, plan, x, ws, bs, dy, dde)
         for key, fn, reps in (
                 (f"K3 sdf {rows['query']}", functools.partial(fv.vg_forward_cuda, plan, xq, ws, bs),
                  args.reps),
-                (f"K3 sdf {rows['vg']}", functools.partial(fv.vg_forward_cuda, plan, x, ws, bs), 5),
-                (f"K4 sdf {rows['vg']}",
-                 functools.partial(fv.vg_backward_cuda, plan, x, ws, bs, dy, dde), 3)):
+                (f"K3 sdf {rows['vg']}", k3, 5), (f"K4 sdf {rows['vg']}", k4, 3)):
             record(key, cs.cuda_ms(fn, reps), fn, reps)
     print(json.dumps({"tree": args.tree, "times_ms": times}), flush=True)
 

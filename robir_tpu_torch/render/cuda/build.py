@@ -105,7 +105,23 @@ def int_array(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
 
 
-class Kernel:
+class LaunchCount:
+    """A count of launches, in all (``launches``) and by the shape the
+    caller names (``by_shape``)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_shape: dict[tuple, int] = {}
+
+    def add(self, shape: tuple) -> None:
+        self.launches += 1
+        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+
+
+class Kernel(LaunchCount):
     """One C entry point of a kernel library, with its count of launches.
 
     Calling it launches the kernel(s) behind the entry point on the given
@@ -115,15 +131,10 @@ class Kernel:
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
+        super().__init__()
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
-        self.by_shape: dict[tuple, int] = {}
-
-    def reset(self) -> None:
-        self.launches = 0
-        self.by_shape = {}
 
     def __call__(self, *args, shape: tuple) -> None:
         lib = library(self.source)
@@ -137,5 +148,4 @@ class Kernel:
             msg.restype = ctypes.c_char_p
             raise RuntimeError(f"{self.symbol}: CUDA error {err} "
                                f"({msg(err).decode()})")
-        self.launches += 1
-        self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
+        self.add(shape)

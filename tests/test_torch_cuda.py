@@ -126,7 +126,10 @@ def test_fused_mlp_under_grad_runs_k1_and_k2(dev):
 
 # Row counts about the kernels' row tiles (16 rows, and 64 from 16,896 rows
 # on a 132-SM card) and their ragged edges.
-@pytest.mark.parametrize("n_rows", [1, 63, 65, 1000, 1024, 4099, 16895, 16897, 65533])
+K34_ROWS = [1, 63, 65, 1000, 1024, 4099, 16895, 16897, 65533]
+
+
+@pytest.mark.parametrize("n_rows", K34_ROWS)
 def test_k3_k4_match_plain(dev, n_rows):
     plan = tfm.plan_from_sdf_config(SDFConfig())
     x, ws, bs = trunk_case(plan, 4, n_rows)
@@ -140,6 +143,40 @@ def test_k3_k4_match_plain(dev, n_rows):
     dxr, dwsr, dbsr = tfv._backward_phases(plan, x, ws, bs, dy, dde)
     for got, want in [(y, yr), (de, der), (dx, dxr), *zip(dws, dwsr), *zip(dbs, dbsr)]:
         _close(got, want)
+
+
+@pytest.mark.parametrize("n_rows", K34_ROWS)
+def test_k3_k4_autograd_matches_plain(dev, n_rows):
+    """Autograd through ``fused_value_grad`` on the card: one K3 that keeps
+    its state and one K4 that starts from it, against the plain versions.
+    K3's outputs are bit-equal with and without keeping the state; K4 only
+    reads it, so its dx is bit-equal from the kept state, from it a second
+    time, and from a K3 that ``vg_backward_cuda`` runs itself."""
+    plan = tfm.plan_from_sdf_config(SDFConfig())
+    x, ws, bs = trunk_case(plan, 14, n_rows)
+    rng = np.random.default_rng(15)
+    dy = to_t(rng.standard_normal((n_rows, plan.out_dim)), dev)
+    dde = to_t(rng.standard_normal((n_rows, plan.dims[0])), dev)
+    x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
+    leaves = [a.clone().requires_grad_() for a in (x, *ws, *bs)]
+    n = plan.n_layers
+    counters = (tfv.FORWARD, tfv.KEPT, tfv.BACKWARD)
+    before = [k.launches for k in counters]
+    y, de = tfv.fused_value_grad(plan, leaves[0], leaves[1:1 + n], leaves[1 + n:])
+    grads = torch.autograd.grad((y, de), leaves, (dy, dde))
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1]
+    yr, der, *_ = tfv._forward_phases(plan, x, ws, bs)
+    dxr, dwsr, dbsr = tfv._backward_phases(plan, x, ws, bs, dy, dde)
+    for got, want in zip([y.detach(), de.detach(), *grads], [yr, der, dxr, *dwsr, *dbsr]):
+        _close(got, want)
+
+    y2, de2, saved = tfv.vg_forward_saving_cuda(plan, x, ws, bs)
+    y3, de3 = tfv.vg_forward_cuda(plan, x, ws, bs)
+    assert torch.equal(y2, y3) and torch.equal(de2, de3) and torch.equal(y2, y.detach())
+    dx = [tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=saved)[0],
+          tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=saved)[0],
+          tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde)[0]]
+    assert all(torch.equal(d, grads[0]) for d in dx)
 
 
 
@@ -182,21 +219,22 @@ def test_trunk_kernels_at_the_pipeline_plan(dev, kernel, n_rows):
 def test_trainer_steps_launch_each_kernel(dev):
     """Small widths through NeusTrainer on the card: finite losses, and the
     launch counts rise by 4 K1 + 1 K3 + 1 K4 per step (4 up-sample rounds,
-    the last of which queries nothing)."""
+    the last of which queries nothing), each step's K3 keeping its state
+    for its K4."""
     model = NeuSConfig(sdf=SDFConfig(d_out=17, d_hidden=32, n_layers=3, skip_in=(2,),
                                      multires=2),
                        color=RenderingConfig(d_feature=16, d_hidden=32, n_layers=2))
     trainer = NeusTrainer(make_sphere_scene("train", n_train=4, h=16, w=16), model,
                           NeusRenderConfig(n_samples=16, n_importance=16),
                           NeusTrainConfig(batch_size=64), device="cuda")
-    kernels = (tfm.FORWARD, tfv.FORWARD, tfv.BACKWARD)
+    kernels = (tfm.FORWARD, tfv.FORWARD, tfv.KEPT, tfv.BACKWARD)
     before = [k.launches for k in kernels]
     try:
         metrics = trainer.run(3)
     finally:
         trainer.close()
     assert np.isfinite(metrics["loss"])
-    assert [k.launches - b for k, b in zip(kernels, before)] == [12, 3, 3]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [12, 3, 3, 3]
 
 
 def test_cesr_runner_steps_launch_each_kernel(dev):
@@ -394,10 +432,11 @@ def _pbr_runner(dev, num_pixels: int):
 def test_pbr_steps_launch_k3_at_their_rows(dev):
     """Three PBR steps (1,024 pixels, row mode): finite metrics, and per
     step one grid march at 1,024 rays and one K3 at the step's surface rows,
-    no K1, K2 or K4; K3 at each of those row counts against its plain
-    version at the SDF trunk's full width."""
+    which keeps no state (the frozen NeuS has no backward), no K1, K2 or
+    K4; K3 at each of those row counts against its plain version at the
+    SDF trunk's full width."""
     runner = _pbr_runner(dev, 1024)
-    kernels = (tfm.FORWARD, tfm.BACKWARD, tfv.FORWARD, tfv.BACKWARD, tgm.MARCH)
+    kernels = (tfm.FORWARD, tfm.BACKWARD, tfv.FORWARD, tfv.BACKWARD, tgm.MARCH, tfv.KEPT)
     for k in kernels:
         k.reset()
     rows = []
@@ -405,7 +444,7 @@ def test_pbr_steps_launch_k3_at_their_rows(dev):
         metrics = runner.run(1)
         assert all(np.isfinite(v) for v in metrics.values()), metrics
         rows.append(max(round(metrics["surface_frac"] * 1024), 1))
-    assert [k.launches for k in kernels] == [0, 0, 3, 0, 3]
+    assert [k.launches for k in kernels] == [0, 0, 3, 0, 3, 0]
     assert sorted(r for (_, r), n in tfv.FORWARD.by_shape.items() for _ in range(n)) == sorted(rows)
     assert all(16 < r < 1024 for r in rows)
     plan = tfm.plan_from_sdf_config(SDFConfig())

@@ -1,8 +1,9 @@
-"""The port's spans and counter (``tools/profiler.py``: ``span``, ``count``,
+"""The port's spans and counters (``tools/profiler.py``: ``span``, ``count``,
 ``counts``) on the CPU: nothing recorded without a profiler; nested spans
 in the trace; a count on the trace's clock; compaction's row counter; and
 the phases a stage-1 step and a compacted PBR step name, once each and
-nested as the train loops put them.
+nested as the train loops put them, with the rows whose K3 state each
+step kept (``vg.saved_rows``).
 """
 
 import json
@@ -133,7 +134,9 @@ def assert_loop_order(got: dict) -> None:
 
 def test_a_stage1_step_names_its_phases(tmp_path):
     """One ``NeusTrainer.run(1)``: ``batch``, ``forward`` holding
-    ``neus.sample`` then ``neus.shade``, ``backward``, ``update``."""
+    ``neus.sample`` then ``neus.shade``, ``backward``, ``update``; K3's
+    forward kept its state for K4 at the step's shaded rows (16 rays x 16
+    samples), once (``vg.saved_rows``)."""
     cfg = NeuSConfig(sdf=SDFConfig(d_out=33, d_hidden=32, n_layers=3, skip_in=(2,),
                                    multires=3),
                      color=RenderingConfig(d_feature=32, d_hidden=32, n_layers=2))
@@ -141,11 +144,13 @@ def test_a_stage1_step_names_its_phases(tmp_path):
                                 NeusRenderConfig(n_samples=8, n_importance=8,
                                                  up_sample_steps=2),
                                 tneus.NeusTrainConfig(batch_size=16), seed=1, device="cpu")
+    before = len(profiler.count_log("vg.saved_rows"))
     try:
         trace, metrics = traced(tmp_path, lambda: trainer.run(1))
     finally:
         trainer.close()
     assert np.isfinite(metrics["loss"])
+    assert [n for _, n in profiler.count_log("vg.saved_rows")[before:]] == [16 * 16]
     got = assert_once_each(trace, ("batch", "forward", "neus.sample", "neus.shade",
                                    "backward", "update"))
     assert_loop_order(got)
@@ -157,14 +162,17 @@ def test_a_stage1_step_names_its_phases(tmp_path):
 def test_a_compacted_pbr_step_names_its_phases(tmp_path):
     """One ``PBRRunner.run(1)`` at 24 pixels, compacted at 8: ``batch``,
     ``forward`` holding ``compact.wait`` then ``stage2.shade``, which holds
-    ``sg.diffuse_sweep``, then ``backward`` and ``update``: once each."""
+    ``sg.diffuse_sweep``, then ``backward`` and ``update``: once each. The
+    frozen NeuS's K3 keeps no state (``vg.saved_rows`` counts nothing)."""
     params = trunner.init_stage2_params(torch.Generator().manual_seed(1), TCFG_GRID)
     runner = tpbr.PBRRunner(TCFG_GRID, params, shadow_scene(n_train=3, h=40, w=40),
                             tpbr.PBRStageConfig(num_pixels=24, compact_chunk=8), seed=2,
                             device="cpu")
     runner.grid_values = two_sphere_grid(TCFG_GRID.grid)[1]
+    before = len(profiler.count_log("vg.saved_rows"))
     trace, metrics = traced(tmp_path, lambda: runner.run(1))
     assert np.isfinite(metrics["loss"])
+    assert profiler.count_log("vg.saved_rows")[before:] == []
     got = assert_once_each(trace, ("batch", "forward", "compact.wait", "stage2.shade",
                                    "sg.diffuse_sweep", "backward", "update"))
     assert_loop_order(got)
