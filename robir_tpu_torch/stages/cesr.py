@@ -25,6 +25,11 @@ them in the step (without the row mode's lobe weights, as JAX's dense
 render): under data parallelism (``mesh=``) its KL is of the global mean
 rate, which no rank's render can take alone.
 
+Under a profiler the spans ``cesr.shadow_net`` and ``cesr.normal_net``
+name the two nets' forwards in the render, and the counter
+``cesr.light_rows`` logs the (row, light) pairs the shadow net evaluates
+(``tools/profiler.py``; their readers: ``PERF.md`` section 3).
+
 ``cesr_plot_to_disk`` writes the stage's diagnostic grid of one view.
 """
 
@@ -49,7 +54,7 @@ from ..render import sg as sg_lib
 from ..render.color import as_input, hdr2ldr
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
 from ..tools import plots
-from ..tools.profiler import span
+from ..tools.profiler import count, span
 from .losses import (InvLossConfig, latent_smooth_loss, masked_spec_kl, rgb_loss,
                      white_loss)
 from .stage2_runner import MaterialRunner, StageOptConfig, render_view
@@ -161,8 +166,13 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
     indir_integral = indir_integral * 2 * np.pi
     normal_map = mat.normal_map.detach()
 
-    diffuse_vis = shadow_net_vis(shadow_params, stage_cfg, points, mat.lgt_sgs.shape[0])
-    normal_new = normal_net_apply(normal_params, stage_cfg, points)
+    num_lights = mat.lgt_sgs.shape[0]
+    with span("cesr.shadow_net"):
+        diffuse_vis = shadow_net_vis(shadow_params, stage_cfg, points, num_lights)
+    # the (row, light) pairs the shadow net evaluates: a host int, no wait
+    count("cesr.light_rows", points.shape[0] * num_lights)
+    with span("cesr.normal_net"):
+        normal_new = normal_net_apply(normal_params, stage_cfg, points)
     sg_ret = sg_lib.render_with_all_sg(
         draws, points.detach(), normal_new if use_new_normal else normal_map,
         view_dirs, mat.lgt_sgs, torch.abs(mat.specular_reflectance), mat.roughness,
