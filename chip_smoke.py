@@ -31,9 +31,13 @@
 4. Drives the stage-1 path: ``NeusTrainer`` at the widths of
    ``configs/neus_blender.json`` (batch 512) on an in-memory 64x64 sphere
    scene for ``--steps`` steps, then the chunked eval render of a test view.
-   The launch counts are set to 0 just before and must rise by exactly
-   4 K1 + 1 K3 + 1 K4 per step and 4 K1 + 1 K3 per eval chunk; each step's
-   K3, and none of the eval render's, keeps its state for K4.
+   The step replays CUDA graphs of its loss call and backward
+   (``stages/step_graph.py``): the launch counts are set to 0 just before
+   and must rise by exactly 2 x (4 K1 + 1 K3 + 1 K4), the capture's
+   warm-up and the capture, however many steps, with one capture and one
+   replay a step; then by 4 K1 + 1 K3 per eval chunk; the warm-up's and
+   the capture's K3, and none of the eval render's, keep their state for
+   K4.
 5. Checks one full-width CESR step (64 pixels) dense on the sphere tracer on
    the card against the same step on the CPU in fp32 and fp64, from the
    same weights (the frozen NeuS the seeded init, not the NeuS just trained,
@@ -246,7 +250,8 @@
    CPU test holds them; one step's summed gradients within DDP_GRAD_TOL,
    in a check run with fp32 storage and CESR past its warmup.
    ``sampling_bf16``: stage 1 with ``sampling_dtype="bfloat16"`` for
-   ``--steps`` steps: exactly 0 K1 + 1 K3 + 1 K4 a step; the bf16 query
+   ``--steps`` steps, graphed: exactly 0 K1 + 2 K3 + 2 K4 counted (the
+   capture's warm-up and the capture), one replay a step; the bf16 query
    (one ``torch.mm(out_dtype=float32)`` a layer) against the CPU's bf16
    route and K1 (which it must differ from by bf16's rounding), timed
    beside K1; ``throughput`` of both settings. Each path's (kernel, shape)
@@ -1185,7 +1190,19 @@ TRACE_NAMES = {"K1": "fused_mlp_fwd", "K2": "mlp_bwd_rows_kernel", "K3": "vg_fwd
                "K4": "vg_bwd_rows_kernel", "march": "grid_march_kernel"}
 
 
-def profile_steps(run, n_steps: int, what: str = "train") -> None:
+def stage1_step_launches(render_cfg) -> dict:
+    """The trunk kernels' launches in one stage-1 train step: K1 once for
+    the coarse samples and once a later up-sample round (the last round
+    queries nothing), 1 K3, 1 K4."""
+    return {"K1": render_cfg.up_sample_steps, "K2": 0, "K3": 1, "K4": 1, "march": 0}
+
+
+# the times a graphed stage-1 step's launches pass through the kernels'
+# wrappers: the capture's warm-up and the capture
+GRAPH_CALLS = 2
+
+
+def profile_steps(run, n_steps: int, what: str = "train", graph=None) -> None:
     """Device time and launches by kernel over ``n_steps`` more steps
     (``run(n_steps)``): a ``tools/profiler.py:trace`` written to
     ``profile_traces/<what>`` and read back by ``summarize_trace``, and the
@@ -1194,9 +1211,12 @@ def profile_steps(run, n_steps: int, what: str = "train") -> None:
     time and a device event for every launch after its first traced one
     (the profiler drops a few launches at a trace's start), and each
     kernel's events there equal its wrapper's launches with rows in the
-    window, less at most those dropped at the start."""
+    window, less at most those dropped at the start. ``graph``: (a
+    ``StepGraph``, its launches a replay by kernel), whose replays in the
+    window launch without the wrappers and are counted so."""
     log_dir = ROOT / "profile_traces" / what.replace(" ", "_")
     before = shapes()
+    replays = graph[0].replays if graph else 0
     torch.cuda.synchronize()
     with profiler.trace(str(log_dir)):
         t0 = time.perf_counter()
@@ -1204,6 +1224,7 @@ def profile_steps(run, n_steps: int, what: str = "train") -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     after = shapes()
+    replays = graph[0].replays - replays if graph else 0
     summary = profiler.summarize_trace(str(log_dir), top_ops=20)
     busy_ms, ops = summary["total_ms"], summary["counts"]["ops"]
     lost, at_start = summary["counts"]["lost"], summary["counts"]["lost_at_start"]
@@ -1213,6 +1234,7 @@ def profile_steps(run, n_steps: int, what: str = "train") -> None:
     held = {}
     for k, fn in TRACE_NAMES.items():
         launched = sum(n - before[k].get(s, 0) for s, n in after[k].items() if s[-1] > 0)
+        launched += replays * graph[1][k] if graph else 0
         traced = sum(n for name, n in ops.items() if fn in name)
         if not launched - at_start <= traced <= launched:
             raise RuntimeError(f"profile of {what}: {traced} {fn} events in the trace under "
@@ -1223,7 +1245,8 @@ def profile_steps(run, n_steps: int, what: str = "train") -> None:
           f"{busy_ms / n_steps:.3f} ms per step of {wall_ms / n_steps:.3f} ms wall "
           f"({100 * busy_ms / wall_ms:.1f}%), "
           f"{sum(summary['counts']['categories'].values()) / n_steps:.0f} device ops per step; "
-          f"kernel events / counted launches {held}; the first {at_start} launches of the "
+          f"kernel events / counted launches {held} ({replays} steps replayed from CUDA graphs); "
+          f"the first {at_start} launches of the "
           f"window without a device event; "
           "by category " + ", ".join(
               f"{k} {v / n_steps:.3f} ms ({summary['counts']['categories'][k] / n_steps:.0f}x)"
@@ -1237,10 +1260,12 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
                     steps: int, seed: int):
     """Train ``steps`` steps and render one test view; returns that run's
     launches by shape, the trained NeuS (numpy, JAX layout) and the
-    trainer (its prefetch thread stopped)."""
+    trainer (its prefetch thread stopped). The steps replay CUDA graphs:
+    the kernels' wrappers count a step's launches twice (the
+    capture's warm-up and the capture), and the graph its replays."""
     trainer = NeusTrainer(train_scene, model_cfg, render_cfg, train_cfg,
                           seed=seed, device="cuda")
-    per_step = {"K1": render_cfg.up_sample_steps, "K2": 0, "K3": 1, "K4": 1, "march": 0}
+    per_step = stage1_step_launches(render_cfg)
     n_chunks = -(-test_scene.h * test_scene.w // train_cfg.eval_chunk)
     per_chunk = {"K1": render_cfg.up_sample_steps, "K2": 0, "K3": 1, "K4": 0, "march": 0}
     torch.cuda.reset_peak_memory_stats()
@@ -1269,16 +1294,21 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
     finally:
         trainer.close()
 
-    want = {k: v * steps for k, v in per_step.items()}
+    graph = trainer.step_graph
+    if graph is None or (graph.captures, graph.replays) != (1, steps):
+        raise RuntimeError(f"stage 1's step graph: {graph and (graph.captures, graph.replays)} "
+                           f"(captures, replays), expected {(1, steps)}")
+    want = {k: v * GRAPH_CALLS for k, v in per_step.items()}
     if trained != want:
-        raise RuntimeError(f"train launches {trained}, expected {want}")
+        raise RuntimeError(f"train launches counted {trained}, expected {want}")
     want = {k: trained[k] + v * n_chunks for k, v in per_chunk.items()}
     if run != want:
         raise RuntimeError(f"launches after the eval render {run}, expected {want}")
-    # each step's K3 keeps its state for its K4; the eval render's keep none
-    if kept != (steps, steps):
+    # the warm-up's and the capture's K3 keep their state for their K4; the
+    # eval render's keep none
+    if kept != (GRAPH_CALLS, GRAPH_CALLS):
         raise RuntimeError(f"K3 launches that kept their state, after training and after the "
-                           f"eval render: {kept}, expected {(steps, steps)}")
+                           f"eval render: {kept}, expected {(GRAPH_CALLS, GRAPH_CALLS)}")
     if img["rgb"].shape != (test_scene.h, test_scene.w, 3) or not (
             np.isfinite(img["rgb"]).all() and np.isfinite(img["psnr"])):
         raise RuntimeError("eval render is not finite or has the wrong shape")
@@ -1289,7 +1319,9 @@ def drive_main_path(model_cfg, render_cfg, train_cfg, train_scene, test_scene,
     print(f"train step: median {float(np.median(steady)):.3f} ms, mean "
           f"{float(np.mean(steady)):.3f} ms over steps 3-{steps} (CUDA events around "
           f"NeusTrainer.run(1)); first step {step_ms[0]:.3f} ms", flush=True)
-    print(f"launches per step: {per_step}; eval render: {n_chunks} chunks of "
+    print(f"launches per step: {per_step}, counted {GRAPH_CALLS} times (the capture's warm-up "
+          f"and the capture, {graph.captures} capture), then replayed from CUDA graphs "
+          f"{graph.replays} times; eval render: {n_chunks} chunks of "
           f"{train_cfg.eval_chunk} rays, {per_chunk} per chunk", flush=True)
     print(f"eval render of test view 0 ({test_scene.h}x{test_scene.w}): PSNR "
           f"{img['psnr']:.3f} dB after {steps} steps, {render_s:.3f} s", flush=True)
@@ -4131,12 +4163,15 @@ def drive_sampling_bf16(model_cfg, render_cfg, train_cfg, scene, steps: int, see
         reset_counts()
         ms, metrics = _timed_run(trainer, steps)
         run = shapes()
+        replays = trainer.step_graph.replays
         rays_s = trainer.throughput(n_steps=5, warmup=2, reps=3)
     finally:
         trainer.close()
-    per, want = _per_step(run, steps), {"K3": 1, "K4": 1}
-    if per != want:
-        raise RuntimeError(f"sampling_bf16: launches a step {per}, expected {want}")
+    per, want = _per_step(run, 1), {"K3": GRAPH_CALLS, "K4": GRAPH_CALLS}
+    if per != want or (trainer.step_graph.captures, replays) != (1, steps):
+        raise RuntimeError(f"sampling_bf16: launches counted {per}, expected {want}; "
+                           f"{trainer.step_graph.captures} captures and {replays} replays, "
+                           f"expected 1 and {steps}")
     fp32 = NeusTrainer(scene, model_cfg, render_cfg, train_cfg, seed=seed, device="cuda")
     try:
         rays_s32 = fp32.throughput(n_steps=5, warmup=2, reps=3)
@@ -4155,7 +4190,8 @@ def drive_sampling_bf16(model_cfg, render_cfg, train_cfg, scene, steps: int, see
         gap = float((got - k1).abs().max())
         bf_ms = cuda_ms(lambda: model.sdf(x, torch.bfloat16), 10)
         k1_ms_ = cuda_ms(lambda: model.sdf(x), 10)
-    print(f"sampling_bf16: {steps} steps, launches a step {per} (no K1: the sampling phase's "
+    print(f"sampling_bf16: {steps} steps replayed from CUDA graphs, launches counted {per} (the "
+          f"capture's warm-up and the capture; no K1: the sampling phase's "
           f"4 queries run one torch.mm(bf16, bf16, out_dtype=float32) a layer); steps 3-{steps} "
           f"median {float(np.median(ms[2:])):.3f} ms; loss {metrics[0]['loss']:.5f} -> "
           f"{metrics[-1]['loss']:.5f}; throughput {rays_s:.0f} rays/s, fp32 sampling (K1) "
@@ -4417,7 +4453,8 @@ def main() -> None:
         cli_ckpt = trainer.save()
         if args.profile:
             try:
-                profile_steps(trainer.run, args.profile)
+                profile_steps(trainer.run, args.profile,
+                              graph=(trainer.step_graph, stage1_step_launches(render_cfg)))
             finally:
                 trainer.close()
 

@@ -85,8 +85,9 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     mask_le = cdf[:, None, :] <= u[:, :, None]                    # [B, n, T]
     cdf_b = cdf[:, None, :].expand(mask_le.shape)
     bins_b = bins[:, None, :].expand(mask_le.shape)
-    ninf = torch.tensor(-torch.inf, device=cdf.device, dtype=cdf.dtype)
-    pinf = torch.tensor(torch.inf, device=cdf.device, dtype=cdf.dtype)
+    # made on the device (no host copy, which a CUDA graph's capture refuses)
+    ninf = torch.full((), -torch.inf, device=cdf.device, dtype=cdf.dtype)
+    pinf = torch.full((), torch.inf, device=cdf.device, dtype=cdf.dtype)
     cdf_below = torch.where(mask_le, cdf_b, ninf).amax(-1)
     bins_below = torch.where(mask_le, bins_b, ninf).amax(-1)
     cdf_above = torch.where(mask_le, pinf, cdf_b).amin(-1)
@@ -101,9 +102,29 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
     return bins_below + t * (bins_above - bins_below)
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` over the last axis, differentiated by torch's own
+    formula for factors without a zero (the reversed cumulative sum of
+    output x gradient, over the factors) but without torch's test for a
+    zero, which reads the device back to the host (a CUDA graph's capture
+    refuses that): the transmittance's factors, 1 and 1 - alpha + 1e-7
+    with alpha in [0, 1], are never 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return (y * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def _cumprod_trans(alpha: torch.Tensor) -> torch.Tensor:
     ones = torch.ones_like(alpha[:, :1])
-    return torch.cumprod(torch.cat([ones, 1.0 - alpha + 1e-7], -1), -1)[:, :-1]
+    return _Cumprod.apply(torch.cat([ones, 1.0 - alpha + 1e-7], -1))[:, :-1]
 
 
 def up_sample(rays_o, rays_d, z_vals, sdf, n_importance, inv_s,

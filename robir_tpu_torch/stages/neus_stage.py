@@ -30,6 +30,15 @@ trainer's layout (``NeusTrainer.state``), so that either package resumes
 from the other's file with its moments. ``NeusTrainer.throughput`` gives
 the rays/s of chained steps on one batch and leaves the trainer as it was.
 
+On a CUDA device without a mesh, NeuS under the NeuS renderer without the
+background shell (``stage1_step_path``), the trainer runs the step as
+``graphed_train_step``: the batch, the draws and the cos-anneal ratio are
+put in the buffers of a ``step_graph.py:StepGraph``, the loss call and its
+backward replay from CUDA graphs captured at the first step (the span
+``neus.graph`` around each forward replay), and the update runs eagerly
+on the same ``torch.optim.Adam``. The kernels, their precision and the
+draws are the eager step's; every other trainer keeps the eager step.
+
 Data parallelism (``NeusTrainer(mesh=)``, ``core/mesh.py``; the JAX
 package's ``make_train_step(mesh=)``): every rank draws the global ray
 batch and the global draws from the shared seed and keeps its rows; the
@@ -65,6 +74,7 @@ from ..render.mip import render_mip
 from ..render.neus import NeusRenderConfig, Rays, render_neus
 from ..texture.mesh import Mesh, extract_mesh
 from ..tools.profiler import span, time_scanned_reps
+from .step_graph import StepGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,12 +169,14 @@ class Stage1Bindings(NamedTuple):
     tensors), ``model(tree, device)`` the module a trainer holds,
     ``render(draws, rays, model, cos_anneal, is_eval)`` the render,
     ``sdf(model)`` the SDF query for the mesh export (None: a density
-    model, which has no mesh)."""
+    model, which has no mesh), ``pair`` the (model.type, render.type) it
+    binds."""
 
     init: Callable
     model: Callable
     render: Callable
     sdf: Optional[Callable]
+    pair: tuple = ()
 
 
 def neus_render_binding(render_cfg: NeusRenderConfig):
@@ -232,7 +244,49 @@ def make_stage1_bindings(model_type: str, render: str, model_cfg,
     init_fn, module, binder, sdf = table[(model_type, render)]
     return Stage1Bindings(lambda gen: init_fn(gen, model_cfg),
                           lambda tree, device: module(tree, model_cfg, device),
-                          binder(render_cfg), sdf)
+                          binder(render_cfg), sdf, (model_type, render))
+
+
+def stage1_step_path(device, mesh: DataMesh | None, bindings: Stage1Bindings,
+                     render_cfg) -> str:
+    """How ``NeusTrainer`` runs its train step: "graph" (``graphed_train_step``:
+    the loss call and its backward replayed from CUDA graphs) on a CUDA
+    device without a mesh (collectives are not captured) for NeuS under the
+    NeuS renderer without the background shell, the step whose shapes are
+    fixed and which reads nothing back to the host; "eager" (``train_step``)
+    for every other trainer."""
+    if (torch.device(device).type == "cuda" and mesh is None
+            and bindings.pair == ("neus", "neus")
+            and render_cfg.n_outside == 0):
+        return "graph"
+    return "eager"
+
+
+def step_loss(model, batch: RayBatch, cos_anneal, draws: Draws, train_cfg: NeusTrainConfig,
+              render_fn: Callable, mesh: DataMesh | None = None) -> tuple[torch.Tensor, dict]:
+    """The loss call of a train step: the render of ``batch`` (its draws
+    asked of ``draws``; ``cos_anneal`` a float or a 0-d tensor) and
+    ``neus_loss``."""
+    rays, pixels = batch_to_rays(batch)
+    out = render_fn(draws, rays, model, cos_anneal, mesh=mesh)
+    return neus_loss(out, rays.lossmult, pixels, train_cfg, mesh)
+
+
+def _update(optimizer: torch.optim.Optimizer, lr_fn: Callable[[int], float], step: int,
+            train_cfg: NeusTrainConfig, metrics: dict, mesh: DataMesh | None) -> dict:
+    """The all-reduce, the clip and Adam at ``lr_fn(step)`` on the
+    gradients in ``.grad``; returns the metrics (the global batch's)."""
+    with span("update"):
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        metrics = all_reduce_grads(mesh, params, {k: v.detach() for k, v in metrics.items()},
+                                   shared=("psnr",))
+        metrics["psnr"] = mse_to_psnr(metrics["mse"])
+        if train_cfg.grad_max_norm > 1e-10:
+            clip_by_global_norm_(params, train_cfg.grad_max_norm)
+        for group in optimizer.param_groups:
+            group["lr"] = lr_fn(step)
+        optimizer.step()
+    return metrics
 
 
 def train_step(model, optimizer: torch.optim.Optimizer,
@@ -247,27 +301,30 @@ def train_step(model, optimizer: torch.optim.Optimizer,
     the gradients and metrics are summed over the ranks in one all-reduce
     before the clip and the update, and the metrics returned are the
     global batch's."""
-    rays, pixels = batch_to_rays(batch)
     if render_fn is None:
         render_fn = neus_render_binding(render_cfg)
     with span("forward"):
-        out = render_fn(draws, rays, model, cos_anneal_ratio(step, train_cfg.anneal_end),
-                        mesh=mesh)
-        loss, metrics = neus_loss(out, rays.lossmult, pixels, train_cfg, mesh)
+        loss, metrics = step_loss(model, batch, cos_anneal_ratio(step, train_cfg.anneal_end),
+                                  draws, train_cfg, render_fn, mesh)
     optimizer.zero_grad(set_to_none=True)
     with span("backward"):
         loss.backward()
-    with span("update"):
-        params = [p for g in optimizer.param_groups for p in g["params"]]
-        metrics = all_reduce_grads(mesh, params, {k: v.detach() for k, v in metrics.items()},
-                                   shared=("psnr",))
-        metrics["psnr"] = mse_to_psnr(metrics["mse"])
-        if train_cfg.grad_max_norm > 1e-10:
-            clip_by_global_norm_(params, train_cfg.grad_max_norm)
-        for group in optimizer.param_groups:
-            group["lr"] = lr_fn(step)
-        optimizer.step()
-    return metrics
+    return _update(optimizer, lr_fn, step, train_cfg, metrics, mesh)
+
+
+def graphed_train_step(graph: StepGraph, optimizer: torch.optim.Optimizer,
+                       lr_fn: Callable[[int], float], step: int,
+                       train_cfg: NeusTrainConfig) -> dict:
+    """``train_step`` on the inputs ``graph.fill`` put in its buffers: the
+    loss call replayed from its CUDA graph (captured at the first call),
+    its backward replayed through ``loss.backward()``, the update eager;
+    the same spans around each."""
+    with span("forward"):
+        loss, metrics = graph.loss()
+    optimizer.zero_grad(set_to_none=True)
+    with span("backward"):
+        loss.backward()
+    return _update(optimizer, lr_fn, step, train_cfg, metrics, None)
 
 
 def eval_render(model, render_cfg, batch: RayBatch,
@@ -280,6 +337,11 @@ def eval_render(model, render_cfg, batch: RayBatch,
     with torch.no_grad():
         out = render_fn(Draws(), rays, model, 1.0, is_eval=True)
     return {"rgb": out["rgb"], "acc": out["acc"], "dist": out["dist"]}
+
+
+def _floats(metrics: dict) -> dict:
+    """The metrics (0-d tensors) as floats, read back in one copy."""
+    return dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
 
 
 class NeusTrainer:
@@ -297,6 +359,11 @@ class NeusTrainer:
     and the eval methods alike (they hold collectives); rank 0 alone
     writes checkpoints, logs and meshes, so each rank may pass a
     ``logger``.
+
+    The train step runs as ``stage1_step_path`` says: on the graph
+    path ``step_graph`` (a ``StepGraph``, made at the first step) holds
+    the step's inputs, and ``run`` and ``throughput`` fill it and replay
+    it; its ``captures`` counts one capture, its ``replays`` the steps.
     """
 
     def __init__(self, scene: BlenderScene, model_cfg: NeuSConfig,
@@ -322,6 +389,10 @@ class NeusTrainer:
         self._rng = np.random.default_rng(seed)
         self._noise = torch.Generator(device=self.device).manual_seed(seed)
         self._prefetch: Prefetcher | None = None
+        # the next step's batch, taken while the device runs the step before
+        self._ahead: RayBatch | None = None
+        self._path = stage1_step_path(self.device, mesh, self.bindings, render_cfg)
+        self.step_graph: StepGraph | None = None
 
     def _sample(self) -> RayBatch:
         return self.scene.sample(self._rng, self.train_cfg.batch_size)
@@ -337,7 +408,34 @@ class NeusTrainer:
         local = self._rows.stop - self._rows.start if self.mesh is not None else 0
         return Draws(self._noise, device=self.device, split=batch_split(self.mesh, local))
 
-    def _train_step(self, batch: RayBatch, step: int, draws: Draws) -> dict:
+    def _inputs(self, batch: RayBatch, step: int):
+        """Step ``step``'s inputs from ``batch`` (the global batch, numpy, or
+        this rank's rows on the device): on the graph path put in
+        ``step_graph``'s buffers with the step's draws and cos-anneal ratio
+        (None returned); else (this rank's batch on the device, the step's
+        draws)."""
+        if self._path == "eager":
+            return (batch if torch.is_tensor(batch.origins) else self._put(batch)), self._draws()
+        if self.step_graph is None:
+            def loss_fn(batch, draws, cos_anneal):
+                return step_loss(self.model, batch, cos_anneal, draws, self.train_cfg,
+                                 self.bindings.render)
+
+            params = [p for g in self.optimizer.param_groups for p in g["params"]]
+            # the draws neus_render_binding asks for without the shell
+            draws = ({"t_rand": (self.train_cfg.batch_size, 1)} if self.render_cfg.perturb > 0
+                     else {})
+            self.step_graph = StepGraph(loss_fn, params, batch, draws, self.device)
+        self.step_graph.fill(batch, cos_anneal_ratio(step, self.train_cfg.anneal_end),
+                             self._noise)
+        return None
+
+    def _train_step(self, inputs, step: int) -> dict:
+        """One step on ``_inputs``' result."""
+        if self._path == "graph":
+            return graphed_train_step(self.step_graph, self.optimizer, self.lr_fn, step,
+                                      self.train_cfg)
+        batch, draws = inputs
         return train_step(self.model, self.optimizer, self.lr_fn, batch, step,
                           self.train_cfg, self.render_cfg, draws, self.bindings.render,
                           self.mesh)
@@ -357,18 +455,22 @@ class NeusTrainer:
         last, metrics = {}, {}
         for _ in range(n_steps):
             with span("batch"):
-                batch, draws = self._put(next(self._prefetch)), self._draws()
-            metrics = self._train_step(batch, self.step, draws)
+                batch = self._ahead if self._ahead is not None else next(self._prefetch)
+                inputs = self._inputs(batch, self.step)
+            metrics = self._train_step(inputs, self.step)
+            # the prefetch thread samples the batch after it while this step
+            # waits for the device, not at the next step's start
+            self._ahead = next(self._prefetch)
             self.step += 1
             if log_every and self.step % log_every == 0:
-                last = {k: float(v) for k, v in metrics.items()}
+                last = _floats(metrics)
                 if metrics_cb:
                     metrics_cb(self.step, last)
             if cfg.eval_every and self.step % cfg.eval_every == 0:
                 self.in_train_eval(test_scene, logger)
             if self.log_dir and self.step % cfg.ckpt_every == 0:
                 self.save()
-        return last or {k: float(v) for k, v in metrics.items()}
+        return last or _floats(metrics)
 
     def in_train_eval(self, test_scene: BlenderScene | None, logger) -> None:
         """The periodic test render and mesh (trainer.py:75-81): with a
@@ -515,7 +617,7 @@ class NeusTrainer:
                                             self.train_cfg.batch_size))
 
         def one(step: int) -> int:
-            self._train_step(batch, step, self._draws())
+            self._train_step(self._inputs(batch, step), step)
             return step + 1
 
         try:
@@ -534,6 +636,7 @@ class NeusTrainer:
         if self._prefetch is not None:
             self._prefetch.close()
             self._prefetch = None
+        self._ahead = None
 
     def render_image(self, idx: int = 0, scene: BlenderScene | None = None) -> dict:
         """Chunked whole-image render of one view, with its MSE and PSNR

@@ -218,9 +218,11 @@ def test_trunk_kernels_at_the_pipeline_plan(dev, kernel, n_rows):
 
 def test_trainer_steps_launch_each_kernel(dev):
     """Small widths through NeusTrainer on the card: finite losses, and the
-    launch counts rise by 4 K1 + 1 K3 + 1 K4 per step (4 up-sample rounds,
-    the last of which queries nothing), each step's K3 keeping its state
-    for its K4."""
+    launch counts rise by a step's 4 K1 + 1 K3 + 1 K4 (4 up-sample rounds,
+    the last of which queries nothing) twice, the capture's warm-up and the
+    capture, each K3 keeping its state for its K4; the 3 steps replay the
+    CUDA graphs (``stages/step_graph.py``), which launch without the
+    wrappers."""
     model = NeuSConfig(sdf=SDFConfig(d_out=17, d_hidden=32, n_layers=3, skip_in=(2,),
                                      multires=2),
                        color=RenderingConfig(d_feature=16, d_hidden=32, n_layers=2))
@@ -234,7 +236,8 @@ def test_trainer_steps_launch_each_kernel(dev):
     finally:
         trainer.close()
     assert np.isfinite(metrics["loss"])
-    assert [k.launches - b for k, b in zip(kernels, before)] == [12, 3, 3, 3]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [8, 2, 2, 2]
+    assert (trainer.step_graph.captures, trainer.step_graph.replays) == (1, 3)
 
 
 def test_cesr_runner_steps_launch_each_kernel(dev):
