@@ -325,6 +325,7 @@ from robir_tpu_torch.data.synthetic import (make_shadow_dataset, make_sphere_dat
 from robir_tpu_torch.fields.encoding import positional_encoding
 from robir_tpu_torch.fields.neus_model import NeuS, init_neus
 from robir_tpu_torch.fields.radiance import NeRFBgConfig
+from robir_tpu_torch.fields.sdf import fold_weight_norm
 from robir_tpu_torch.render.cuda import build
 from robir_tpu_torch.render.cuda import fused_mlp as fm
 from robir_tpu_torch.render.cuda import fused_value_grad as fv
@@ -525,12 +526,27 @@ def timed_calls(module, parts: dict):
             setattr(module, name, fn)
 
 
-def k1_ms(plan, x, ws, bs, reps: int, packed_once: bool = False) -> float:
-    """K1's time as its caller pays for it: the tracer packs its frozen
-    trunk's weights once for all its queries (``packed_once``), the other
-    callers at every launch."""
-    packed = fm.pack_weights(ws, bs) if packed_once else None
-    return cuda_ms(lambda: fm.fused_mlp_cuda(plan, x, ws, bs, packed), reps)
+def k1_ms(plan, x, packed, reps: int, packed_once: bool = False) -> float:
+    """K1's time as its caller pays for it: a frozen trunk's queries (the
+    tracer, a bake, the mesh export) share one pack (``packed_once``);
+    ``fused_mlp`` packs the weights at every call."""
+    if packed_once:
+        return cuda_ms(lambda: fm.fused_mlp_cuda(plan, x, packed), reps)
+    ws, bs = fm.unpack_grads(packed.W, packed.b, plan)
+    return cuda_ms(lambda: fm.fused_mlp_cuda(plan, x, fm.pack_weights(plan, ws, bs)), reps)
+
+
+def k3_ms(plan, x, packed, reps: int, keep: bool = False) -> float:
+    """K3's time as ``fused_value_grad`` pays for it: its forward packs the
+    weights (W, W^T and b, which K4 reads after it) at every call."""
+    launch = fv.vg_forward_saving_cuda if keep else fv.vg_forward_cuda
+    ws, bs = fm.unpack_grads(packed.W, packed.b, plan)
+    return cuda_ms(lambda: launch(plan, x, fm.pack_weights(plan, ws, bs, reverse=True)), reps)
+
+
+def plain_k3(plan, x, packed):
+    """K3's plain version in ``vg_forward_cuda``'s place."""
+    return fv._forward_phases(plan, x, *fm.unpack_grads(packed.W, packed.b, plan))[:2]
 
 
 def load_configs():
@@ -628,16 +644,17 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
 
     with torch.no_grad():
         x, ws, bs = trunk_inputs(plan, pe, rows_k1, gen)
+        pk = fm.pack_weights(plan, ws, bs, reverse=True)
         xr = x[:4099]
         err = held_to_plain("K1", [
-            ("y", fm.fused_mlp_cuda(plan, x, ws, bs), fm._forward_rows(plan, x, ws, bs)),
-            ("y ragged", fm.fused_mlp_cuda(plan, xr, ws, bs),
+            ("y", fm.fused_mlp_cuda(plan, x, pk), fm._forward_rows(plan, x, ws, bs)),
+            ("y ragged", fm.fused_mlp_cuda(plan, xr, pk),
              fm._forward_rows(plan, xr, ws, bs))])
-        ms = k1_ms(plan, x, ws, bs, 10)
+        ms = k1_ms(plan, x, pk, 10)
         plain = cuda_ms(lambda: fm._forward_rows(plan, x, ws, bs), 10)
         xs = x[:rows_k1_round]
         print(f"K1 at {rows_k1_round} rows (an up-sample round): "
-              f"{k1_ms(plan, xs, ws, bs, 10):.3f} ms "
+              f"{k1_ms(plan, xs, pk, 10):.3f} ms "
               f"(plain {cuda_ms(lambda: fm._forward_rows(plan, xs, ws, bs), 10):.3f} ms)",
               flush=True)
         bound = bound_ms(2.0 * nw * rows_k1, 4.0 * (rows_k1 * (d0 + dout) + nw + nb))
@@ -651,6 +668,7 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
             **geometry_line("K1", "sdf", plan, rows_k1))
 
         x, ws, bs = trunk_inputs(plan, pe, rows_k3, gen)
+        pk = fm.pack_weights(plan, ws, bs, reverse=True)
         # the main path's rows, a ragged count, and each side of the switch
         # from 16- to 64-row tiles (fused_value_grad.cu: vg_row_tile); K3
         # both as stage 1 launches it (keeping its state for K4) and as the
@@ -660,15 +678,15 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
                     (switch + 1, f" at {switch + 1}"))
         pairs = []
         for n, tag in k34_rows:
-            y, de, _ = fv.vg_forward_saving_cuda(plan, x[:n], ws, bs)
-            y2, de2 = fv.vg_forward_cuda(plan, x[:n], ws, bs)
+            y, de, _ = fv.vg_forward_saving_cuda(plan, x[:n], pk)
+            y2, de2 = fv.vg_forward_cuda(plan, x[:n], pk)
             if not (torch.equal(y, y2) and torch.equal(de, de2)):
                 raise RuntimeError(f"K3{tag}: outputs differ with and without the kept state")
             yp, dep, *_ = fv._forward_phases(plan, x[:n], ws, bs)
             pairs += [("y" + tag, y, yp), ("de" + tag, de, dep)]
         err = held_to_plain("K3", pairs)
         del pairs, y, de, y2, de2, yp, dep
-        ms = cuda_ms(lambda: fv.vg_forward_saving_cuda(plan, x, ws, bs), 5)
+        ms = k3_ms(plan, x, pk, 5, keep=True)
         plain = cuda_ms(lambda: fv._forward_phases(plan, x, ws, bs), 5)
         state = fv.scratch_floats(plan, rows_k3, "state")
         bound = bound_ms(4.0 * nw * rows_k3,
@@ -691,9 +709,9 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
         dde = 1e-3 * torch.randn(rows_k3, d0, generator=gen, device="cuda")
         pairs = []
         for n, tag in k34_rows:
-            saved = fv.vg_forward_saving_cuda(plan, x[:n], ws, bs)[2]
-            got = fv.vg_backward_cuda(plan, x[:n], ws, bs, dy[:n], dde[:n], saved=saved)
-            again = fv.vg_backward_cuda(plan, x[:n], ws, bs, dy[:n], dde[:n], saved=saved)
+            saved = fv.vg_forward_saving_cuda(plan, x[:n], pk)[2]
+            got = fv.vg_backward_cuda(plan, x[:n], pk, dy[:n], dde[:n], saved=saved)
+            again = fv.vg_backward_cuda(plan, x[:n], pk, dy[:n], dde[:n], saved=saved)
             if not torch.equal(got[0], again[0]):
                 raise RuntimeError(f"K4{tag}: dx differs on a second backward from one state")
             want = fv._backward_phases(plan, x[:n], ws, bs, dy[:n], dde[:n])
@@ -703,8 +721,8 @@ def check_kernels(model_cfg, rows_k1: int, rows_k1_round: int, rows_k3: int,
                 pairs.append((f"db{i}{tag}", got[2][i], want[2][i]))
         err = held_to_plain("K4", pairs)
         del pairs, got, again, want, saved
-        saved = fv.vg_forward_saving_cuda(plan, x, ws, bs)[2]
-        ms = cuda_ms(lambda: fv.vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=saved), 3)
+        saved = fv.vg_forward_saving_cuda(plan, x, pk)[2]
+        ms = cuda_ms(lambda: fv.vg_backward_cuda(plan, x, pk, dy, dde, saved=saved), 3)
         del saved
         plain = cuda_ms(lambda: fv._backward_phases(plan, x, ws, bs, dy, dde), 3)
         bound = bound_ms(8.0 * nw * rows_k3,
@@ -739,13 +757,14 @@ def check_tracer_kernels(model_cfg, rows: int, rows_dense: int, gen) -> dict:
     entries = {}
     with torch.no_grad():
         x, ws, bs = trunk_inputs(plan, model_cfg.sdf.pe, rows_dense, gen)
+        pk = fm.pack_weights(plan, ws, bs, reverse=True)
         for key, n, what in (("K1t", rows, "a sphere-tracer query"),
                              ("K1d", rows_dense, "the tracer's dense search")):
             xs = x[:n]
             err = held_to_plain(f"K1 at {n} rows", [
-                ("y", fm.fused_mlp_cuda(plan, xs, ws, bs), fm._forward_rows(plan, xs, ws, bs))])
+                ("y", fm.fused_mlp_cuda(plan, xs, pk), fm._forward_rows(plan, xs, ws, bs))])
             reps = 20 if n < 8192 else 10
-            ms = k1_ms(plan, xs, ws, bs, reps, packed_once=True)
+            ms = k1_ms(plan, xs, pk, reps, packed_once=True)
             plain = cuda_ms(lambda: fm._forward_rows(plan, xs, ws, bs), reps)
             bound = bound_ms(2.0 * nw * n, 4.0 * (n * (d0 + dout) + nw + nb))
             entries[key] = dict(
@@ -757,10 +776,10 @@ def check_tracer_kernels(model_cfg, rows: int, rows_dense: int, gen) -> dict:
                 library_ms=None, rows=n, kernel="K1", path="cesr_sphere", shape=(fm.MAX_WIDTH, n),
                 **geometry_line("K1", "sdf", plan, n))
         xs = x[:rows]
-        y, de = fv.vg_forward_cuda(plan, xs, ws, bs)
+        y, de = fv.vg_forward_cuda(plan, xs, pk)
         yp, dep, *_ = fv._forward_phases(plan, xs, ws, bs)
         err = held_to_plain(f"K3 at {rows} rows", [("y", y, yp), ("de", de, dep)])
-        ms = cuda_ms(lambda: fv.vg_forward_cuda(plan, xs, ws, bs), 20)
+        ms = k3_ms(plan, xs, pk, 20)
         plain = cuda_ms(lambda: fv._forward_phases(plan, xs, ws, bs), 20)
         bound = bound_ms(4.0 * nw * rows, 4.0 * (rows * (2 * d0 + dout) + nw + nb))
         entries["K3c"] = dict(
@@ -791,6 +810,7 @@ def check_switch_kernels(sdf_cfg, normal_cfg, gen) -> dict:
               f"{fm.max_active_clusters(plan, False)} / {fm.max_active_clusters(plan, True)}",
               flush=True)
         x, ws, bs = trunk_inputs(plan, pe, max(rows_checked), gen)
+        pk = fm.pack_weights(plan, ws, bs, reverse=True)
         dy = 1e-3 * torch.randn(max(rows_checked), plan.out_dim, generator=gen, device="cuda")
         nw = plan.n_weights()
         nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
@@ -807,21 +827,21 @@ def check_switch_kernels(sdf_cfg, normal_cfg, gen) -> dict:
                 with torch.no_grad():
                     if kernel == "K1":
                         err = held_to_plain(f"K1 {net} at {rows} rows", [
-                            ("y", fm.fused_mlp_cuda(plan, xs, ws, bs),
+                            ("y", fm.fused_mlp_cuda(plan, xs, pk),
                              fm._forward_rows(plan, xs, ws, bs))])
-                        ms = k1_ms(plan, xs, ws, bs, 10)
+                        ms = k1_ms(plan, xs, pk, 10)
                         plain = cuda_ms(lambda: fm._forward_rows(plan, xs, ws, bs), 10)
                         bound = bound_ms(2.0 * nw * rows,
                                          4.0 * (rows * (plan.dims[0] + plan.out_dim) + nw + nb))
                         what = "K1 fused_mlp trunk forward"
                     else:
-                        got = fm.mlp_backward_cuda(plan, xs, ws, bs, dys, True)
+                        got = fm.mlp_backward_cuda(plan, xs, pk, dys, True)
                         want = fm._backward_rows(plan, xs, ws, bs, dys, True)
                         err = held_to_plain(f"K2 {net} at {rows} rows", [
                             ("dx", got[0], want[0]), *[(f"dW{i}", a, b) for i, (a, b) in
                                                       enumerate(zip(got[1], want[1]))],
                             *[(f"db{i}", a, b) for i, (a, b) in enumerate(zip(got[2], want[2]))]])
-                        ms = cuda_ms(lambda: fm.mlp_backward_cuda(plan, xs, ws, bs, dys, True), 10)
+                        ms = cuda_ms(lambda: fm.mlp_backward_cuda(plan, xs, pk, dys, True), 10)
                         plain = cuda_ms(lambda: fm._backward_rows(plan, xs, ws, bs, dys, True), 10)
                         bound = k2_bound(plan, rows, True)
                         what = "K2 fused_mlp recompute backward (dx, dW, db)"
@@ -911,11 +931,12 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
     entries = {}
     with torch.no_grad():
         x, ws, bs = trunk_inputs(nplan, SHADOW_PE, rows + 3, gen)
+        pk = fm.pack_weights(nplan, ws, bs, reverse=True)
         xm = x[:rows]
         err = held_to_plain("K1 normal_net", [
-            ("y", fm.fused_mlp_cuda(nplan, xm, ws, bs), fm._forward_rows(nplan, xm, ws, bs)),
-            ("y ragged", fm.fused_mlp_cuda(nplan, x, ws, bs), fm._forward_rows(nplan, x, ws, bs))])
-        ms = k1_ms(nplan, xm, ws, bs, 20)
+            ("y", fm.fused_mlp_cuda(nplan, xm, pk), fm._forward_rows(nplan, xm, ws, bs)),
+            ("y ragged", fm.fused_mlp_cuda(nplan, x, pk), fm._forward_rows(nplan, x, ws, bs))])
+        ms = k1_ms(nplan, xm, pk, 20)
         plain = cuda_ms(lambda: fm._forward_rows(nplan, xm, ws, bs), 20)
         bound = bound_ms(2.0 * nw * rows, 4.0 * (rows * (d0 + dout) + nw + nb))
         entries["K1w"] = dict(
@@ -935,7 +956,8 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
                 plan, sdf_cfg.pe, n, gen)
             xx = xx[:n]
             dy = 1e-3 * torch.randn(n, plan.out_dim, generator=gen, device="cuda")
-            got = fm.mlp_backward_cuda(plan, xx, wws, bbs, dy, need_dx)
+            got = fm.mlp_backward_cuda(plan, xx, fm.pack_weights(plan, wws, bbs, reverse=True),
+                                       dy, need_dx)
             want = fm._backward_rows(plan, xx, wws, bbs, dy, need_dx)
             if need_dx:
                 pairs.append((f"dx {tag}", got[0], want[0]))
@@ -945,7 +967,7 @@ def check_wide_kernels(normal_cfg, sdf_cfg, rows: int, rows_sdf: int, gen) -> di
         err = held_to_plain("K2", pairs)
         del pairs, got, want
         dy = 1e-3 * torch.randn(rows, dout, generator=gen, device="cuda")
-        ms = cuda_ms(lambda: fm.mlp_backward_cuda(nplan, xm, ws, bs, dy, False), 20)
+        ms = cuda_ms(lambda: fm.mlp_backward_cuda(nplan, xm, pk, dy, False), 20)
         plain = cuda_ms(lambda: fm._backward_rows(nplan, xm, ws, bs, dy, False), 20)
         bound = k2_bound(nplan, rows, False)  # no dx on the path
         n_bytes = 4 * fm.bwd_scratch_floats(nplan, rows)
@@ -1062,15 +1084,15 @@ def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int, grid=Non
     real = fm.mlp_backward_cuda
     k2_calls = []
 
-    def recorded(plan, x, ws, bs, dy, need_dx=True):
-        out = real(plan, x, ws, bs, dy, need_dx)
-        k2_calls.append(((plan, x, ws, bs, dy, need_dx), out))
+    def recorded(plan, x, packed, dy, need_dx=True):
+        out = real(plan, x, packed, dy, need_dx)
+        k2_calls.append(((plan, x, packed, dy, need_dx), out))
         return out
 
-    def blind_to_first_rows(plan, x, ws, bs, dy, need_dx=True):
+    def blind_to_first_rows(plan, x, packed, dy, need_dx=True):
         dy = dy.clone()
         dy[:FAULT_ROWS] = 0
-        return real(plan, x, ws, bs, dy, need_dx)
+        return real(plan, x, packed, dy, need_dx)
 
     loss_cpu, frac_cpu, g_cpu, s_cpu = step("cpu")
     loss64, _, g64, _ = step("cpu", torch.float64)
@@ -1083,9 +1105,10 @@ def check_cesr_step_against_cpu(cfg, stage, dataset, params, seed: int, grid=Non
         fm.mlp_backward_cuda = real
     if len(k2_calls) != 1:
         raise RuntimeError(f"the card's CESR step ran K2 {len(k2_calls)} times, not once")
-    (plan, *operands), (dx, dws, dbs) = k2_calls[0]
+    (plan, x, packed, *operands), (dx, dws, dbs) = k2_calls[0]
     with torch.no_grad():
-        _, want_w, want_b = fm._backward_rows(plan, *operands)
+        _, want_w, want_b = fm._backward_rows(
+            plan, x, *fm.unpack_grads(packed.W, packed.b, plan), *operands)
     k2_err = held_to_plain("K2 on the CESR step's operands",
                            [(f"dW{i}", a, b) for i, (a, b) in enumerate(zip(dws, want_w))]
                            + [(f"db{i}", a, b) for i, (a, b) in enumerate(zip(dbs, want_b))])
@@ -1434,10 +1457,11 @@ def k1_chunk_entry(sdf_cfg, sdf_params, pts, what: str, path: str) -> dict:
     rows = pts.shape[0]
     with torch.no_grad():
         x = positional_encoding(pts * sdf_cfg.scale, sdf_cfg.pe)
-        ws, bs = fm.fold_weight_norm(sdf_params, plan.n_layers)
+        ws, bs = fold_weight_norm(sdf_params, plan.n_layers)
+        pk = fm.pack_weights(plan, ws, bs)
         err = held_to_plain(f"K1 at {what}'s {rows} rows", [
-            ("y", fm.fused_mlp_cuda(plan, x, ws, bs), fm._forward_rows(plan, x, ws, bs))])
-        ms = k1_ms(plan, x, ws, bs, 10, packed_once=True)
+            ("y", fm.fused_mlp_cuda(plan, x, pk), fm._forward_rows(plan, x, ws, bs))])
+        ms = k1_ms(plan, x, pk, 10, packed_once=True)
         plain = cuda_ms(lambda: fm._forward_rows(plan, x, ws, bs), 5)
     nw = plan.n_weights()
     nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
@@ -1611,31 +1635,33 @@ def check_grid_path_kernels(sdf_cfg, normal_cfg, shaded: list, gen) -> dict:
     median = int(np.median(shaded))
     nx, nws, nbs = trunk_inputs(nplan, SHADOW_PE, max(counts_run), gen)
     sx, sws, sbs = trunk_inputs(splan, sdf_cfg.pe, max(counts_run), gen)
+    npk = fm.pack_weights(nplan, nws, nbs, reverse=True)
+    spk = fm.pack_weights(splan, sws, sbs, reverse=True)
     dy = 1e-3 * torch.randn(max(counts_run), nplan.out_dim, generator=gen, device="cuda")
     errs = {"K1": [], "K2": [], "K3": []}
     with torch.no_grad():
         for r in counts_run:
-            errs["K1"].append((f"y at {r} rows", fm.fused_mlp_cuda(nplan, nx[:r], nws, nbs),
+            errs["K1"].append((f"y at {r} rows", fm.fused_mlp_cuda(nplan, nx[:r], npk),
                                fm._forward_rows(nplan, nx[:r], nws, nbs)))
-            got = fm.mlp_backward_cuda(nplan, nx[:r], nws, nbs, dy[:r], False)
+            got = fm.mlp_backward_cuda(nplan, nx[:r], npk, dy[:r], False)
             want = fm._backward_rows(nplan, nx[:r], nws, nbs, dy[:r], False)
             errs["K2"] += [(f"dW{i} at {r} rows", a, b) for i, (a, b) in
                            enumerate(zip(got[1], want[1]))]
             errs["K2"] += [(f"db{i} at {r} rows", a, b) for i, (a, b) in
                            enumerate(zip(got[2], want[2]))]
-            y, de = fv.vg_forward_cuda(splan, sx[:r], sws, sbs)
+            y, de = fv.vg_forward_cuda(splan, sx[:r], spk)
             yp, dep, *_ = fv._forward_phases(splan, sx[:r], sws, sbs)
             errs["K3"] += [(f"y at {r} rows", y, yp), (f"de at {r} rows", de, dep)]
         xm, sm, dym = nx[:median], sx[:median], dy[:median]
         timed = {
-            "K1": (k1_ms(nplan, xm, nws, nbs, 20),
+            "K1": (k1_ms(nplan, xm, npk, 20),
                    cuda_ms(lambda: fm._forward_rows(nplan, xm, nws, nbs), 20),
                    bound_ms(2.0 * nplan.n_weights() * median,
                             4.0 * (median * (nplan.dims[0] + nplan.out_dim) + nplan.n_weights()))),
-            "K2": (cuda_ms(lambda: fm.mlp_backward_cuda(nplan, xm, nws, nbs, dym, False), 20),
+            "K2": (cuda_ms(lambda: fm.mlp_backward_cuda(nplan, xm, npk, dym, False), 20),
                    cuda_ms(lambda: fm._backward_rows(nplan, xm, nws, nbs, dym, False), 20),
                    k2_bound(nplan, median, False)),
-            "K3": (cuda_ms(lambda: fv.vg_forward_cuda(splan, sm, sws, sbs), 20),
+            "K3": (k3_ms(splan, sm, spk, 20),
                    cuda_ms(lambda: fv._forward_phases(splan, sm, sws, sbs), 20),
                    bound_ms(4.0 * splan.n_weights() * median,
                             4.0 * (median * (2 * splan.dims[0] + splan.out_dim)
@@ -2003,9 +2029,9 @@ def check_borrow_color(runner, gen) -> dict:
     real = fv.vg_forward_cuda
     slices = []
 
-    def recorded(plan, xs, ws, bs):
-        slices.append((plan, xs, ws, bs))
-        return real(plan, xs, ws, bs)
+    def recorded(plan, xs, packed):
+        slices.append((plan, xs, packed))
+        return real(plan, xs, packed)
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2016,7 +2042,7 @@ def check_borrow_color(runner, gen) -> dict:
             got = model.borrow_color(x, -d, chunk)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        fv.vg_forward_cuda = lambda plan, xs, ws, bs: fv._forward_phases(plan, xs, ws, bs)[:2]
+        fv.vg_forward_cuda = plain_k3
         with torch.no_grad():
             want = model.borrow_color(x, -d, chunk)
             plain_call = cuda_ms(lambda: model.borrow_color(x, -d, chunk), 1)
@@ -2025,15 +2051,16 @@ def check_borrow_color(runner, gen) -> dict:
     with torch.no_grad():
         call = cuda_ms(lambda: model.borrow_color(x, -d, chunk), 3)
     err_call = held_to_plain(f"borrow_color at {VIS_BORROW_RAYS} rays", [("colour", got, want)])
-    plan, xs, ws, bs = slices[0]
+    plan, xs, packed = slices[0]
+    ws, bs = fm.unpack_grads(packed.W, packed.b, plan)
     rows = xs.shape[0]
     with torch.no_grad():
-        y, de = fv.vg_forward_cuda(plan, xs, ws, bs)
+        y, de = fv.vg_forward_cuda(plan, xs, packed)
         yp, dep, *_ = fv._forward_phases(plan, xs, ws, bs)
         err = held_to_plain(f"K3 on a borrowed-colour slice ({rows} rows)",
                             [("y", y, yp), ("de", de, dep)])
         del y, de, yp, dep
-        ms = cuda_ms(lambda: fv.vg_forward_cuda(plan, xs, ws, bs), 10)
+        ms = k3_ms(plan, xs, packed, 10)
         plain = cuda_ms(lambda: fv._forward_phases(plan, xs, ws, bs), 3)
     nw = plan.n_weights()
     nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
@@ -2068,7 +2095,8 @@ def check_vis_path_kernels(runner, run: dict, gen) -> dict:
     counts_run = sorted(set(launched))
     median = launched[(len(launched) - 1) // 2]
     x, ws, bs = trunk_inputs(plan, runner.cfg.neus.sdf.pe, counts_run[-1], gen)
-    slices = [(plan, x[:r], ws, bs) for r in counts_run]
+    pk = fm.pack_weights(plan, ws, bs, reverse=True)
+    slices = [(plan, x[:r], pk) for r in counts_run]
     entries = {"K3 vis rows": k3_entry(
         f"the Vis borrowed colour at the run's rows ({counts_run[0]}-{counts_run[-1]}; timed "
         f"at the median)", slices, "vis", counts_run.index(median))}
@@ -2154,8 +2182,8 @@ def check_vis_step_against_cpu(cfg, stage, dataset, params, seed: int, grid,
     real = fv.vg_forward_cuda
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def blind_to_first_tile(plan, x, ws, bs):
-        y, de = real(plan, x, ws, bs)
+    def blind_to_first_tile(plan, x, packed):
+        y, de = real(plan, x, packed)
         tile = 64 if x.shape[0] >= VG_TALL_ROWS_PER_SM * sms else 16
         y[:tile] = 0
         de[:tile] = 0
@@ -2360,8 +2388,8 @@ def pbr_check_setting(cfg, stage, dataset, params, seed: int, tb: dict, traced, 
 
     real = fv.vg_forward_cuda
 
-    def blind_to_first_tile(plan, x, ws, bs):
-        y, de = real(plan, x, ws, bs)
+    def blind_to_first_tile(plan, x, packed):
+        y, de = real(plan, x, packed)
         y[:16] = 0  # below VG_TALL_ROWS_PER_SM rows a SM: 16-row tiles
         de[:16] = 0
         return y, de
@@ -2606,18 +2634,19 @@ def time_pbr_sweep(runner, rows: int, gen) -> None:
 
 
 def k3_entry(name: str, slices, path: str, timed: int, reps: int = 20) -> dict:
-    """K3 against its plain version on each (plan, x, ws, bs) of ``slices``,
-    timed on ``slices[timed]``; its kernels-line entry (shape None: it
-    counts the path's launches at every row count)."""
+    """K3 against its plain version on each (plan, x, packed weights) of
+    ``slices``, timed on ``slices[timed]``; its kernels-line entry (shape
+    None: it counts the path's launches at every row count)."""
     pairs = []
     with torch.no_grad():
-        for plan, x, ws, bs in slices:
-            y, de = fv.vg_forward_cuda(plan, x, ws, bs)
-            yp, dep, *_ = fv._forward_phases(plan, x, ws, bs)
+        for plan, x, packed in slices:
+            y, de = fv.vg_forward_cuda(plan, x, packed)
+            yp, dep, *_ = fv._forward_phases(plan, x, *fm.unpack_grads(packed.W, packed.b, plan))
             pairs += [(f"y at {x.shape[0]} rows", y, yp), (f"de at {x.shape[0]} rows", de, dep)]
         err = held_to_plain(f"K3, {name}", pairs)
-        plan, x, ws, bs = slices[timed]
-        ms = cuda_ms(lambda: fv.vg_forward_cuda(plan, x, ws, bs), reps)
+        plan, x, packed = slices[timed]
+        ws, bs = fm.unpack_grads(packed.W, packed.b, plan)
+        ms = k3_ms(plan, x, packed, reps)
         plain = cuda_ms(lambda: fv._forward_phases(plan, x, ws, bs), reps)
     rows, nw = x.shape[0], plan.n_weights()
     nb = sum(plan.layer_out_dim(i) for i in range(plan.n_layers))
@@ -2636,11 +2665,12 @@ def check_pbr_path_kernels(runner, shaded: list, seed: int, gen) -> dict:
     plan = fm.plan_from_sdf_config(runner.cfg.neus.sdf)
     counts_run = sorted(set(shaded))
     x, ws, bs = trunk_inputs(plan, runner.cfg.neus.sdf.pe, max(counts_run), gen)
-    slices = [(plan, x[:r], ws, bs) for r in counts_run]
+    pk = fm.pack_weights(plan, ws, bs, reverse=True)
+    slices = [(plan, x[:r], pk) for r in counts_run]
     median = int(np.median(shaded))
     entries = {"K3 pbr rows": k3_entry(
         f"the PBR geometry normals at the shaded rows ({counts_run[0]}-{counts_run[-1]}; timed "
-        f"at the median)", slices + [(plan, x[:median], ws, bs)], "pbr", -1)}
+        f"at the median)", slices + [(plan, x[:median], pk)], "pbr", -1)}
     print(f"PBR run's shaded row counts (K3 held to its plain version at each): {counts_run}",
           flush=True)
     stage, R = runner.stage_cfg, runner.cfg.grid.resolution
@@ -2691,9 +2721,9 @@ def check_pbr_view(runner, view) -> tuple:
     taken, slices = [], []
     real_k3, real_cast = fv.vg_forward_cuda, stage2_mod.grid_cast
 
-    def recorded(plan, x, ws, bs):
-        slices.append((plan, x, ws, bs))
-        return real_k3(plan, x, ws, bs)
+    def recorded(plan, x, packed):
+        slices.append((plan, x, packed))
+        return real_k3(plan, x, packed)
 
     def drawn(_):
         taken.append(Draws(runner.generator, device="cuda", record=True))
@@ -2705,7 +2735,7 @@ def check_pbr_view(runner, view) -> tuple:
     try:
         fv.vg_forward_cuda = recorded
         got = render_view(runner.model(), view, 0, draws=drawn, **kw)
-        fv.vg_forward_cuda = lambda plan, x, ws, bs: fv._forward_phases(plan, x, ws, bs)[:2]
+        fv.vg_forward_cuda = plain_k3
         stage2_mod.grid_cast = lambda g, c, o, d: tg.grid_cast_plain(g, c, o, d)[:3]
         want = render_view(runner.model(), view, 0,
                            draws=lambda c: Draws(given=taken[c].taken, device="cuda"), **kw)
@@ -2831,24 +2861,25 @@ TRUNK_KERNELS = {
            "render/pallas/fused_value_grad.py:142")}
 
 
-def trunk_calls(kernel: str, plan, x, ws, bs, gen):
-    """(kernel call, plain call) of a trunk kernel on (x, ws, bs): K2 without
-    dx, as the CESR normal net needs none; K2 and K4 on seeded
-    cotangents, K4 from the state K3 kept, as the paths run it."""
+def trunk_calls(kernel: str, plan, x, packed, gen):
+    """(kernel call, plain call) of a trunk kernel on x and the packed
+    weights: K2 without dx, as the CESR normal net needs none; K2 and K4 on
+    seeded cotangents, K4 from the state K3 kept, as the paths run it."""
     n, d0, dout = x.shape[0], plan.dims[0], plan.out_dim
+    ws, bs = fm.unpack_grads(packed.W, packed.b, plan)
     if kernel == "K1":
-        return (lambda: fm.fused_mlp_cuda(plan, x, ws, bs),
+        return (lambda: fm.fused_mlp_cuda(plan, x, packed),
                 lambda: fm._forward_rows(plan, x, ws, bs))
     if kernel == "K3":
-        return (lambda: fv.vg_forward_cuda(plan, x, ws, bs),
+        return (lambda: fv.vg_forward_cuda(plan, x, packed),
                 lambda: fv._forward_phases(plan, x, ws, bs)[:2])
     dy = 1e-3 * torch.randn(n, dout, generator=gen, device="cuda")
     if kernel == "K2":
-        return (lambda: fm.mlp_backward_cuda(plan, x, ws, bs, dy, False)[1:],
+        return (lambda: fm.mlp_backward_cuda(plan, x, packed, dy, False)[1:],
                 lambda: fm._backward_rows(plan, x, ws, bs, dy, False)[1:])
     dde = 1e-3 * torch.randn(n, d0, generator=gen, device="cuda")
-    saved = fv.vg_forward_saving_cuda(plan, x, ws, bs)[2]  # K4 starts from K3's state
-    return (lambda: fv.vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=saved),
+    saved = fv.vg_forward_saving_cuda(plan, x, packed)[2]  # K4 starts from K3's state
+    return (lambda: fv.vg_backward_cuda(plan, x, packed, dy, dde, saved),
             lambda: fv._backward_phases(plan, x, ws, bs, dy, dde))
 
 
@@ -2900,18 +2931,19 @@ def hold_path_kernels(path: str, run: dict, plans: dict, march_on, frozen: bool,
                 continue
             plan, pe = plans[width]
             x, ws, bs = trunk_inputs(plan, pe, rows[-1], gen)
+            pk = fm.pack_weights(plan, ws, bs, reverse=True)
             err = 0.0
             with torch.no_grad():
                 for r in rows:
-                    got, want = trunk_calls(kernel, plan, x[:r], ws, bs, gen)
+                    got, want = trunk_calls(kernel, plan, x[:r], pk, gen)
                     err = max(err, held_to_plain(f"{kernel} on the {path} path at {r} rows", [
                         (f"output {i}", a, b) for i, (a, b) in
                         enumerate(zip(flat_outputs(got()), flat_outputs(want())))]))
                     del got, want
                 xt = x[:top]
-                call, plain = trunk_calls(kernel, plan, xt, ws, bs, gen)
-                ms = (k1_ms(plan, xt, ws, bs, 5, packed_once=frozen) if kernel == "K1"
-                      else cuda_ms(call, 5))
+                call, plain = trunk_calls(kernel, plan, xt, pk, gen)
+                ms = (k1_ms(plan, xt, pk, 5, packed_once=frozen) if kernel == "K1"
+                      else k3_ms(plan, xt, pk, 5) if kernel == "K3" else cuda_ms(call, 5))
                 plain_ms = cuda_ms(plain, 3)
             bound = trunk_bound(kernel, plan, top)
             name, src, tpu = TRUNK_KERNELS[kernel]
@@ -2921,7 +2953,7 @@ def hold_path_kernels(path: str, run: dict, plans: dict, march_on, frozen: bool,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1], library_ms=None, rows=top, kernel=kernel, path=path,
                 shape=(width, None))
-            del x, ws, bs
+            del x, ws, bs, pk
     report({k: v for k, v in entries.items() if v["kernel"] != "march"})
     return entries
 
@@ -3185,9 +3217,9 @@ def drive_cli_relight(root: str, s2: list, grid, plans2: dict, march_on, call, r
     taken, slices = [], []
     real_k3, real_cast = fv.vg_forward_cuda, stage2_mod.grid_cast
 
-    def recorded(plan, x, ws, bs):
-        slices.append((plan, x, ws, bs))
-        return real_k3(plan, x, ws, bs)
+    def recorded(plan, x, packed):
+        slices.append((plan, x, packed))
+        return real_k3(plan, x, packed)
 
     def drawn(_):
         taken.append(Draws(gen, device="cuda", record=True))
@@ -3199,7 +3231,7 @@ def drive_cli_relight(root: str, s2: list, grid, plans2: dict, march_on, call, r
         fv.vg_forward_cuda = recorded
         got = relight_mod.relight_views(params, cfg, baked, dataset, env6, check_dir,
                                         draws=drawn, **kw)[0][0]
-        fv.vg_forward_cuda = lambda plan, x, ws, bs: fv._forward_phases(plan, x, ws, bs)[:2]
+        fv.vg_forward_cuda = plain_k3
         stage2_mod.grid_cast = lambda g, c, o, d: tg.grid_cast_plain(g, c, o, d)[:3]
         want = relight_mod.relight_views(params, cfg, baked, dataset, env6, check_dir,
                                          draws=lambda c: Draws(given=taken[c].taken,
@@ -3215,13 +3247,13 @@ def drive_cli_relight(root: str, s2: list, grid, plans2: dict, march_on, call, r
     with torch.no_grad():
         k3_err = max(held_to_plain(f"K3 on a relit chunk's {x.shape[0]} surface rows", [
             (f"output {i}", a, b) for i, (a, b) in enumerate(zip(
-                real_k3(plan, x, ws, bs), fv._forward_phases(plan, x, ws, bs)[:2]))])
-            for plan, x, ws, bs in slices)
+                real_k3(plan, x, packed), plain_k3(plan, x, packed)))])
+            for plan, x, packed in slices)
     print(f"relight_views of view 0 on the kernels vs on their plain versions (the same draws): "
           f"masks identical, every buffer within {err:.3e} of the plain render's (the march is "
           f"its plain version bit for bit, and the relit buffers read no K3 output: the AE "
           f"normal map shades); K3 within {k3_err:.3e} on the view's {len(slices)} recorded "
-          f"launches (rows {[x.shape[0] for _, x, _, _ in slices]})", flush=True)
+          f"launches (rows {[x.shape[0] for _, x, _ in slices]})", flush=True)
     return hold_path_kernels("cli_relight", run, plans2, march_on, frozen=True, gen=gen)
 
 
@@ -3474,11 +3506,11 @@ def check_bg_step_against_cpu(model_cfg, render_cfg, train_cfg, scene, seed: int
     loss_gpu, _, g_gpu = step("cuda", torch.float32)
     real = fv.vg_backward_cuda
 
-    def blind_to_first_rows(plan, x, ws, bs, dy, dde, saved=None):
+    def blind_to_first_rows(plan, x, packed, dy, dde, saved):
         dy, dde = dy.clone(), dde.clone()
         dy[:FAULT_ROWS] = 0
         dde[:FAULT_ROWS] = 0
-        return real(plan, x, ws, bs, dy, dde, saved=saved)
+        return real(plan, x, packed, dy, dde, saved)
 
     try:
         fv.vg_backward_cuda = blind_to_first_rows

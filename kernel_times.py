@@ -7,14 +7,18 @@ checks, on one CUDA card, from CUDA events.
 ``--tree`` times the ``robir_tpu_torch`` package of another checkout (for
 example an unpacked parent commit) instead of this one's, so that two
 versions are compared in one call on one card: run parent, change, change,
-parent. The inputs, the timing by CUDA events, K1's weight packing and
-the shapes are ``chip_smoke.py``'s, whichever package runs; stage 1's K3
-and K4 are timed as that package's main path runs them. Each shape also
-gets the device time of each of the port's kernels it launches (K2's rows
-kernel and its dW/db reduction apart), from the profiler: below a
-millisecond the CUDA events can time the host, which launches a
-wrapper's kernels, rather than the device. Prints the card's name and power limit,
-then one line per shape, and last a JSON object of all the times.
+parent. The tree's launchers must take packed weights
+(``fused_mlp.pack_weights(plan, ...)``, with the SDF field folding the
+weight norm); a tree whose launchers take per-layer weights is not timed.
+The inputs, the timing by CUDA events, the weight packing as each caller
+pays for it and the shapes are ``chip_smoke.py``'s, whichever package runs;
+stage 1's K3 and K4 are timed as the main path runs them, K4 from the state
+and the pack K3 kept. Each shape also gets the device time of each of the
+port's kernels it launches (K2's rows kernel and its dW/db reduction apart),
+from the profiler: below a millisecond the CUDA events can time the host,
+which launches a wrapper's kernels, rather than the device. Prints the
+card's name and power limit, then one line per shape, and last a JSON object
+of all the times.
 """
 
 from __future__ import annotations
@@ -85,7 +89,8 @@ def main() -> None:
     def inputs(net, n):
         plan, pe = nets[net]
         x, ws, bs = cs.trunk_inputs(plan, pe, n, gen)
-        return plan, x, ws, bs, 1e-3 * torch.randn(n, plan.out_dim, generator=gen, device="cuda")
+        return (plan, x, fm.pack_weights(plan, ws, bs, reverse=True),
+                1e-3 * torch.randn(n, plan.out_dim, generator=gen, device="cuda"))
 
     # (net, rows, the tracer's frozen weights packed once) for K1; (net,
     # rows, dx) for K2: the main paths' shapes, then the switch's
@@ -97,29 +102,27 @@ def main() -> None:
     k2 += [(net, n, True) for net in nets for n in checked]
     with torch.no_grad():
         for net, n, packed_once in k1:
-            plan, x, ws, bs, _ = inputs(net, n)
+            plan, x, packed, _ = inputs(net, n)
             reps = args.reps if n < 8192 else max(5, args.reps // 2)
-            record(f"K1 {net} {n}", cs.k1_ms(plan, x, ws, bs, reps, packed_once),
-                   lambda: fm.fused_mlp_cuda(plan, x, ws, bs), reps)
+            record(f"K1 {net} {n}", cs.k1_ms(plan, x, packed, reps, packed_once),
+                   lambda: fm.fused_mlp_cuda(plan, x, packed), reps)
         for net, n, need_dx in k2:
-            plan, x, ws, bs, dy = inputs(net, n)
-            fn = functools.partial(fm.mlp_backward_cuda, plan, x, ws, bs, dy, need_dx)
+            plan, x, packed, dy = inputs(net, n)
+            fn = functools.partial(fm.mlp_backward_cuda, plan, x, packed, dy, need_dx)
             record(f"K2 {net} {n} dx={int(need_dx)}", cs.cuda_ms(fn, args.reps), fn, args.reps)
-        plan, x, ws, bs, dy = inputs("sdf", rows["vg"])
+        plan, x, packed, dy = inputs("sdf", rows["vg"])
         dde = 1e-3 * torch.randn(rows["vg"], plan.dims[0], generator=gen, device="cuda")
         xq = x[:rows["query"]]
-        # stage 1's K3 and K4 as the tree's main path runs them
-        if hasattr(fv, "vg_forward_saving_cuda"):  # K4 starts from the state K3 kept
-            k3 = functools.partial(fv.vg_forward_saving_cuda, plan, x, ws, bs)
-            k4 = functools.partial(fv.vg_backward_cuda, plan, x, ws, bs, dy, dde, saved=k3()[2])
-        else:  # a tree whose K4 computes the forward again
-            k3 = functools.partial(fv.vg_forward_cuda, plan, x, ws, bs)
-            k4 = functools.partial(fv.vg_backward_cuda, plan, x, ws, bs, dy, dde)
-        for key, fn, reps in (
-                (f"K3 sdf {rows['query']}", functools.partial(fv.vg_forward_cuda, plan, xq, ws, bs),
-                 args.reps),
-                (f"K3 sdf {rows['vg']}", k3, 5), (f"K4 sdf {rows['vg']}", k4, 3)):
-            record(key, cs.cuda_ms(fn, reps), fn, reps)
+        # stage 1's K3 (a pack a call, keeping its state) and K4 (from both)
+        saved = fv.vg_forward_saving_cuda(plan, x, packed)[2]
+        k4 = functools.partial(fv.vg_backward_cuda, plan, x, packed, dy, dde, saved)
+        for key, events_ms, fn, reps in (
+                (f"K3 sdf {rows['query']}", cs.k3_ms(plan, xq, packed, args.reps),
+                 functools.partial(fv.vg_forward_cuda, plan, xq, packed), args.reps),
+                (f"K3 sdf {rows['vg']}", cs.k3_ms(plan, x, packed, 5, keep=True),
+                 functools.partial(fv.vg_forward_saving_cuda, plan, x, packed), 5),
+                (f"K4 sdf {rows['vg']}", cs.cuda_ms(k4, 3), k4, 3)):
+            record(key, events_ms, fn, reps)
     print(json.dumps({"tree": args.tree, "times_ms": times}), flush=True)
 
 

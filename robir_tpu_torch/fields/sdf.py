@@ -8,14 +8,15 @@ softplus(beta=100) activations, output = [sdf / scale, geometry feature].
 In the port the trunk goes through the two fused ops of ``render/cuda``:
 ``fused_mlp`` (K1, with its recompute backward K2) for the value and
 ``fused_value_grad`` (K3, with its hand VJP K4) for value + spatial
-gradient, in fp32. They launch the CUDA kernels for CUDA tensors and run
-their plain versions for CPU tensors. So ``fused_kernel``,
-``fused_block_rows``, ``grad_mode`` and ``storage_dtype`` stay accepted
-keys (configs load unchanged) but select nothing. That is a difference
-from the JAX package, whose default path (``fused_kernel=False``) runs the
-trunk layer by layer and, at every shipped config's ``storage_dtype:
-"bfloat16"``, stores each layer's activations in bf16; only its fused path
-(``fused_kernel=True``) is fp32 as the port is (ROADMAP C).
+gradient, in fp32, on the weights ``fold_weight_norm`` folds (the ops alone
+pack them). They launch the CUDA kernels for CUDA tensors and run their
+plain versions for CPU tensors. So ``fused_kernel``, ``fused_block_rows``,
+``grad_mode`` and ``storage_dtype`` stay accepted keys (configs load
+unchanged) but select nothing. That is a difference from the JAX package,
+whose default path (``fused_kernel=False``) runs the trunk layer by layer
+and, at every shipped config's ``storage_dtype: "bfloat16"``, stores each
+layer's activations in bf16; only its fused path (``fused_kernel=True``) is
+fp32 as the port is (ROADMAP C).
 
 ``sdf_apply(compute_dtype=bf16)`` is the sampling phase's low-precision
 path (``NeusRenderConfig.sampling_dtype``): the trunk layer by layer on
@@ -31,8 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..render.cuda.fused_mlp import (fold_weight_norm, fused_mlp, pack_weights,
-                                     plan_from_sdf_config)
+from ..render.cuda.fused_mlp import frozen_mlp, fused_mlp, plan_from_sdf_config
 from ..render.cuda.fused_value_grad import fused_value_grad
 from .encoding import (PEConfig, positional_encoding,
                        positional_encoding_vjp)
@@ -140,6 +140,14 @@ def _geometric_init(cfg: SDFConfig, dims, layer, num_layers, in_dim, out_dim):
     return w_init, b_init
 
 
+def fold_weight_norm(params: Params, n_layers: int):
+    """(weights, biases) tuples with weight-norm applied, in PyTorch so that
+    autograd carries gradients back to ``v`` and ``g``."""
+    layers = [params[f"lin{i}"] for i in range(n_layers)]
+    return (tuple(effective_weight(lp) for lp in layers),
+            tuple(lp["b"] for lp in layers))
+
+
 def _encode(cfg: SDFConfig, x: torch.Tensor) -> torch.Tensor:
     inputs = x * cfg.scale
     if cfg.multires > 0:
@@ -193,15 +201,14 @@ def frozen_sdf(params: Params, cfg: SDFConfig, out_cols: int | None = None):
     """``x -> sdf_apply(params, cfg, x, out_cols)`` without a graph, for
     many queries of weights that stay fixed between them (the sphere
     tracer's 51 per trace): the weight-norm fold, and on the card the
-    kernel's weight packing, are done once here rather than per query."""
+    kernels' weight packing (``frozen_mlp``), are done once here."""
     plan = plan_from_sdf_config(cfg)
     with torch.no_grad():
-        ws, bs = fold_weight_norm(params, plan.n_layers)
-        packed = pack_weights(ws, bs) if ws[0].is_cuda else None
+        trunk = frozen_mlp(plan, *fold_weight_norm(params, plan.n_layers))
 
     @torch.no_grad()
     def query(x: torch.Tensor) -> torch.Tensor:
-        h = fused_mlp(plan, _encode(cfg, x), ws, bs, packed)[..., :out_cols]
+        h = trunk(_encode(cfg, x))[..., :out_cols]
         return torch.cat([h[..., :1] / cfg.scale, h[..., 1:]], dim=-1)
 
     return query

@@ -27,9 +27,9 @@ plain PyTorch versions: the CPU tests run them (CPU tensors take them, and
 only CPU tensors), and ``chip_smoke.py`` holds the kernels to them on the
 card.
 
-Weights arrive pre-folded (``fold_weight_norm``, O(params), in PyTorch so
-autograd carries gradients back to ``v`` and ``g``) as ``[in, out]``
-tensors, in the JAX package's layout.
+Weights arrive as per-layer ``[in, out]`` tensors, folded by the SDF field.
+``pack_weights`` alone lays them out for the launchers (K1-K4); K2 and K4
+launch from the pack their forward made.
 """
 
 from __future__ import annotations
@@ -37,12 +37,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from ...fields.mlp import effective_weight
 from .build import Kernel, int_array, library, ptr
 
 _SQ2 = float(np.float32(1.0 / np.sqrt(2.0)))
@@ -120,14 +119,6 @@ def plan_from_sdf_config(sdf_cfg) -> MLPPlan:
     return MLPPlan(dims=tuple(ins), out_dim=sdf_cfg.d_out,
                    skip_in=tuple(sdf_cfg.skip_in),
                    activation="softplus100")
-
-
-def fold_weight_norm(params, n_layers: int):
-    """(weights, biases) tuples with weight-norm applied — O(params) work
-    done once per step outside the kernel, differentiable by autograd."""
-    layers = [params[f"lin{i}"] for i in range(n_layers)]
-    return (tuple(effective_weight(lp) for lp in layers),
-            tuple(lp["b"] for lp in layers))
 
 
 def softplus100(h: torch.Tensor) -> torch.Tensor:
@@ -285,41 +276,46 @@ def launch_meta(plan: MLPPlan, x: torch.Tensor) -> ctypes.Array:
     return _launch_meta(plan, x.shape[0], sm_count(x.device))
 
 
-def check_cuda_inputs(plan: MLPPlan, x: torch.Tensor,
-                      weights: Sequence[torch.Tensor],
-                      biases: Sequence[torch.Tensor],
+class PackedWeights(NamedTuple):
+    """The flat buffers the kernels read: W as row-major [in, out] blocks,
+    b, and W^T as [out, in] blocks at W's offsets (None where only K1 reads)."""
+
+    W: torch.Tensor
+    b: torch.Tensor
+    Wt: torch.Tensor | None = None
+
+
+def pack_weights(plan: MLPPlan, weights: Sequence[torch.Tensor],
+                 biases: Sequence[torch.Tensor], reverse: bool = False) -> PackedWeights:
+    """Check per-layer [in, out] weights and biases against the plan (fp32,
+    on one device) and pack them, once for the launches that share them;
+    with ``reverse`` also W^T, which K2, K3 and K4 read."""
+    shapes = [(plan.layer_in_dim(i), plan.layer_out_dim(i)) for i in range(plan.n_layers)]
+    got = [tuple(w.shape) for w in weights], [tuple(b.shape) for b in biases]
+    if got != (shapes, [(o,) for _, o in shapes]):
+        raise ValueError(f"weights and biases of shapes {got}, not the plan's {shapes}")
+    if any(t.device != weights[0].device or t.dtype != torch.float32 for t in (*weights, *biases)):
+        raise ValueError("weights and biases must be float32 on one device")
+    W = torch.cat([w.reshape(-1) for w in weights])
+    b = torch.cat([bb.reshape(-1) for bb in biases])
+    Wt = torch.cat([w.t().reshape(-1) for w in weights]) if reverse else None
+    return PackedWeights(W, b, Wt)
+
+
+def check_cuda_inputs(plan: MLPPlan, x: torch.Tensor, packed: PackedWeights,
                       max_width: int = MAX_WIDTH) -> None:
-    """Raise on anything the CUDA kernels do not take (layers at most
-    ``max_width`` wide)."""
+    """Raise on a launch the CUDA kernels do not take: a plan outside their
+    limits (at most ``max_width`` wide), or an x that does not fit it."""
     if plan.activation != "softplus100":
         raise ValueError(f"the kernels apply softplus100 only, not {plan.activation!r}")
     if plan.n_layers > MAX_LAYERS or plan.dims[0] > MAX_IN or 0 in plan.skip_in:
         raise ValueError(f"plan outside the kernels' limits: {plan}")
-    if len(weights) != plan.n_layers or len(biases) != plan.n_layers:
-        raise ValueError("one weight and one bias per layer expected")
+    if plan.width() > max_width:
+        raise ValueError(f"plan wider than {max_width}: {plan}")
     if x.dim() != 2 or x.shape[1] != plan.dims[0]:
         raise ValueError(f"x {tuple(x.shape)} does not match plan input {plan.dims[0]}")
-    for i, (w, b) in enumerate(zip(weights, biases)):
-        shape = (plan.layer_in_dim(i), plan.layer_out_dim(i))
-        if tuple(w.shape) != shape or tuple(b.shape) != shape[1:]:
-            raise ValueError(f"layer {i}: weight {tuple(w.shape)} / bias "
-                             f"{tuple(b.shape)}, expected {shape}")
-        if max(shape) > max_width:
-            raise ValueError(f"layer {i} wider than {max_width}")
-    for t in (x, *weights, *biases):
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError("all inputs must be float32 on one CUDA device")
-
-
-def pack_weights(weights, biases, transposed: bool = False):
-    """Flat fp32 buffers the kernels read: W as row-major [in, out] blocks
-    (and, if asked, W^T as [out, in] blocks at the same offsets), b flat."""
-    W = torch.cat([w.reshape(-1) for w in weights])
-    b = torch.cat([bb.reshape(-1) for bb in biases])
-    if not transposed:
-        return W, b
-    Wt = torch.cat([w.t().reshape(-1) for w in weights])
-    return W, Wt, b
+    if x.device != packed.W.device or x.dtype != torch.float32:
+        raise ValueError("x must be float32 on the weights' CUDA device")
 
 
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
@@ -334,16 +330,13 @@ BACKWARD = Kernel("fused_mlp.cu", "fused_mlp_backward",
                                            ctypes.c_longlong, ctypes.c_void_p])
 
 
-def fused_mlp_cuda(plan: MLPPlan, x, weights, biases, packed=None) -> torch.Tensor:
-    """Launch K1 on CUDA tensors: x [N, dims[0]] -> [N, out_dim].
-    ``packed`` is ``pack_weights(weights, biases)`` made once for weights
-    that many launches share."""
-    check_cuda_inputs(plan, x, weights, biases, MAX_WIDTH_WIDE)
+def fused_mlp_cuda(plan: MLPPlan, x, packed: PackedWeights) -> torch.Tensor:
+    """Launch K1 on CUDA tensors: x [N, dims[0]] -> [N, out_dim]."""
+    check_cuda_inputs(plan, x, packed, MAX_WIDTH_WIDE)
     x = x.contiguous()
-    W, b = packed if packed is not None else pack_weights(weights, biases)
     n = x.shape[0]
     y = torch.empty((n, plan.out_dim), device=x.device, dtype=torch.float32)
-    FORWARD(ptr(x), ptr(W), ptr(b), ptr(y), launch_meta(plan, x), n,
+    FORWARD(ptr(x), ptr(packed.W), ptr(packed.b), ptr(y), launch_meta(plan, x), n,
             stream_handle(x), shape=(build_width(plan), n))
     return y
 
@@ -365,25 +358,24 @@ def bwd_scratch_floats(plan: MLPPlan, n_rows: int) -> int:
     return n
 
 
-def mlp_backward_cuda(plan: MLPPlan, x, weights, biases, dy, need_dx: bool = True):
+def mlp_backward_cuda(plan: MLPPlan, x, packed: PackedWeights, dy, need_dx: bool = True):
     """Launch K2: cotangent dy [N, out_dim] -> (dx or None, dWs, dbs)."""
-    check_cuda_inputs(plan, x, weights, biases, MAX_WIDTH_WIDE)
+    check_cuda_inputs(plan, x, packed, MAX_WIDTH_WIDE)
     x, dy = x.contiguous(), dy.to(torch.float32).contiguous()
     if dy.shape != (x.shape[0], plan.out_dim) or dy.device != x.device:
         raise ValueError(f"cotangent {tuple(dy.shape)} does not match the "
                          f"output ({x.shape[0]}, {plan.out_dim}) on {x.device}")
-    W, Wt, b = pack_weights(weights, biases, transposed=True)
     n = x.shape[0]
     dx = torch.empty_like(x) if need_dx else None
-    dW = torch.zeros_like(W)
-    db = torch.zeros_like(b)
+    dW = torch.zeros_like(packed.W)
+    db = torch.zeros_like(packed.b)
     scratch = torch.empty(bwd_scratch_floats(plan, n), device=x.device,
                           dtype=torch.float32)
-    BACKWARD(ptr(x), ptr(dy), ptr(W), ptr(Wt), ptr(b),
+    BACKWARD(ptr(x), ptr(dy), ptr(packed.W), ptr(packed.Wt), ptr(packed.b),
              ptr(dx) if need_dx else ctypes.c_void_p(None), ptr(dW), ptr(db),
              ptr(scratch), launch_meta(plan, x), n, stream_handle(x),
              shape=(build_width(plan), n))
-    return dx, *unpack_grads(dW, db, weights, biases)
+    return dx, *unpack_grads(dW, db, plan)
 
 
 def max_active_clusters(plan: MLPPlan, backward: bool) -> int:
@@ -401,51 +393,59 @@ def max_active_clusters(plan: MLPPlan, backward: bool) -> int:
     return out.value
 
 
-def unpack_grads(dW, db, weights, biases):
-    """Flat dW/db buffers -> per-layer lists shaped like the weights."""
-    dws, dbs, wo, bo = [], [], 0, 0
-    for w, bb in zip(weights, biases):
-        dws.append(dW[wo:wo + w.numel()].view(w.shape))
-        dbs.append(db[bo:bo + bb.numel()])
-        wo += w.numel()
-        bo += bb.numel()
-    return dws, dbs
+def unpack_grads(dW, db, plan: MLPPlan):
+    """Flat buffers laid out as a pack's W and b -> per-layer lists of
+    views at the plan's [in, out] and [out] shapes."""
+    shapes = [(plan.layer_in_dim(i), plan.layer_out_dim(i)) for i in range(plan.n_layers)]
+    dws = [w.view(shape) for w, shape in zip(dW.split([i * o for i, o in shapes]), shapes)]
+    return dws, list(db.split([o for _, o in shapes]))
 
 
 class _FusedMLP(torch.autograd.Function):
-    """K1 forward, K2 backward on CUDA tensors; the plain versions on CPU
-    tensors."""
+    """K1 forward, K2 backward on CUDA tensors, both from one pack; the
+    plain versions on CPU tensors."""
 
     @staticmethod
     def forward(ctx, plan, x, *wb):
         n = plan.n_layers
         ctx.plan = plan
-        ctx.save_for_backward(x, *wb)
         if x.is_cuda:
-            return fused_mlp_cuda(plan, x, wb[:n], wb[n:])
+            packed = pack_weights(plan, wb[:n], wb[n:], reverse=True)
+            ctx.save_for_backward(x, *packed)
+            return fused_mlp_cuda(plan, x, packed)
+        ctx.save_for_backward(x, *wb)
         return _forward_rows(plan, x, wb[:n], wb[n:])
 
     @staticmethod
     def backward(ctx, dy):
         plan = ctx.plan
-        x, *wb = ctx.saved_tensors
+        x, *held = ctx.saved_tensors
         n = plan.n_layers
-        backward = mlp_backward_cuda if x.is_cuda else _backward_rows
-        dx, dws, dbs = backward(plan, x, wb[:n], wb[n:], dy,
-                                need_dx=ctx.needs_input_grad[1])
+        need_dx = ctx.needs_input_grad[1]
+        if x.is_cuda:
+            dx, dws, dbs = mlp_backward_cuda(plan, x, PackedWeights(*held), dy, need_dx)
+        else:
+            dx, dws, dbs = _backward_rows(plan, x, held[:n], held[n:], dy, need_dx)
         return (None, dx, *dws, *dbs)
 
 
-def fused_mlp(plan: MLPPlan, x, weights, biases, packed=None) -> torch.Tensor:
+def frozen_mlp(plan: MLPPlan, weights, biases):
+    """``x -> fused_mlp(plan, x, weights, biases)`` without a graph, for
+    queries of weights that stay fixed between them (a tracer's, a bake's):
+    on the card the weights are packed once, here."""
+    if not weights[0].is_cuda:
+        return lambda x: _forward_rows(plan, x, weights, biases)
+    packed = pack_weights(plan, weights, biases)
+    return lambda x: fused_mlp_cuda(plan, x, packed)
+
+
+def fused_mlp(plan: MLPPlan, x, weights, biases) -> torch.Tensor:
     """x [N, dims[0]] -> [N, out_dim] through the trunk: the CUDA kernels for
     CUDA tensors (K1; K2 in the backward when an input needs a gradient),
-    the plain versions for CPU tensors. ``packed`` (see ``fused_mlp_cuda``)
-    serves the launches without a gradient."""
+    the plain versions for CPU tensors."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mlp runs on cuda or cpu, not {x.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *weights, *biases)):
         return _FusedMLP.apply(plan, x, *weights, *biases)
-    if x.is_cuda:
-        return fused_mlp_cuda(plan, x, weights, biases, packed)
-    return _forward_rows(plan, x, weights, biases)
+    return frozen_mlp(plan, weights, biases)(x)

@@ -32,7 +32,8 @@ versions, the same sweeps as the Pallas kernels: the CPU tests run them,
 and ``chip_smoke.py`` holds the kernels to them on the card. The
 ``torch.autograd.Function`` launches the kernels for CUDA tensors and runs
 the plain versions only for CPU tensors, with the same split: the forward
-keeps its phases' state where a backward can follow.
+keeps its phases' state where a backward can follow, and on the card the
+weights' pack (``fused_mlp.pack_weights``) beside it, so K4 packs nothing.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import torch
 
 from ...tools.profiler import count
 from .build import Kernel, LaunchCount, int_array, library, ptr
-from .fused_mlp import (_SQ2, MAX_WIDTH, MLPPlan, _act, _sigma_p,
+from .fused_mlp import (_SQ2, MAX_WIDTH, MLPPlan, PackedWeights, _act, _sigma_p,
                         check_cuda_inputs, pack_weights, stream_handle,
                         unpack_grads)
 
@@ -172,59 +173,56 @@ def scratch_floats(plan: MLPPlan, n_rows: int, buffer: str) -> int:
     return n
 
 
-def _launch_forward(plan: MLPPlan, x, weights, biases, keep: bool):
-    check_cuda_inputs(plan, x, weights, biases)
+def _launch_forward(plan: MLPPlan, x, packed: PackedWeights, keep: bool):
+    check_cuda_inputs(plan, x, packed)
     x = x.contiguous()
-    W, Wt, b = pack_weights(weights, biases, transposed=True)
     n = x.shape[0]
     y = torch.empty((n, plan.out_dim), device=x.device, dtype=torch.float32)
     de = torch.empty_like(x)
     scratch = torch.empty(scratch_floats(plan, n, "state" if keep else "forward"),
                           device=x.device, dtype=torch.float32)
-    FORWARD(ptr(x), ptr(W), ptr(Wt), ptr(b), ptr(y), ptr(de), ptr(scratch),
+    FORWARD(ptr(x), ptr(packed.W), ptr(packed.Wt), ptr(packed.b), ptr(y), ptr(de), ptr(scratch),
             int_array(plan.meta()), n, int(keep), stream_handle(x), shape=(MAX_WIDTH, n))
     if keep:
         KEPT.add((MAX_WIDTH, n))
     return y, de, scratch
 
 
-def vg_forward_cuda(plan: MLPPlan, x, weights, biases):
+def vg_forward_cuda(plan: MLPPlan, x, packed: PackedWeights):
     """Launch K3: x [N, d0] -> (y [N, out_dim], de [N, d0]), keeping
     nothing."""
-    return _launch_forward(plan, x, weights, biases, False)[:2]
+    return _launch_forward(plan, x, packed, False)[:2]
 
 
-def vg_forward_saving_cuda(plan: MLPPlan, x, weights, biases):
+def vg_forward_saving_cuda(plan: MLPPlan, x, packed: PackedWeights):
     """Launch K3 for a backward: x [N, d0] -> (y, de, saved), where saved
-    is the per-row state K4 starts from (``saved=`` of
+    is the per-row state K4 starts from (``saved`` of
     ``vg_backward_cuda``)."""
-    return _launch_forward(plan, x, weights, biases, True)
+    return _launch_forward(plan, x, packed, True)
 
 
-def vg_backward_cuda(plan: MLPPlan, x, weights, biases, dy, dde, saved=None):
+def vg_backward_cuda(plan: MLPPlan, x, packed: PackedWeights, dy, dde, saved):
     """Launch K4: cotangents (dy, dde) -> (dx, dWs, dbs), from ``saved``,
-    the state ``vg_forward_saving_cuda`` returned for the same inputs,
-    which K4 only reads; without it, that K3 runs here first."""
-    check_cuda_inputs(plan, x, weights, biases)
+    the state ``vg_forward_saving_cuda`` returned for the same x and pack,
+    which K4 only reads."""
+    check_cuda_inputs(plan, x, packed)
     dy, dde = dy.contiguous(), dde.contiguous()
     if dy.shape != (x.shape[0], plan.out_dim) or dde.shape != x.shape:
         raise ValueError(f"cotangents {tuple(dy.shape)}, {tuple(dde.shape)} "
                          f"do not match x {tuple(x.shape)}")
     n = x.shape[0]
-    if saved is None:
-        saved = vg_forward_saving_cuda(plan, x, weights, biases)[2]
-    elif saved.shape != (scratch_floats(plan, n, "state"),):
+    if saved.shape != (scratch_floats(plan, n, "state"),):
         raise ValueError(f"saved state of {tuple(saved.shape)} floats does not match "
                          f"{n} rows of {plan}")
-    W, Wt, b = pack_weights(weights, biases, transposed=True)
     dx = torch.empty((n, plan.dims[0]), device=x.device, dtype=torch.float32)
-    dW = torch.zeros_like(W)
-    db = torch.zeros_like(b)
+    dW = torch.zeros_like(packed.W)
+    db = torch.zeros_like(packed.b)
     work = torch.empty(scratch_floats(plan, n, "backward"), device=x.device,
                        dtype=torch.float32)
-    BACKWARD(ptr(dy), ptr(dde), ptr(W), ptr(Wt), ptr(dx), ptr(dW), ptr(db), ptr(saved),
-             ptr(work), int_array(plan.meta()), n, stream_handle(x), shape=(MAX_WIDTH, n))
-    return dx, *unpack_grads(dW, db, weights, biases)
+    BACKWARD(ptr(dy), ptr(dde), ptr(packed.W), ptr(packed.Wt), ptr(dx), ptr(dW), ptr(db),
+             ptr(saved), ptr(work), int_array(plan.meta()), n, stream_handle(x),
+             shape=(MAX_WIDTH, n))
+    return dx, *unpack_grads(dW, db, plan)
 
 
 class _FusedValueGrad(torch.autograd.Function):
@@ -237,13 +235,14 @@ class _FusedValueGrad(torch.autograd.Function):
         # forward runs without grad mode): the caller's mode comes along
         keep = grad_enabled and any(ctx.needs_input_grad[2:])
         if x.is_cuda:
-            y, de, *state = (vg_forward_saving_cuda if keep else vg_forward_cuda)(plan, x, ws, bs)
+            wb = packed = pack_weights(plan, ws, bs, reverse=True)
+            y, de, *state = (vg_forward_saving_cuda if keep else vg_forward_cuda)(plan, x, packed)
         else:
             y, de, *phases = _forward_phases(plan, x, ws, bs)
             state = [t for ts in phases for t in ts] if keep else []
         if keep:
             count("vg.saved_rows", x.shape[0])
-        # with retain_graph False, autograd frees the state after the backward
+        # with retain_graph False, autograd frees these after the backward
         ctx.save_for_backward(x, *wb, *state)
         return y, de
 
@@ -252,14 +251,14 @@ class _FusedValueGrad(torch.autograd.Function):
         plan = ctx.plan
         n = plan.n_layers
         x, *rest = ctx.saved_tensors
-        ws, bs, state = rest[:n], rest[n:2 * n], rest[2 * n:]
         if dy is None:
             dy = x.new_zeros((x.shape[0], plan.out_dim))
         if dde is None:
             dde = torch.zeros_like(x)
         if x.is_cuda:
-            dx, dws, dbs = vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=state[0])
+            dx, dws, dbs = vg_backward_cuda(plan, x, PackedWeights(*rest[:3]), dy, dde, rest[3])
         else:
+            ws, bs, state = rest[:n], rest[n:2 * n], rest[2 * n:]
             dx, dws, dbs = _backward_phases(plan, x, ws, bs, dy, dde,
                                             saved=(state[:n], state[n:2 * n - 1],
                                                    state[2 * n - 1:3 * n - 1],

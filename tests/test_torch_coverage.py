@@ -50,7 +50,8 @@ COUNTERPARTS = {
     "render.pallas.fused_mlp:plan_from_sdf_config": (
         "render.cuda.fused_mlp:plan_from_sdf_config", "the plan of an SDF config"),
     "render.pallas.fused_mlp:fold_weight_norm": (
-        "render.cuda.fused_mlp:fold_weight_norm", "weight norm folded before a launch"),
+        "fields.sdf:fold_weight_norm", "the field folds its weight norm; the kernel layer "
+        "only packs what it is given"),
     "render.pallas.fused_mlp:fused_mlp": (
         "render.cuda.fused_mlp:fused_mlp", "K1 forward, K2 backward (csrc/fused_mlp.cu)"),
     "render.pallas.fused_value_grad:fused_value_grad": (

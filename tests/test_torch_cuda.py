@@ -78,7 +78,8 @@ def test_k2_matches_plain(dev, net, n_rows, need_dx):
     x, ws, bs = trunk_case(plan, 6, n_rows)
     dy = to_t(np.random.default_rng(7).standard_normal((n_rows, plan.out_dim)), dev)
     x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
-    dx, dws, dbs = tfm.mlp_backward_cuda(plan, x, ws, bs, dy, need_dx)
+    dx, dws, dbs = tfm.mlp_backward_cuda(plan, x, tfm.pack_weights(plan, ws, bs, reverse=True),
+                                         dy, need_dx)
     dxr, dwsr, dbsr = tfm._backward_rows(plan, x, ws, bs, dy, need_dx)
     assert (dx is None) == (not need_dx)
     pairs = [*zip(dws, dwsr), *zip(dbs, dbsr)] + ([(dx, dxr)] if need_dx else [])
@@ -97,11 +98,11 @@ def test_k1_refuses_a_geometry_it_does_not_take(dev):
     geo = tfm.launch_geometry(plan, 64, tfm.sm_count(x.device))
     wide = tuple(((0, plan.layer_out_dim(i)),) * geo.cluster for i in range(plan.n_layers))
     meta = int_array(plan.meta() + dataclasses.replace(geo, out=wide).meta())
-    W, b = tfm.pack_weights(ws, bs)
+    packed = tfm.pack_weights(plan, ws, bs)
     y = torch.full((64, plan.out_dim), float("nan"), device=dev)
     before = tfm.FORWARD.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
-        tfm.FORWARD(ptr(x), ptr(W), ptr(b), ptr(y), meta, 64, tfm.stream_handle(x),
+        tfm.FORWARD(ptr(x), ptr(packed.W), ptr(packed.b), ptr(y), meta, 64, tfm.stream_handle(x),
                     shape=(tfm.MAX_WIDTH_WIDE, 64))
     assert tfm.FORWARD.launches == before and torch.isnan(y).all()
 
@@ -137,9 +138,11 @@ def test_k3_k4_match_plain(dev, n_rows):
     dy = to_t(rng.standard_normal((n_rows, plan.out_dim)), dev)
     dde = to_t(rng.standard_normal((n_rows, plan.dims[0])), dev)
     x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
-    y, de = tfv.vg_forward_cuda(plan, x, ws, bs)
+    packed = tfm.pack_weights(plan, ws, bs, reverse=True)
+    y, de = tfv.vg_forward_cuda(plan, x, packed)
     yr, der, *_ = tfv._forward_phases(plan, x, ws, bs)
-    dx, dws, dbs = tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde)
+    saved = tfv.vg_forward_saving_cuda(plan, x, packed)[2]
+    dx, dws, dbs = tfv.vg_backward_cuda(plan, x, packed, dy, dde, saved)
     dxr, dwsr, dbsr = tfv._backward_phases(plan, x, ws, bs, dy, dde)
     for got, want in [(y, yr), (de, der), (dx, dxr), *zip(dws, dwsr), *zip(dbs, dbsr)]:
         _close(got, want)
@@ -151,7 +154,7 @@ def test_k3_k4_autograd_matches_plain(dev, n_rows):
     its state and one K4 that starts from it, against the plain versions.
     K3's outputs are bit-equal with and without keeping the state; K4 only
     reads it, so its dx is bit-equal from the kept state, from it a second
-    time, and from a K3 that ``vg_backward_cuda`` runs itself."""
+    time, and from the state of a K3 launched anew."""
     plan = tfm.plan_from_sdf_config(SDFConfig())
     x, ws, bs = trunk_case(plan, 14, n_rows)
     rng = np.random.default_rng(15)
@@ -170,12 +173,14 @@ def test_k3_k4_autograd_matches_plain(dev, n_rows):
     for got, want in zip([y.detach(), de.detach(), *grads], [yr, der, dxr, *dwsr, *dbsr]):
         _close(got, want)
 
-    y2, de2, saved = tfv.vg_forward_saving_cuda(plan, x, ws, bs)
-    y3, de3 = tfv.vg_forward_cuda(plan, x, ws, bs)
+    packed = tfm.pack_weights(plan, ws, bs, reverse=True)
+    y2, de2, saved = tfv.vg_forward_saving_cuda(plan, x, packed)
+    y3, de3 = tfv.vg_forward_cuda(plan, x, packed)
     assert torch.equal(y2, y3) and torch.equal(de2, de3) and torch.equal(y2, y.detach())
-    dx = [tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=saved)[0],
-          tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde, saved=saved)[0],
-          tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde)[0]]
+    anew = tfv.vg_forward_saving_cuda(plan, x, packed)[2]
+    dx = [tfv.vg_backward_cuda(plan, x, packed, dy, dde, saved)[0],
+          tfv.vg_backward_cuda(plan, x, packed, dy, dde, saved)[0],
+          tfv.vg_backward_cuda(plan, x, packed, dy, dde, anew)[0]]
     assert all(torch.equal(d, grads[0]) for d in dx)
 
 
@@ -196,25 +201,56 @@ def test_trunk_kernels_at_the_pipeline_plan(dev, kernel, n_rows):
     dy = to_t(rng.standard_normal((n_rows, plan.out_dim)), dev)
     dde = to_t(rng.standard_normal((n_rows, plan.dims[0])), dev)
     x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
+    packed = tfm.pack_weights(plan, ws, bs, reverse=True)
+    saved = tfv.vg_forward_saving_cuda(plan, x, packed)[2] if kernel == "K4" else None
     counter = {"K1": tfm.FORWARD, "K2": tfm.BACKWARD, "K3": tfv.FORWARD,
                "K4": tfv.BACKWARD}[kernel]
     before = counter.launches
     if kernel == "K1":
-        pairs = [(tfm.fused_mlp_cuda(plan, x, ws, bs), tfm._forward_rows(plan, x, ws, bs))]
+        pairs = [(tfm.fused_mlp_cuda(plan, x, packed), tfm._forward_rows(plan, x, ws, bs))]
     elif kernel == "K2":
-        got = tfm.mlp_backward_cuda(plan, x, ws, bs, dy, True)
+        got = tfm.mlp_backward_cuda(plan, x, packed, dy, True)
         want = tfm._backward_rows(plan, x, ws, bs, dy, True)
         pairs = [(got[0], want[0]), *zip(got[1], want[1]), *zip(got[2], want[2])]
     elif kernel == "K3":
-        pairs = list(zip(tfv.vg_forward_cuda(plan, x, ws, bs),
+        pairs = list(zip(tfv.vg_forward_cuda(plan, x, packed),
                          tfv._forward_phases(plan, x, ws, bs)[:2]))
     else:
-        got = tfv.vg_backward_cuda(plan, x, ws, bs, dy, dde)
+        got = tfv.vg_backward_cuda(plan, x, packed, dy, dde, saved)
         want = tfv._backward_phases(plan, x, ws, bs, dy, dde)
         pairs = [(got[0], want[0]), *zip(got[1], want[1]), *zip(got[2], want[2])]
     assert counter.launches == before + 1
     for got, want in pairs:
         _close(got, want)
+
+
+def test_one_pack_per_autograd_call(dev, monkeypatch):
+    """A forward and a backward of ``fused_mlp`` under grad, and of
+    ``fused_value_grad``, each pack the weights exactly once, with W^T:
+    K2 and K4 launch from the pack their forward made."""
+    calls = []
+    real = tfm.pack_weights
+
+    def counted(*args, **kw):
+        calls.append(kw.get("reverse", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tfm, "pack_weights", counted)
+    monkeypatch.setattr(tfv, "pack_weights", counted)
+    for op, cfg, k2_or_k4 in ((tfm.fused_mlp, NORMAL_NET, tfm.BACKWARD),
+                              (tfv.fused_value_grad, SDFConfig(), tfv.BACKWARD)):
+        plan = tfm.plan_from_sdf_config(cfg)
+        x, ws, bs = trunk_case(plan, 9, 300)
+        leaves = [to_t(a, dev).requires_grad_() for a in (x, *ws, *bs)]
+        n = plan.n_layers
+        calls.clear()
+        before = k2_or_k4.launches
+        out = op(plan, leaves[0], leaves[1:1 + n], leaves[1 + n:])
+        outs = out if isinstance(out, tuple) else (out,)
+        grads = torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs])
+        assert calls == [True] and k2_or_k4.launches == before + 1
+        assert all(torch.isfinite(g).all() for g in grads)
+
 
 def test_trainer_steps_launch_each_kernel(dev):
     """Small widths through NeusTrainer on the card: finite losses, and the
@@ -377,6 +413,11 @@ def test_grid_march_on_a_vis_fan_matches_plain(dev):
     assert 0.05 < float(hit.float().mean()) < 0.95
 
 
+def _plain_k3(plan, x, packed):
+    """K3's plain version in ``vg_forward_cuda``'s place."""
+    return tfv._forward_phases(plan, x, *tfm.unpack_grads(packed.W, packed.b, plan))[:2]
+
+
 def test_borrow_color_matches_plain(dev):
     """``Stage2Model.borrow_color`` at full width on 2,000 rays: K3 (one
     launch) against the same call with K3's plain version, within 1e-4 of
@@ -396,7 +437,7 @@ def test_borrow_color_matches_plain(dev):
     assert (tfv.FORWARD.launches, tfv.BACKWARD.launches) == (before[0] + 1, before[1])
     real = tfv.vg_forward_cuda
     try:
-        tfv.vg_forward_cuda = lambda plan, x, ws, bs: tfv._forward_phases(plan, x, ws, bs)[:2]
+        tfv.vg_forward_cuda = _plain_k3
         with torch.no_grad():
             want = model.borrow_color(x, d)
     finally:
@@ -453,8 +494,9 @@ def test_pbr_steps_launch_k3_at_their_rows(dev):
     plan = tfm.plan_from_sdf_config(SDFConfig())
     x, ws, bs = trunk_case(plan, 7, max(rows))
     x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
+    packed = tfm.pack_weights(plan, ws, bs, reverse=True)
     for r in sorted(set(rows)):
-        y, de = tfv.vg_forward_cuda(plan, x[:r], ws, bs)
+        y, de = tfv.vg_forward_cuda(plan, x[:r], packed)
         yr, der, *_ = tfv._forward_phases(plan, x[:r], ws, bs)
         _close(y, yr)
         _close(de, der)
@@ -489,7 +531,7 @@ def test_pbr_render_view_matches_plain(dev):
     real_cast, real_k3 = ts2.grid_cast, tfv.vg_forward_cuda
     try:
         ts2.grid_cast = lambda g, c, o, d: tg.grid_cast_plain(g, c, o, d)[:3]
-        tfv.vg_forward_cuda = lambda plan, x, ws, bs: tfv._forward_phases(plan, x, ws, bs)[:2]
+        tfv.vg_forward_cuda = _plain_k3
         want = render_view(runner.model(), view, 0,
                            draws=lambda c: Draws(given=taken[c].taken, device=dev), **kw)
     finally:
@@ -523,8 +565,8 @@ def test_extract_mesh_matches_plain(dev, monkeypatch):
     assert tfm.FORWARD.by_shape == {(tfm.MAX_WIDTH, 65536): 2}
     mesh = trainer.extract_mesh()
     assert tfm.FORWARD.launches == 4
-    monkeypatch.setattr(tfm, "fused_mlp_cuda",
-                        lambda plan, x, ws, bs, packed=None: tfm._forward_rows(plan, x, ws, bs))
+    monkeypatch.setattr(tfm, "fused_mlp_cuda", lambda plan, x, packed: tfm._forward_rows(
+        plan, x, *tfm.unpack_grads(packed.W, packed.b, plan)))
     want = tmesh.sdf_grid(sdf, *box, 48, device=dev)
     assert tfm.FORWARD.launches == 4
     _close(torch.as_tensor(grid), torch.as_tensor(want))

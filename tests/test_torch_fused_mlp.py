@@ -58,7 +58,7 @@ def test_plan_matches_jax():
 def test_fold_weight_norm_matches_jax(full_width):
     _, params, tparams = full_width
     jws, jbs = jfm.fold_weight_norm(params, 9)
-    tws, tbs = tfm.fold_weight_norm(tparams, 9)
+    tws, tbs = tsdf.fold_weight_norm(tparams, 9)
     for a, b in zip(tws + tbs, jws + jbs):
         assert_close(a, b, rtol=1e-6, atol=1e-7)
 
@@ -73,7 +73,7 @@ def test_full_width_forward_matches_jax(full_width, n_rows):
          ).astype(np.float32)
     jws, jbs = jfm.fold_weight_norm(params, 9)
     want = jfm.fused_mlp(jplan, jnp.asarray(x), jws, jbs)
-    tws, tbs = tfm.fold_weight_norm(tparams, 9)
+    tws, tbs = tsdf.fold_weight_norm(tparams, 9)
     got = tfm.fused_mlp(tplan, to_t(x), tws, tbs)
     assert got.shape == (n_rows, 257)
     assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -93,25 +93,52 @@ def test_small_plans_match_jax(plan_kw, n_rows):
 
 
 def test_cuda_input_checks():
-    """What the CUDA wrapper refuses, checked before any launch."""
+    """What the CUDA wrappers refuse, checked before any launch: weights
+    that do not fit the plan when they are packed, an x that does not fit
+    the plan or the pack's dtype, a plan the kernels do not take."""
     plan = tfm.MLPPlan(**SMALL_PLANS[1])
     x, ws, bs = trunk_case(plan, 0, 4)
     ws_t, bs_t = [to_t(w) for w in ws], [to_t(b) for b in bs]
-    tfm.check_cuda_inputs(plan, to_t(x), ws_t, bs_t)
+    packed = tfm.pack_weights(plan, ws_t, bs_t, reverse=True)
+    tfm.check_cuda_inputs(plan, to_t(x), packed)
     with pytest.raises(ValueError):
-        tfm.check_cuda_inputs(plan, to_t(x[:, :5]), ws_t, bs_t)
+        tfm.check_cuda_inputs(plan, to_t(x[:, :5]), packed)
     with pytest.raises(ValueError):
-        tfm.check_cuda_inputs(plan, to_t(x), ws_t[:-1], bs_t)
+        tfm.pack_weights(plan, ws_t[:-1], bs_t)
     with pytest.raises(ValueError):
-        tfm.check_cuda_inputs(plan, to_t(x).double(), ws_t, bs_t)
+        tfm.check_cuda_inputs(plan, to_t(x).double(), packed)
+    with pytest.raises(ValueError):
+        tfm.pack_weights(plan, [w.double() for w in ws_t], bs_t)
     relu = dataclasses.replace(plan, activation="relu")
     with pytest.raises(ValueError, match="softplus100"):
-        tfm.check_cuda_inputs(relu, to_t(x), ws_t, bs_t)
+        tfm.check_cuda_inputs(relu, to_t(x), packed)
     wide = tfm.MLPPlan(dims=(8, 300), out_dim=3)
     x, ws, bs = trunk_case(wide, 0, 4)
     with pytest.raises(ValueError):
-        tfm.check_cuda_inputs(wide, to_t(x), [to_t(w) for w in ws],
-                              [to_t(b) for b in bs])
+        tfm.check_cuda_inputs(wide, to_t(x), tfm.pack_weights(
+            wide, [to_t(w) for w in ws], [to_t(b) for b in bs], reverse=True))
+
+
+def test_pack_round_trips(full_width):
+    """The pack of the folded full-width trunk: its W blocks unpack to the
+    folded weights and b to the biases; its W^T blocks, at W's offsets,
+    are their transposes; a weight of the wrong shape raises."""
+    _, _, tparams = full_width
+    plan = tfm.plan_from_sdf_config(NeuSConfig().sdf)
+    ws, bs = tsdf.fold_weight_norm(tparams, plan.n_layers)
+    packed = tfm.pack_weights(plan, ws, bs, reverse=True)
+    assert packed.W.shape == packed.Wt.shape == (plan.n_weights(),)
+    got_ws, got_bs = tfm.unpack_grads(packed.W, packed.b, plan)
+    offset = 0
+    for w, b, gw, gb in zip(ws, bs, got_ws, got_bs):
+        assert torch.equal(gw, w) and torch.equal(gb, b)
+        wt = packed.Wt[offset:offset + w.numel()].view(w.shape[1], w.shape[0])
+        assert torch.equal(wt, w.t())
+        offset += w.numel()
+    assert offset == plan.n_weights()
+    assert tfm.pack_weights(plan, ws, bs).Wt is None
+    with pytest.raises(ValueError, match="not the plan's"):
+        tfm.pack_weights(plan, [*ws[:4], ws[4][1:], *ws[5:]], bs)
 
 
 def test_ops_refuse_other_devices():
@@ -176,7 +203,8 @@ def test_normal_net_plan():
     assert plan.layer_in_dim(4) == 512 and plan.out_dim == 3
     assert plan.n_weights() == 1_836_544
     x, ws, bs = trunk_case(plan, 0, 2)
-    args = (to_t(x), [to_t(w) for w in ws], [to_t(b) for b in bs])
+    args = (to_t(x), tfm.pack_weights(plan, [to_t(w) for w in ws], [to_t(b) for b in bs],
+                                      reverse=True))
     tfm.check_cuda_inputs(plan, *args, max_width=tfm.MAX_WIDTH_WIDE)
     with pytest.raises(ValueError, match="wider than 264"):
         tfm.check_cuda_inputs(plan, *args)

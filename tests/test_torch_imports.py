@@ -63,6 +63,41 @@ def test_port_imports_no_cv2():
     assert not found, found
 
 
+def _imported_modules(path: str, package: str) -> list[str]:
+    """Absolute names of the modules a file imports, at the top or inside
+    a function, relative imports resolved against its ``package``."""
+    import ast
+    with open(path) as fp:
+        tree = ast.parse(fp.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")
+            base = base[:len(base) - node.level + 1] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            names += [mod] if node.module else [f"{mod}.{a.name}" for a in node.names]
+    return names
+
+
+def test_kernel_layer_imports_nothing_above_it():
+    """No module under ``render/cuda`` imports the fields, the stages or the
+    rest of ``render``: the layers above call the kernel layer, never the
+    other way round."""
+    cuda_dir = os.path.join(REPO_ROOT, "robir_tpu_torch", "render", "cuda")
+    above = ("robir_tpu_torch.fields", "robir_tpu_torch.stages", "robir_tpu_torch.render")
+    found = []
+    for f in sorted(os.listdir(cuda_dir)):
+        if f.endswith(".py"):
+            for name in _imported_modules(os.path.join(cuda_dir, f),
+                                          "robir_tpu_torch.render.cuda"):
+                if (name.startswith(above) and name != "robir_tpu_torch.render.cuda"
+                        and not name.startswith("robir_tpu_torch.render.cuda.")):
+                    found.append(f"{f}: {name}")
+    assert found == []
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: chip_smoke.py would run in full")
