@@ -69,10 +69,14 @@
    shortened schedule that passes through warmup, explore and project, the
    normal switch and the guard that picks dense or compacted steps. Each
    step's line gives its mode, surface rows and fraction. The counts are set
-   to 0 just before and must rise by 1 grid march (1,024 rays) and 1 K1, 1
-   K2 and 1 K3 at the step's rows (its surface rows if compacted, else
-   1,024) per step; K1, K2 and K3 are then held to their plain versions at
-   the row counts the run logged.
+   to 0 just before and must rise by 1 grid march (1,024 rays) per step, and
+   by 1 K1, 1 K2 and 1 K3 at 1,024 rows per dense step; a compacted step
+   replays the CUDA graph of its row bucket (its surface rows rounded up to
+   whole chunks) and its phase (``stages/material_graph.py``), so K1-K3 pass
+   through their wrappers at the bucket only at a capture, and at one chunk
+   where a phase is new (the probe that notes its draws). The graph counters (captures, replays, padded rows,
+   eager fallbacks) are printed; K1, K2 and K3 are then held to their plain
+   versions at the row counts the run launched.
 10. The mesh export (path ``mesh``; it runs right after 4, before stage
    1's profile steps, so that it meshes the NeuS stage 2 takes):
    ``NeusTrainer.extract_mesh`` at ``configs/neus_blender.json``'s ``mesh``
@@ -143,10 +147,11 @@
    Vis runner's, every other leaf the PBR runner's own), ``bake_grid``
    (counted, bit-equal to the CESR runner's grid, K1 held on a chunk), and
    PBR_STEPS (20) steps (counts set
-   to 0 just before: per step one grid march at 1,024 rays and one K3 at
-   the shaded rows, which keeps no state; no K1, K2 or K4); K3 then held
-   to its plain version at
-   every row count the run shaded, and the march on a PBR batch's rays;
+   to 0 just before: per step one grid march at 1,024 rays; K3, which keeps
+   no state, at the row bucket of a compacted step's graph at its capture,
+   as in 9, at the batch's rows a dense step; no K1, K2 or K4; the graph
+   counters printed); K3 then held to its plain version at
+   every row count the run launched, and the march on a PBR batch's rays;
    the diffuse sweep alone timed at the run's median rows.
 20. The eval render: ``PBRRunner.render_view`` of test view 0 of the shadow
    scene (128 x 128 in 3 chunks of 8,000 rays; counted: one march and one
@@ -312,6 +317,7 @@ import torch
 from robir_tpu_torch import cli
 from robir_tpu_torch.core import checkpoint as ckpt_lib
 from robir_tpu_torch.core import mesh as dp
+from robir_tpu_torch.core.compact import bucket_rows
 from robir_tpu_torch.core.config import (build_mesh_config, build_stage1_configs,
                                          build_stage2_config, build_stage_config, load_config,
                                          stage1_dispatch, texture_resolution)
@@ -1225,6 +1231,34 @@ def stage1_step_launches(render_cfg) -> dict:
 GRAPH_CALLS = 2
 
 
+def graph_snapshot(runner) -> tuple:
+    """(captures, replays, draw specs probed) of a PBR or CESR runner's graph
+    set (``stages/material_graph.py``)."""
+    g = runner.graphs
+    return (0, 0, 0) if g is None else (g.captures, g.replays, len(g._specs))
+
+
+def step_passes(runner, before: tuple):
+    """How the step just taken passed its launches through the kernels'
+    wrappers on the graph path: (captures at its row bucket, probes at one
+    chunk of rows: the eager call that notes a new flag set's draws), (0,
+    0) for a replay of a key captured before; None for an eager step (no
+    replay)."""
+    after = graph_snapshot(runner)
+    if after[1] == before[1]:
+        return None
+    return after[0] - before[0], after[2] - before[2]
+
+def graph_line(what: str, runner) -> str:
+    """A stage's graph counters, printed after its steps."""
+    g = runner.graphs
+    if g is None:
+        return f"{what} graphs: none (no compacted step on the graph path)"
+    return (f"{what} graphs: {g.captures} captures, {g.replays} replays, {g.padded_rows} padded "
+            f"rows, {g.eager_fallbacks} eager fallbacks; keys (rows, flags) "
+            f"{sorted(g.entries, key=str)}")
+
+
 def profile_steps(run, n_steps: int, what: str = "train", graph=None) -> None:
     """Device time and launches by kernel over ``n_steps`` more steps
     (``run(n_steps)``): a ``tools/profiler.py:trace`` written to
@@ -1235,11 +1269,13 @@ def profile_steps(run, n_steps: int, what: str = "train", graph=None) -> None:
     (the profiler drops a few launches at a trace's start), and each
     kernel's events there equal its wrapper's launches with rows in the
     window, less at most those dropped at the start. ``graph``: (a
-    ``StepGraph``, its launches a replay by kernel), whose replays in the
-    window launch without the wrappers and are counted so."""
+    ``StepGraph`` or ``MaterialGraphs``, its launches a replay by kernel),
+    whose replays in the window launch without the wrappers and are counted
+    so, and whose captures there pass through them and launch nothing."""
     log_dir = ROOT / "profile_traces" / what.replace(" ", "_")
     before = shapes()
     replays = graph[0].replays if graph else 0
+    captures = graph[0].captures if graph else 0
     torch.cuda.synchronize()
     with profiler.trace(str(log_dir)):
         t0 = time.perf_counter()
@@ -1248,6 +1284,9 @@ def profile_steps(run, n_steps: int, what: str = "train", graph=None) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     after = shapes()
     replays = graph[0].replays - replays if graph else 0
+    # a capture in the window passes through the wrappers but launches
+    # nothing; its step's replay launches without them
+    captures = graph[0].captures - captures if graph else 0
     summary = profiler.summarize_trace(str(log_dir), top_ops=20)
     busy_ms, ops = summary["total_ms"], summary["counts"]["ops"]
     lost, at_start = summary["counts"]["lost"], summary["counts"]["lost_at_start"]
@@ -1257,7 +1296,7 @@ def profile_steps(run, n_steps: int, what: str = "train", graph=None) -> None:
     held = {}
     for k, fn in TRACE_NAMES.items():
         launched = sum(n - before[k].get(s, 0) for s, n in after[k].items() if s[-1] > 0)
-        launched += replays * graph[1][k] if graph else 0
+        launched += (replays - captures) * graph[1][k] if graph else 0
         traced = sum(n for name, n in ops.items() if fn in name)
         if not launched - at_start <= traced <= launched:
             raise RuntimeError(f"profile of {what}: {traced} {fn} events in the trace under "
@@ -1559,11 +1598,15 @@ def drive_cesr_grid(runner, steps: int, profile: int = 0):
     card, with the counts set to 0 just before. Each step's line gives its
     mode (``runner.step_config()``: compacted or dense), its surface rows
     and fraction; the guard's reading and choice are printed where it
-    reads. Each step must launch the grid march once at the batch's rays
-    and K1, K2 and K3 once each at the rows it shades (its surface rows if
-    compacted, else the batch). Returns the launches by shape and the
-    shaded rows of each step. Then, if ``profile``, profiles that many more
-    steps."""
+    reads. Each step must launch the grid march once at the batch's rays;
+    a dense step K1, K2 and K3 once each at the batch's rows; a compacted
+    step (the graph path, ``stages/material_graph.py``) passes K1, K2 and
+    K3 through their wrappers once at one chunk of rows where its flags
+    are new (the probe that notes their draws), once at its row bucket
+    (its surface rows rounded up to whole chunks) for each capture it
+    made, and not at all where it replays a key captured before. Returns
+    the launches by shape and the rows each step's kernels ran on. Then,
+    if ``profile``, profiles that many more steps."""
     stage = runner.stage_cfg
     n, R = stage.num_pixels, runner.cfg.grid.resolution
     narrow, wide = fm.MAX_WIDTH, fm.MAX_WIDTH_WIDE
@@ -1580,6 +1623,7 @@ def drive_cesr_grid(runner, steps: int, profile: int = 0):
         it = runner.cur_iter
         phase = stage.prefit_option(it)
         compacted = runner.step_config().compact_chunk > 0  # below n: row mode
+        before = graph_snapshot(runner)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1591,14 +1635,23 @@ def drive_cesr_grid(runner, steps: int, profile: int = 0):
         if bad:
             raise RuntimeError(f"CESR step {it}: non-finite {bad}")
         surface = round(metrics["surface_frac"] * n)
-        rows = max(surface, 1) if compacted else n
-        shaded.append(rows)
+        passes = step_passes(runner, before)
+        if passes is None:
+            rows, how = (max(surface, 1) if compacted else n), "eager"
+            launches = [rows]
+        else:
+            rows = bucket_rows(surface, stage.compact_chunk)
+            launches = [rows] * passes[0] + [stage.compact_chunk] * passes[1]
+            how = "replayed" if passes == (0, 0) else f"captured {passes}"
+        shaded.extend(sorted(set(launches)) or [rows])
         add("march", (R, n))
         for kernel, width in (("K1", wide), ("K2", wide), ("K3", narrow)):
-            add(kernel, (width, rows))
+            for r in launches:
+                add(kernel, (width, r))
         print(f"CESR step {it:2d} ({phase}{', new normal' if it > stage.normal_switch_iter else ''}"
-              f", {'compacted' if compacted else 'dense'}): {surface} surface rows, fraction "
-              f"{metrics['surface_frac']:.4f}, {rows} rows shaded; {step_ms[-1]:8.3f} ms, "
+              f", {'compacted' if compacted else 'dense'}, {how}): {surface} surface rows, "
+              f"fraction {metrics['surface_frac']:.4f}, {rows} rows shaded; "
+              f"{step_ms[-1]:8.3f} ms, "
               + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items() if k != "surface_frac"),
               flush=True)
         if runner.cur_iter % stage.guard_every == 0:
@@ -1609,8 +1662,10 @@ def drive_cesr_grid(runner, steps: int, profile: int = 0):
                   f"{'dense' if dense else 'compacted'}", flush=True)
     run = shapes()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    print(graph_line("CESR", runner), flush=True)
     if profile:
-        profile_steps(runner.run, profile, "CESR")
+        profile_steps(runner.run, profile, "CESR", graph=runner.graphs and (
+            runner.graphs, {"K1": 1, "K2": 1, "K3": 1, "K4": 0, "march": 0}))
     if run != want:
         raise RuntimeError(f"CESR launches {run}, expected {want}")
     steady = step_ms[2:] or step_ms
@@ -1620,7 +1675,8 @@ def drive_cesr_grid(runner, steps: int, profile: int = 0):
           f"{n} pixels, {runner.cfg.envmap.num_lgt_sgs} SG lights; peak device memory "
           f"{peak:.2f} GiB", flush=True)
     print(f"CESR launches per step: the grid march 1 ({n} rays, grid {R}^3), K1 1 (width "
-          f"{wide}), K2 1 ({wide}), K3 1 ({narrow}), each at the step's shaded rows; over the "
+          f"{wide}), K2 1 ({wide}), K3 1 ({narrow}), each at the step's shaded rows, counted "
+          f"through the wrappers at a graph's capture (and a new phase's probe) only; over the "
           f"{steps} steps by kernel and (width or grid resolution, rows): {want}", flush=True)
     return run, shaded
 
@@ -2532,10 +2588,12 @@ def drive_pbr(runner, steps: int, profile: int = 0):
     before. Each step's line gives its time, its mode (``step_config``:
     compacted or dense), surface rows, loss, rgb_loss and PSNR; the guard's
     choice is printed where it reads. Each step must launch the grid march
-    once at the batch's rays and K3 once at the rows it shades (its surface
-    rows if compacted, else the batch), keeping no state; K1, K2 and K4
-    never. Returns the launches by shape and the shaded rows of each step.
-    Then, if ``profile``, profiles that many more steps."""
+    once at the batch's rays and K3, keeping no state, as ``drive_cesr_grid``
+    K1-K3: once at the batch's rows if dense; if compacted (the graph path)
+    once at one chunk at a new flag set's probe, once at its row bucket a
+    capture, not at all on a replay; K1, K2 and K4 never. Returns the launches by
+    shape and the rows each step's K3 ran on. Then, if ``profile``,
+    profiles that many more steps."""
     stage = runner.stage_cfg
     n, R = stage.num_pixels, runner.cfg.grid.resolution
     want = {k: {} for k in KERNELS}
@@ -2550,6 +2608,7 @@ def drive_pbr(runner, steps: int, profile: int = 0):
     for _ in range(steps):
         it = runner.cur_iter
         compacted = runner.step_config().compact_chunk > 0  # below n: row mode
+        before = graph_snapshot(runner)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2561,11 +2620,20 @@ def drive_pbr(runner, steps: int, profile: int = 0):
         if bad:
             raise RuntimeError(f"PBR step {it}: non-finite {bad}")
         surface = round(m["surface_frac"] * n)
-        rows = max(surface, 1) if compacted else n
-        shaded.append(rows)
+        passes = step_passes(runner, before)
+        if passes is None:
+            rows, how = (max(surface, 1) if compacted else n), "eager"
+            launches = [rows]
+        else:
+            rows = bucket_rows(surface, stage.compact_chunk)
+            launches = [rows] * passes[0] + [stage.compact_chunk] * passes[1]
+            how = "replayed" if passes == (0, 0) else f"captured {passes}"
+        shaded.extend(sorted(set(launches)) or [rows])
         add("march", (R, n))
-        add("K3", (fm.MAX_WIDTH, rows))
-        print(f"PBR step {it:2d} ({'compacted' if compacted else 'dense'}): {step_ms[-1]:8.3f} ms, "
+        for r in launches:
+            add("K3", (fm.MAX_WIDTH, r))
+        print(f"PBR step {it:2d} ({'compacted' if compacted else 'dense'}, {how}): "
+              f"{step_ms[-1]:8.3f} ms, "
               f"{surface} surface rows (fraction {m['surface_frac']:.4f}), {rows} rows shaded; "
               f"loss {m['loss']:.5f}, rgb_loss {m['rgb_loss']:.5f}, PSNR {m['psnr']:.3f} dB, kl "
               f"{m['kl']:.5f}, smooth {m['smooth']:.6f}, white {m['white']:.3e}", flush=True)
@@ -2577,8 +2645,10 @@ def drive_pbr(runner, steps: int, profile: int = 0):
                   f"{'dense' if dense else 'compacted'}", flush=True)
     run, kept = shapes(), fv.KEPT.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
+    print(graph_line("PBR", runner), flush=True)
     if profile:
-        profile_steps(runner.run, profile, "PBR")
+        profile_steps(runner.run, profile, "PBR", graph=runner.graphs and (
+            runner.graphs, {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "march": 0}))
     if run != want:
         raise RuntimeError(f"PBR launches {run}, expected {want}")
     if kept:  # the frozen NeuS's K3 has no backward to keep its state for
@@ -2590,8 +2660,9 @@ def drive_pbr(runner, steps: int, profile: int = 0):
           f"3-{steps} (CUDA events around PBRRunner.run(1)); first step {step_ms[0]:.3f} ms; "
           f"peak device memory {peak:.2f} GiB", flush=True)
     print(f"PBR launches per step: the grid march 1 ({n} rays), K3 1 ({fm.MAX_WIDTH}) at the "
-          f"step's shaded rows, no K1, K2 or K4; over the {steps} steps by kernel and (width or "
-          f"grid resolution, rows): {want}", flush=True)
+          f"step's shaded rows (through the wrapper at a graph's capture and a new flag "
+          f"set's probe only), no K1, K2 or K4; over the {steps} steps by kernel and (width or grid "
+          f"resolution, rows): {want}", flush=True)
     return run, shaded
 
 

@@ -13,6 +13,7 @@ stage-2 normal head's input; ``ipe_isotropic`` at one variance).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -94,14 +95,20 @@ class IPEConfig:
         return 2 * (self.max_deg - self.min_deg) * self.input_dims
 
 
+@functools.lru_cache(maxsize=None)
+def _ipe_scales(min_deg: int, max_deg: int, dtype, device) -> torch.Tensor:
+    """2^min_deg ... 2^(max_deg - 1), made once a device and dtype: a copy
+    from the host cannot be captured in a CUDA graph."""
+    return torch.tensor(2.0 ** np.arange(min_deg, max_deg), dtype=dtype, device=device)
+
+
 def integrated_pos_enc(mean: torch.Tensor, var_diag: torch.Tensor,
                        cfg: IPEConfig) -> torch.Tensor:
     """IPE of a Gaussian with diagonal covariance: E[sin(f x)] under
     x ~ N(mu, sigma^2) = sin(f mu) exp(-f^2 sigma^2 / 2), the same
     attenuation for cos. Layout [sin(all scales), cos(all scales)], scales
     outer and coordinates inner."""
-    scales = torch.tensor(2.0 ** np.arange(cfg.min_deg, cfg.max_deg),
-                          dtype=mean.dtype, device=mean.device)
+    scales = _ipe_scales(cfg.min_deg, cfg.max_deg, mean.dtype, mean.device)
     shape = mean.shape[:-1] + (len(scales) * cfg.input_dims,)
     y = (mean[..., None, :] * scales[:, None]).reshape(shape)
     y_var = (var_diag[..., None, :] * scales[:, None] ** 2).reshape(shape)

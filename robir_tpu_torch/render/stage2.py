@@ -53,7 +53,7 @@ from typing import Callable, Optional
 import torch
 
 from .. import resolve_device
-from ..core.compact import compact_apply, effective_chunk
+from ..core.compact import compact_apply, compact_apply_padded, effective_chunk
 from ..core.draws import Draws
 from ..core.mesh import DataMesh, mesh_shards, row_split
 from ..core.params import ParamTree, from_jax
@@ -323,7 +323,7 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
                    trainstage: str = "Material",
                    sg_render_fn: Optional[SGRenderFn] = None,
                    train_spec: bool = False, lin_diff: bool = False,
-                   compact_chunk: int = 0, traced=None, **sg_kwargs) -> dict:
+                   compact_chunk: int = 0, traced=None, padded=None, **sg_kwargs) -> dict:
     """IDRNetwork.forward (:290-479), masked: trace (no grad), the indirect
     SGs at the hit points, then for the Material stages the SG render, with
     misses' per-row outputs set to 1. With ``trainstage="Illum"`` (the Vis
@@ -344,7 +344,13 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
     implicit_differentiable_renderer.py:396-400): the render's outputs
     must all be per-row. Its per-row
     draws then have one row per surface pixel; per-light draws are the
-    dense render's. Otherwise every lane is shaded."""
+    dense render's. Otherwise every lane is shaded.
+
+    ``padded`` = (index [B], valid [B]) of ``core/compact.py:pad_rows``
+    runs that render on the B padded rows instead, without waiting for the
+    device (``compact_apply_padded``), its per-row draws from
+    ``draws.rows()`` (``draws`` a ``core/draws.py:PaddedDraws``): the step a
+    CUDA graph holds (``stages/material_graph.py``)."""
     cam_loc = inp["points"].reshape(-1, 3)
     ray_dirs = inp["dirs"].reshape(-1, 3)
     n = cam_loc.shape[0]
@@ -380,11 +386,18 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
         return out
 
     render = sg_render_fn or default_sg_render
-    if effective_chunk(n, compact_chunk, mesh_shards(model.mesh)):
+    compacted = effective_chunk(n, compact_chunk, mesh_shards(model.mesh))
+    if padded is not None and not compacted:
+        raise ValueError("stage2_forward(padded=...) needs a compacted render")
+    if compacted:
         # per-row draws of this rank's surface rows: its part of every
         # rank's, when the draws are split over the ranks
-        row_draws = (draws if draws.split is None else
-                     draws.with_split(row_split(model.mesh, int(surface_mask.sum()))))
+        if padded is not None:
+            row_draws = draws.rows()
+        elif draws.split is None:
+            row_draws = draws
+        else:
+            row_draws = draws.with_split(row_split(model.mesh, int(surface_mask.sum())))
 
         def row_render(pts, vdirs, isgs, iint, h):
             with span("stage2.shade"):
@@ -400,8 +413,9 @@ def stage2_forward(model: Stage2Model, draws: Draws, inp: dict,
             return r
 
         hs = hdr_shift if hdr_shift is not None else points.new_zeros((n, 1))
-        ret = compact_apply(row_render, surface_mask,
-                            [points, -ray_dirs, indirect_sgs, indirect_integral, hs])
+        inputs = [points, -ray_dirs, indirect_sgs, indirect_integral, hs]
+        ret = (compact_apply(row_render, surface_mask, inputs) if padded is None
+               else compact_apply_padded(row_render, *padded, inputs))
     else:
         with span("stage2.shade"):
             ret = render(model, draws, points, -ray_dirs, indirect_sgs,

@@ -206,12 +206,12 @@ def cesr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs,
 def cesr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: CESRStageConfig,
               spec_var: torch.Tensor, batch: dict, draws: Draws, prefit: str,
               use_new_normal: bool, use_rgb_loss: bool, traced=None,
-              grid_values=None, mesh: DataMesh | None = None):
+              grid_values=None, mesh: DataMesh | None = None, padded=None):
     """The CESR step's loss (make_cesr_step's ``loss_fn``) -> (total,
     metrics): in row mode where ``stage2_forward`` compacts at
     ``stage_cfg.compact_chunk``, else dense; either way the supervision is
-    reduced here from its per-row ingredients. ``traced`` as in
-    ``stage2_forward``; ``grid_values`` is the grid tracer's baked grid.
+    reduced here from its per-row ingredients. ``traced`` and ``padded``
+    as in ``stage2_forward``; ``grid_values`` is the grid tracer's baked grid.
     Under a ``mesh``, ``batch`` is this rank's rows, the loss and every
     metric but ``psnr`` (global) this rank's share."""
     model = Stage2Model(params, cfg, batch["dirs"].device, grid_values, mesh)
@@ -226,7 +226,7 @@ def cesr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: CESRStageConfig,
         compact_chunk=stage_cfg.compact_chunk,
         stage_cfg=stage_cfg, prefit=prefit, use_new_normal=use_new_normal,
         shadow_params=params["shadow_net"], normal_params=params["normal_net"],
-        spec_var=spec_var, traced=traced,
+        spec_var=spec_var, traced=traced, padded=padded,
         # the warmup step without the rgb term never reads the sampled
         # visibility's gradient: sweep it without a graph there
         diffuse_vis_grad=use_rgb_loss or prefit != "warmup")
@@ -313,20 +313,33 @@ class CESRRunner(MaterialRunner):
             and ("spec_brdf" not in p or no_discard))
 
     def step(self, batch: dict, draws: Draws) -> dict:
-        """One update at ``cur_iter``; returns the metrics (detached)."""
-        sc = self.stage_cfg
-        with span("forward"):
-            loss, metrics = cesr_loss(
-                self.params, self.cfg, self.step_config(), self.spec_var, batch, draws,
-                prefit=sc.prefit_option(self.cur_iter),
-                use_new_normal=self.cur_iter > sc.normal_switch_iter,
-                use_rgb_loss=self.cur_iter > sc.warmup_iters, grid_values=self.grid_values,
-                mesh=self.mesh)
-        metrics = self._update(loss, metrics)
+        """One update at ``cur_iter``; returns the metrics (detached). A
+        compacted step on the card replays the graph of its row bucket and
+        its phase's flags (``MaterialRunner._graph_step``), its draws from
+        the runner's generator; every other step runs eagerly on
+        ``draws``."""
+        sc, step_cfg = self.stage_cfg, self.step_config()
+        flags = (sc.prefit_option(self.cur_iter), self.cur_iter > sc.normal_switch_iter,
+                 self.cur_iter > sc.warmup_iters)
+        metrics = None
+        if self._graphed(step_cfg):
+            def loss_fn(batch, draws, traced, padded):
+                return cesr_loss(self.params, self.cfg, step_cfg, self.spec_var, batch, draws,
+                                 *flags, traced=traced, padded=padded)
+
+            batch = self._graph_set().put(batch)
+            metrics = self._graph_step(batch, flags, loss_fn)
+        if metrics is None:
+            with span("forward"):
+                loss, metrics = cesr_loss(
+                    self.params, self.cfg, step_cfg, self.spec_var, batch, draws, *flags,
+                    grid_values=self.grid_values, mesh=self.mesh)
+            metrics = self._update(loss, metrics)
         if sc.dropout_iter > 0 and self.cur_iter % sc.dropout_iter == 0:
-            # latent dropout resample (train_cesr.py:639-641)
-            self.spec_var = (torch.rand(self.spec_var.shape, generator=self.generator,
-                                        device=self.device) > 0.8).to(torch.float32)
+            # latent dropout resample (train_cesr.py:639-641), in place: the
+            # graphs read the mask from its buffer
+            self.spec_var.copy_((torch.rand(self.spec_var.shape, generator=self.generator,
+                                            device=self.device) > 0.8).to(torch.float32))
         return metrics
 
 

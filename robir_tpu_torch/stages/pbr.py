@@ -99,12 +99,13 @@ def pbr_sg_render(model: Stage2Model, draws: Draws, points, view_dirs, indir_lgt
 
 
 def pbr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: PBRStageConfig, batch: dict,
-             draws: Draws, traced=None, grid_values=None, mesh: DataMesh | None = None):
+             draws: Draws, traced=None, grid_values=None, mesh: DataMesh | None = None,
+             padded=None):
     """The PBR step's loss (``make_pbr_step``'s ``loss_fn``) on ``batch``
     (``BATCH_KEYS``) -> (total, metrics): ``loss``, ``rgb_loss``, ``kl``,
     ``smooth``, ``white``, ``psnr`` and ``surface_frac``. In row mode where
     ``stage2_forward`` compacts at ``stage_cfg.compact_chunk``, else dense.
-    ``traced`` as in ``stage2_forward``; ``grid_values`` is the grid
+    ``traced`` and ``padded`` as in ``stage2_forward``; ``grid_values`` is the grid
     tracer's baked grid. Under a ``mesh``, ``batch`` is this rank's rows,
     the loss and every metric but ``psnr`` (global) this rank's share."""
     model = Stage2Model(params, cfg, batch["dirs"].device, grid_values, mesh)
@@ -115,7 +116,7 @@ def pbr_loss(params: ParamTree, cfg: Stage2Config, stage_cfg: PBRStageConfig, ba
            "hdr_shift": as_input(params["gamma"]).expand(n, 1)}
     out = stage2_forward(model, draws, inp, sg_render_fn=pbr_sg_render, train_spec=True,
                          compact_chunk=stage_cfg.compact_chunk, traced=traced,
-                         use_normal_map=stage_cfg.use_normal_map)
+                         padded=padded, use_normal_map=stage_cfg.use_normal_map)
     loss_cfg = stage_cfg.loss
     pred = hdr2ldr(params["gamma"], cfg.tonemap, out["sg_rgb"] + out["indir_rgb"])
     mask = out["network_object_mask"] & out["object_mask"]
@@ -170,9 +171,22 @@ class PBRRunner(MaterialRunner):
             ("indirect_illum_network", "visibility_network")))
 
     def step(self, batch: dict, draws: Draws) -> dict:
-        """One update at ``cur_iter``; returns the metrics (detached)."""
+        """One update at ``cur_iter``; returns the metrics (detached). A
+        compacted step on the card replays its row bucket's graph
+        (``MaterialRunner._graph_step``), its draws from the runner's
+        generator; every other step runs eagerly on ``draws``."""
+        sc = self.step_config()
+        if self._graphed(sc):
+            def loss_fn(batch, draws, traced, padded):
+                return pbr_loss(self.params, self.cfg, sc, batch, draws, traced=traced,
+                                padded=padded)
+
+            batch = self._graph_set().put(batch)
+            metrics = self._graph_step(batch, (), loss_fn)
+            if metrics is not None:
+                return metrics
         with span("forward"):
-            loss, metrics = pbr_loss(self.params, self.cfg, self.step_config(), batch, draws,
+            loss, metrics = pbr_loss(self.params, self.cfg, sc, batch, draws,
                                      grid_values=self.grid_values, mesh=self.mesh)
         return self._update(loss, metrics)
 

@@ -34,6 +34,7 @@ import torch
 
 from .. import resolve_device
 from ..core import checkpoint as ckpt_lib
+from ..core.compact import effective_chunk, needed_rows
 from ..core.params import freeze, from_jax
 from ..fields.envmap_material import init_envmap_material
 from ..fields.neus_model import init_neus
@@ -47,6 +48,7 @@ from ..render.color import as_input, hdr2ldr, init_tonemap
 from ..render.stage2 import Stage2Config, Stage2Model, stage2_forward
 from ..tools.profiler import span
 from ..tracing.grid import build_sdf_grid
+from .material_graph import MaterialGraphs, graphable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,7 +239,14 @@ class MaterialRunner(Stage2RunnerBase):
     subtrees (rebuilt with fresh moments after a restore), pixel batches
     drawn in the JAX runners' order, and their switch between compacted and
     dense steps (``step_config``) on the surface fraction read every
-    ``guard_every`` steps. Subclasses define ``step``."""
+    ``guard_every`` steps. Subclasses define ``step``.
+
+    A compacted step on a CUDA device without a mesh takes the graph path
+    (``stages/material_graph.py``): its batch goes into the fixed buffers
+    of ``graphs`` (a ``MaterialGraphs``, made at the first such step), and
+    ``_graph_step`` replays the padded step's CUDA graph of its row bucket
+    and flags. Every other step, and every step after a capture failed,
+    runs eagerly. A restore drops the graphs (``close``)."""
 
     def __init__(self, cfg: Stage2Config, params: dict, dataset, stage_cfg, seed: int = 0,
                  device="cuda", log_dir: str | None = None, mesh: DataMesh | None = None):
@@ -246,10 +255,21 @@ class MaterialRunner(Stage2RunnerBase):
         self.dataset = dataset
         self.optimizer, self.lr_fn = make_adam(self.trainable, stage_cfg.opt)
         self.surface_frac = None  # read from the device every guard_every steps
+        self._graph_on = graphable(self.device, mesh)
+        self.graphs: MaterialGraphs | None = None
 
     def _refresh_after_restore(self) -> None:
         super()._refresh_after_restore()
         self.optimizer, self.lr_fn = make_adam(self.trainable, self.stage_cfg.opt)
+        self.close()
+
+    def close(self) -> None:
+        """Drop the graphs, their memory pool and the gradients in it."""
+        if self.graphs is not None:
+            for p in self.trainable:
+                p.grad = None
+            self.graphs.close()
+            self.graphs = None
 
     def step_config(self):
         """The stage config the next step runs with (the JAX runners'
@@ -268,17 +288,60 @@ class MaterialRunner(Stage2RunnerBase):
         order; this rank's rows of them under a mesh."""
         idx = int(self.rng.integers(self.dataset.n_cameras))
         b = self.dataset.sample_pixels(self.rng, idx, self.stage_cfg.num_pixels)
-        return self._local({k: b[k] for k in BATCH_KEYS})
+        b = {k: b[k] for k in BATCH_KEYS}
+        if self._graphed(self.step_config()):
+            return self._graph_set().put(b)
+        return self._local(b)
+
+    def _graphed(self, step_cfg) -> bool:
+        """Whether a step at ``step_cfg`` takes the graph path: compacted,
+        on a CUDA device without a mesh."""
+        return self._graph_on and bool(effective_chunk(self.stage_cfg.num_pixels,
+                                                       step_cfg.compact_chunk))
+
+    def _graph_set(self) -> MaterialGraphs:
+        if self.graphs is None:
+            self.graphs = MaterialGraphs(self.trainable, self.stage_cfg.compact_chunk,
+                                         self.device)
+        return self.graphs
+
+    def _graph_step(self, batch: dict, key: tuple, loss_fn) -> dict | None:
+        """The step on the graph path, on ``batch`` in the buffers of
+        ``graphs.put``: the march and the wait for the surface rows eager,
+        then the replay of the graph of the rows' bucket and ``key`` (the
+        loss call's host-side flags; ``loss_fn(batch, draws, traced,
+        padded)`` is captured at its first step), the gradients handed to
+        ``.grad`` and the update. None where the path is off (a capture
+        failed): the caller steps eagerly on ``batch``."""
+        graphs = self._graph_set()
+        if graphs.failed:
+            graphs.eager_fallbacks += 1
+            return None
+        with span("forward"):
+            dists, hit = self.model().trace(batch["points"], batch["dirs"])[:2]
+            idx = needed_rows(hit & batch["object_mask"])
+            out = graphs.run(key, idx, (dists, hit), loss_fn, self.generator)
+        if out is None:
+            return None
+        metrics, grads = out
+        with span("backward"):
+            for p, g in zip(self.trainable, grads):
+                p.grad = g
+        return self._apply(metrics)
 
     def _update(self, loss: torch.Tensor, metrics: dict) -> dict:
-        """The Adam update of ``loss`` at ``cur_iter``'s learning rate (the
-        gradients and metrics summed over a mesh's ranks first); then
-        ``cur_iter`` + 1, and every ``guard_every`` steps the surface
-        fraction read (a wait for the device; global, so every rank picks
-        the same step). Returns the metrics detached."""
+        """The Adam update of ``loss`` (``_apply`` after its backward)."""
         self.optimizer.zero_grad(set_to_none=True)
         with span("backward"):
             loss.backward()
+        return self._apply(metrics)
+
+    def _apply(self, metrics: dict) -> dict:
+        """The Adam update of the gradients in ``.grad`` at ``cur_iter``'s
+        learning rate (the gradients and metrics summed over a mesh's ranks
+        first); then ``cur_iter`` + 1, and every ``guard_every`` steps the
+        surface fraction read (a wait for the device; global, so every rank
+        picks the same step). Returns the metrics detached."""
         with span("update"):
             metrics = self._reduce(metrics)
             for group in self.optimizer.param_groups:

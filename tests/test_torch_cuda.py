@@ -475,11 +475,17 @@ def _pbr_runner(dev, num_pixels: int):
 
 def test_pbr_steps_launch_k3_at_their_rows(dev):
     """Three PBR steps (1,024 pixels, row mode): finite metrics, and per
-    step one grid march at 1,024 rays and one K3 at the step's surface rows,
-    which keeps no state (the frozen NeuS has no backward), no K1, K2 or
-    K4; K3 at each of those row counts against its plain version at the
-    SDF trunk's full width."""
+    step one grid march at 1,024 rays. The steps replay CUDA graphs of
+    their row buckets (``stages/material_graph.py``): K3, which keeps no
+    state (the frozen NeuS has no backward), passes through its wrapper
+    once at one chunk of rows (the probe that notes the step's draws) and
+    once at each capture, at the step's surface rows rounded up to whole
+    chunks; no K1, K2 or K4. K3 at each of those row counts against its
+    plain version at the SDF trunk's full width."""
+    from robir_tpu_torch.core.compact import bucket_rows
+
     runner = _pbr_runner(dev, 1024)
+    chunk = runner.stage_cfg.compact_chunk
     kernels = (tfm.FORWARD, tfm.BACKWARD, tfv.FORWARD, tfv.BACKWARD, tgm.MARCH, tfv.KEPT)
     for k in kernels:
         k.reset()
@@ -487,10 +493,14 @@ def test_pbr_steps_launch_k3_at_their_rows(dev):
     for _ in range(3):
         metrics = runner.run(1)
         assert all(np.isfinite(v) for v in metrics.values()), metrics
-        rows.append(max(round(metrics["surface_frac"] * 1024), 1))
-    assert [k.launches for k in kernels] == [0, 0, 3, 0, 3, 0]
-    assert sorted(r for (_, r), n in tfv.FORWARD.by_shape.items() for _ in range(n)) == sorted(rows)
-    assert all(16 < r < 1024 for r in rows)
+        rows.append(bucket_rows(round(metrics["surface_frac"] * 1024), chunk))
+    graphs = runner.graphs
+    assert (graphs.replays, graphs.eager_fallbacks) == (3, 0)
+    assert [k.launches for k in kernels] == [0, 0, 1 + graphs.captures, 0, 3, 0]
+    launched = {r for (_, r) in tfv.FORWARD.by_shape}
+    assert launched == {chunk} | set(rows)
+    assert all(16 < r <= 1024 for r in rows)
+    rows = sorted(launched)
     plan = tfm.plan_from_sdf_config(SDFConfig())
     x, ws, bs = trunk_case(plan, 7, max(rows))
     x, ws, bs = to_t(x, dev), [to_t(w, dev) for w in ws], [to_t(b, dev) for b in bs]
