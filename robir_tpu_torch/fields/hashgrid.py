@@ -10,6 +10,10 @@ Corner coordinates stay below 2^13 (the finest default level is 7,006
 nodes a side), so no ``int64`` product overflows. Plain PyTorch gathers:
 the JAX package has no Pallas kernel here (its encoding is XLA gathers);
 the tables' gradient is the gather's backward, a scatter-add.
+
+Under a profiler the level loop runs in the span ``hash.encode``, and each
+call then counts its points as ``hash.points`` (a host int, just after the
+span); without one both are the shared no-op.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..tools.profiler import count, span
 from .mlp import Params, apply_linear, init_linear
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -73,15 +78,17 @@ def hashgrid_encode(params: Params, cfg: HashGridConfig, x: torch.Tensor) -> tor
     is_one = (corners == 1)[None]                                   # [1, 8, 3]
     tables = params["tables"]
     feats = []
-    for level in range(cfg.n_levels):
-        g = u * (cfg.resolution(level) - 1)
-        g0 = torch.floor(g)
-        frac = g - g0
-        idx = g0.to(torch.int64)[:, None, :] + corners[None]       # [N, 8, 3]
-        h = spatial_hash(idx) & (cfg.table_size - 1)                # [N, 8]
-        vals = tables[level][h]                                     # [N, 8, F]
-        w = torch.where(is_one, frac[:, None, :], 1.0 - frac[:, None, :]).prod(-1)
-        feats.append(torch.sum(vals * w[..., None], dim=1))
+    with span("hash.encode"):
+        for level in range(cfg.n_levels):
+            g = u * (cfg.resolution(level) - 1)
+            g0 = torch.floor(g)
+            frac = g - g0
+            idx = g0.to(torch.int64)[:, None, :] + corners[None]   # [N, 8, 3]
+            h = spatial_hash(idx) & (cfg.table_size - 1)            # [N, 8]
+            vals = tables[level][h]                                 # [N, 8, F]
+            w = torch.where(is_one, frac[:, None, :], 1.0 - frac[:, None, :]).prod(-1)
+            feats.append(torch.sum(vals * w[..., None], dim=1))
+    count("hash.points", x.shape[0])
     return torch.cat(feats, dim=-1)
 
 
